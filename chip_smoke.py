@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Bring-up check of the PyTorch port on one NVIDIA card (H100).
+
+Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
+``src`` on ``sys.path``, imports the port (``repro_torch``; never JAX or the
+JAX package) and runs six phases, each printing one JSON line:
+
+  1. device   -- ``nvidia-smi`` name and power limit, torch and CUDA versions
+  2. build    -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
+                 source, in parallel) into ``build/repro_torch/``
+  3. kernels  -- each hand-written kernel (K1 gate matmul + TwELL pack, K2
+                 fused up/down projection, K3 paged decode attention, K4 paged
+                 chunk attention) on the card at the main path's shapes in
+                 bfloat16, held against its plain PyTorch version on the same
+                 inputs, then timed beside the plain version, a library call
+                 and its bound
+  4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
+                 (gather/TwELL backend, paged KV, chunked prefill, prefix
+                 cache): 6 greedy requests; every kernel's launch count over
+                 exactly this run must be above 0
+  5. check    -- the same weights in float32 on the CPU (plain versions)
+                 against the card for two prompts: prefill plus 4 decode
+                 steps, logits within a stated tolerance
+  6. the kernel table ``{"kernels": [...]}``, then the last line
+     ``{"ok": true, "device": {...}}``.
+
+Any failure raises: the script exits non-zero and prints no last line. It
+exits non-zero without a card and when the repo's ``src/`` is absent.
+Random weights are made from a seed; nothing is downloaded.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+BF16_TOL = 2e-2                    # as tests/test_kernels.py for bf16
+LOGIT_TOL = 0.1                    # card bf16 vs CPU f32 logits, see phase 5
+SEED = 0
+KEEP = 0.02                        # fraction of gate columns alive
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
+              "repo root", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False         # run in full f32
+
+    smi = phase_device(torch)
+    phase_build()
+    kernels = phase_kernels(torch)
+    serve = phase_serve(torch)
+    phase_check(torch, serve)
+    for k in kernels:
+        k["launches"] = serve["launches"][k["name"]]
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# 1-2. device and build
+# --------------------------------------------------------------------------- #
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    secs = build.build_all()
+    usage = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in build.BUILD_LOG.items()}
+    emit({"phase": "build", "seconds": round(secs, 2),
+          "sources": [p.name for p in build.sources()],
+          "dir": str(build.BUILD_DIR), "ptxas": usage})
+
+
+# --------------------------------------------------------------------------- #
+# 3. kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+class Timer:
+    """Mean device time of one call: CUDA events around each call, with the
+    L2 cache flushed before every call (on the main path each of the 8
+    layers reads its own weights and pages, so a call finds them cold) and
+    the card held busy by a spin kernel while the host enqueues the call,
+    so the events time the device work and not the Python in front of it."""
+
+    SPIN_CYCLES = 20_000_000          # ~10 ms at the H100's 1.98 GHz
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8,
+                                     device="cuda")
+
+    def ms(self, fn, iters=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            self.flush_buf.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            total += a.elapsed_time(b)
+        return total / iters
+
+
+def bound_ms(nbytes, flops):
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def close_err(torch, got, want, mask=None):
+    """max |got - want| and whether |got - want| <= tol + tol * |want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = diff <= BF16_TOL + BF16_TOL * want.abs()
+    if mask is not None:
+        diff = diff[mask]
+        ok = ok[mask]
+    return float(diff.max()) if diff.numel() else 0.0, bool(ok.all())
+
+
+def gate_inputs(torch, m, k, n, gen):
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).bfloat16()
+    alive = torch.rand((n,), generator=gen, device="cuda") < KEEP
+    wg = (torch.randn((k, n), generator=gen, device="cuda") * 0.08
+          * alive[None]).bfloat16()
+    wu = (torch.randn((k, n), generator=gen, device="cuda") * 0.08).bfloat16()
+    wd = (torch.randn((n, k), generator=gen, device="cuda") * 0.08).bfloat16()
+    return x, wg, wu, wd
+
+
+def check_k1_k2(torch, timer, m, gen):
+    from repro_torch.core import twell
+    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                                twell_fused_ffn_plain)
+    from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                                twell_gate_matmul_plain)
+    k, n, t, c = 2048, 5632, 256, 8
+    tc = t // c
+    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
+    wu_t = wu.t().contiguous()
+    # K1
+    v, i, z = twell_gate_matmul_cuda(x, wg, t, c, "relu")
+    pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, "relu")
+    torch.cuda.synchronize()
+    pre = x.float() @ wg.float()
+    # a pre-activation within 1e-3 max|pre| of zero may round either way
+    near = ((pre != 0) & (pre.abs() < 1e-3 * pre.abs().max())).any(-1)
+    rows = ~near
+    assert bool((z[rows] == pz[rows]).all()), f"K1 nnz mismatch (M={m})"
+    assert bool((i[rows] == pi[rows]).all()), f"K1 indices mismatch (M={m})"
+    assert int(z.max()) <= tc, f"K1 geometry overflows (M={m})"
+    err1, ok1 = close_err(torch, v[rows], pv[rows])
+    assert ok1, f"K1 values disagree with the plain version (M={m}): {err1}"
+    out_bytes = m * n // c * (2 + 4) + m * n // t * 4
+    b1, by1 = bound_ms(2 * (m * k + k * n) + out_bytes, 2 * m * k * n)
+    k1 = {"ms": timer.ms(lambda: twell_gate_matmul_cuda(x, wg, t, c)),
+          "plain_ms": timer.ms(lambda: twell_gate_matmul_plain(x, wg, t, c),
+                               iters=5),
+          "library_ms": timer.ms(lambda: torch.matmul(x, wg)),
+          "bound_ms": b1, "bound_by": by1, "max_abs_err": err1,
+          "near_zero_rows": int(near.sum()), "M": m}
+    # K2, on the plain version's packed gate (the same input for both)
+    tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
+                         t, c, n)
+    y = twell_fused_ffn_cuda(x, tw, wu_t, wd)
+    py = twell_fused_ffn_plain(x, tw, wu_t, wd)
+    torch.cuda.synchronize()
+    err2, ok2 = close_err(torch, y, py)
+    assert ok2, f"K2 disagrees with the plain version (M={m}): {err2}"
+    assert torch.equal(y, twell_fused_ffn_cuda(x, tw, wu_t, wd)), \
+        "K2 is not run-to-run deterministic"
+    valid = twell.slot_valid(tw)
+    slots = int(valid.sum())
+    cols = int(torch.unique(tw.indices[valid]).numel())
+    in_bytes = 2 * m * k + m * n // c * (2 + 4) + m * n // t * 4
+    b2, by2 = bound_ms(in_bytes + 2 * cols * k * 2 + 4 * m * k,
+                       4 * k * slots)
+
+    def dense_ffn():
+        return torch.matmul(torch.matmul(x, wu) * torch.relu(
+            torch.matmul(x, wg)), wd)
+
+    k2 = {"ms": timer.ms(lambda: twell_fused_ffn_cuda(x, tw, wu_t, wd)),
+          "plain_ms": timer.ms(lambda: twell_fused_ffn_plain(x, tw, wu_t,
+                                                              wd), iters=5),
+          "library_ms": timer.ms(dense_ffn),
+          "bound_ms": b2, "bound_by": by2, "max_abs_err": err2,
+          "active_slots_per_row": slots / m, "distinct_columns": cols,
+          "M": m}
+    return k1, k2
+
+
+def paged_inputs(torch, gen, b, hkv, hd, bs, width):
+    n = 1 + b * width
+    kpool = torch.randn((n, bs, hkv, hd), generator=gen,
+                        device="cuda").bfloat16()
+    vpool = torch.randn((n, bs, hkv, hd), generator=gen,
+                        device="cuda").bfloat16()
+    perm = torch.randperm(n - 1, generator=gen, device="cuda") + 1
+    bt = perm[:b * width].reshape(b, width).int().contiguous()
+    return kpool, vpool, bt
+
+
+def gathered(torch, pool, bt, h):
+    from repro_torch.kernels.paged_decode_attention import gather_pages
+    return gather_pages(pool, bt, h).transpose(1, 2).contiguous()
+
+
+def check_k3(torch, timer, h, hkv, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+    b, hd, bs, width = 4, 64, 16, 64
+    sl_list = [1000, 517, 33, 700]
+    kpool, vpool, bt = paged_inputs(torch, gen, b, hkv, hd, bs, width)
+    sl = torch.tensor(sl_list, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").bfloat16()
+    o = paged_decode_attention_cuda(q, kpool, vpool, bt, sl)
+    po = paged_decode_attention_plain(q, kpool, vpool, bt, sl)
+    torch.cuda.synchronize()
+    err, ok = close_err(torch, o, po)
+    assert ok, f"K3 disagrees with the plain version (H={h}, Hkv={hkv}): {err}"
+    pages = sum(s // bs + 1 for s in sl_list)
+    nbytes = 2 * (2 * b * h * hd) + pages * bs * hkv * hd * 2 * 2
+    bnd, by = bound_ms(nbytes, 4 * h * hd * sum(s + 1 for s in sl_list))
+    kf, vf = gathered(torch, kpool, bt, h), gathered(torch, vpool, bt, h)
+    kpos = torch.arange(width * bs, device="cuda")
+    mask = (kpos[None, :] <= sl[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    return {"ms": timer.ms(lambda: paged_decode_attention_cuda(
+                q, kpool, vpool, bt, sl)),
+            "plain_ms": timer.ms(lambda: paged_decode_attention_plain(
+                q, kpool, vpool, bt, sl), iters=5),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kf, vf, attn_mask=mask)),
+            "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+            "H": h, "Hkv": hkv, "seq_lens": sl_list}
+
+
+def check_k4(torch, timer, h, hkv, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_chunk_attention import (
+        paged_chunk_attention_cuda, paged_chunk_attention_plain)
+    b, s, hd, bs, width = 4, 64, 64, 16, 64
+    sl_list, nn_list = [900, 448, 300, 0], [64, 40, 64, 0]
+    kpool, vpool, bt = paged_inputs(torch, gen, b, hkv, hd, bs, width)
+    sl = torch.tensor(sl_list, dtype=torch.int32, device="cuda")
+    nn = torch.tensor(nn_list, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    o = paged_chunk_attention_cuda(q, kpool, vpool, bt, sl, nn)
+    po = paged_chunk_attention_plain(q, kpool, vpool, bt, sl, nn)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all()), "K4 produced non-finite rows"
+    assert float(o[3].float().abs().max()) == 0.0, \
+        "K4: a padded row (num_new = 0, empty history) must be exactly zero"
+    valid = (torch.arange(s, device="cuda")[None, :] < nn[:, None])
+    err, ok = close_err(torch, o, po, valid[:, :, None, None].expand_as(o))
+    assert ok, f"K4 disagrees with the plain version (H={h}, Hkv={hkv}): {err}"
+    pages = sum((sl_ + nn_ - 1) // bs + 1 for sl_, nn_ in zip(sl_list, nn_list)
+                if nn_ > 0)
+    keys = sum(sl_ + i + 1 for sl_, nn_ in zip(sl_list, nn_list)
+               for i in range(nn_))
+    nbytes = 2 * (2 * b * s * h * hd) + pages * bs * hkv * hd * 2 * 2
+    bnd, by = bound_ms(nbytes, 4 * h * hd * keys)
+    kf, vf = gathered(torch, kpool, bt, h), gathered(torch, vpool, bt, h)
+    pos = sl[:, None] + torch.arange(s, device="cuda")[None, :]
+    kpos = torch.arange(width * bs, device="cuda")
+    mask = (kpos[None, None, :] <= pos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    return {"ms": timer.ms(lambda: paged_chunk_attention_cuda(
+                q, kpool, vpool, bt, sl, nn)),
+            "plain_ms": timer.ms(lambda: paged_chunk_attention_plain(
+                q, kpool, vpool, bt, sl, nn), iters=5),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kf, vf, attn_mask=mask)),
+            "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+            "H": h, "Hkv": hkv, "chunk": s, "seq_lens": sl_list,
+            "num_new": nn_list}
+
+
+KERNELS = {
+    "twell_gate_matmul": ("src/repro_torch/kernels/csrc/twell_pack.cu",
+                          "src/repro/kernels/twell_pack.py:61"),
+    "twell_fused_ffn": ("src/repro_torch/kernels/csrc/twell_fused_ffn.cu",
+                        "src/repro/kernels/sparse_ffn.py:50"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:77"),
+    "paged_chunk_attention": (
+        "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
+        "src/repro/kernels/paged_chunk_attention.py:78"),
+}
+
+
+def phase_kernels(torch):
+    """One entry per kernel: the top-level numbers at the shape the main
+    path runs most (decode: M = 4 for K1/K2, K3; the 64-token prefill chunk
+    for K4); every measured case under "cases"."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timer = Timer(torch)
+    k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
+    k1_256, k2_256 = check_k1_k2(torch, timer, 256, gen)
+    cases = {
+        "twell_gate_matmul": [k1_4, k1_256],
+        "twell_fused_ffn": [k2_4, k2_256],
+        "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
+                                   check_k3(torch, timer, 32, 8, gen)],
+        "paged_chunk_attention": [check_k4(torch, timer, 32, 32, gen),
+                                  check_k4(torch, timer, 32, 8, gen)],
+    }
+    out = []
+    for name, runs in cases.items():
+        head = runs[0]
+        src, replaces = KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": max(r["max_abs_err"] for r in runs),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"], "cases": runs})
+    emit({"phase": "kernels", "tolerance": BF16_TOL,
+          "summary": {k["name"]: {"max_abs_err": k["max_abs_err"],
+                                  "ms": k["ms"]} for k in out}})
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 4. the main path: full-width paper-0.5b through the serving engine
+# --------------------------------------------------------------------------- #
+
+def model_and_prompts(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("paper-0.5b")
+    params = lm.init(cfg, device="cuda", seed=SEED)
+    # random weights stand in for a trained model: keep 2% of the gate
+    # columns alive, the ~99%-zero gate activations of the paper's regime
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    alive = torch.rand((cfg.num_layers, 1, cfg.d_ff), generator=gen,
+                       device="cuda") < KEEP
+    params["blocks"]["ffn"]["wg"] *= alive.to(params["blocks"]["ffn"]["wg"])
+    rng = np.random.RandomState(SEED)
+
+    def toks(n):
+        return rng.randint(0, cfg.vocab_size, n).tolist()
+    shared = toks(256)
+    prompts = [shared + toks(64), toks(512), toks(64), toks(200),
+               shared + toks(128), toks(96)]
+    return cfg, params, prompts
+
+
+def phase_serve(torch):
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+    cfg, params, prompts = model_and_prompts(torch)
+    new_tokens = 32
+    engine = ServingEngine(params, cfg, backend="gather", block_size=16,
+                           max_batch=4, max_seq_len=512 + new_tokens,
+                           prefill_chunk=64, device="cuda")
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert all(v > 0 for v in launches.values()), \
+        f"a kernel of the main path never launched: {launches}"
+    assert not ops.OverflowLog.seen(), "a TwELL gate tile overflowed"
+    assert all(len(o.token_ids) == new_tokens for o in outs), \
+        [len(o.token_ids) for o in outs]
+    assert engine.cached_tokens_total > 0, "the prefix cache never hit"
+    engine.kv.check_invariants()
+    assert engine.kv.num_available == engine.kv.num_blocks - 1, \
+        "KV blocks leaked"
+    total = sum(len(o.token_ids) for o in outs)
+    ttft = sorted(o.ttft for o in outs)
+    decode_ms = [s.wall_ms for s in engine.stats
+                 if s.decode_batch and not s.prefill_tokens]
+    res = {"phase": "serve", "arch": cfg.name, "backend": "gather",
+           "dtype": cfg.param_dtype, "requests": len(outs),
+           "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": new_tokens, "wall_s": wall,
+           "tokens_per_s": total / wall, "ttft_ms_mean": 1e3 * sum(ttft) /
+           len(ttft), "ttft_ms_max": 1e3 * ttft[-1],
+           "decode_step_ms_mean": (sum(decode_ms) / len(decode_ms)
+                                   if decode_ms else None),
+           "steps": len(engine.stats),
+           "cached_prefix_tokens": engine.cached_tokens_total,
+           "launches": launches, "first_tokens": [o.token_ids[0]
+                                                  for o in outs]}
+    emit(res)
+    emit(profile_serve(torch, cfg, params, prompts, new_tokens))
+    res.update(cfg=cfg, params=params, prompts=prompts, outs=outs)
+    return res
+
+
+def profile_serve(torch, cfg, params, prompts, new_tokens):
+    """The same workload once more, on a fresh engine under torch.profiler:
+    device busy share (kernel time over wall time; the profiler's own host
+    cost makes it a lower bound) and device time by kernel. Not part of the
+    launch counts, which cover the unprofiled run only."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(params, cfg, backend="gather", block_size=16,
+                           max_batch=4, max_seq_len=512 + new_tokens,
+                           prefill_chunk=64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompts, max_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        kernels.append((us / 1e3, evt.count, evt.key[:90]))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return {"phase": "profile", "wall_ms": wall_ms,
+            "device_kernel_ms": busy_ms if kernels else "not measured",
+            "device_busy_share": busy_ms / wall_ms if kernels else None,
+            "top_kernels": [{"ms": ms, "calls": n, "name": name}
+                            for ms, n, name in kernels[:12]]}
+
+
+# --------------------------------------------------------------------------- #
+# 5. the same weights in float32 on the CPU
+# --------------------------------------------------------------------------- #
+
+def run_paged(torch, params, cfg, prompt, steps, device, forced=None):
+    """Prefill ``prompt`` in one chunk, then ``steps`` greedy decode steps
+    (feeding ``forced`` tokens when given). Returns the logits rows."""
+    from repro_torch.models import lm
+    from repro_torch.serving.backends import DECODE, PREFILL, get_backend
+    be = get_backend("gather")
+    bs = 16
+    width = -(-(len(prompt) + steps) // bs)
+    pools = lm.init_paged_cache(cfg, 1 + width, bs, device=device)
+    bt = torch.arange(1, 1 + width, dtype=torch.int32,
+                      device=device)[None]
+    toks = torch.tensor([prompt], dtype=torch.int32, device=device)
+    num_new = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    logits, _ = lm.paged_prefill(params, pools, bt, toks, num_new,
+                                 be.configure(cfg, PREFILL), last_only=True)
+    rows = [logits[0, 0].float().cpu()]
+    for i in range(steps):
+        tok = forced[i] if forced is not None else int(rows[-1].argmax())
+        sl = torch.tensor([len(prompt) + i], dtype=torch.int32, device=device)
+        logits, _ = lm.paged_decode_step(
+            params, pools, bt, sl,
+            torch.tensor([[tok]], dtype=torch.int32, device=device),
+            be.configure(cfg, DECODE))
+        rows.append(logits[0, 0].float().cpu())
+    return rows
+
+
+def phase_check(torch, serve):
+    """Tolerance: card logits (bf16 weights and activations, 8 layers) within
+    LOGIT_TOL of the CPU's float32 logits, whose spread is about 1; a bf16
+    value carries 8 significant bits, a relative rounding of 2^-9 per step.
+    A token must match wherever the CPU's top-2 margin exceeds the tolerance."""
+    from repro_torch.models import lm
+    cfg, params = serve["cfg"], serve["params"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    cpu_params = lm.params_to(params, "cpu")
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+    cpu_params = f32(cpu_params)
+    report = []
+    with torch.no_grad():
+        for ridx in (2, 5):                  # the 64- and 96-token prompts
+            prompt = serve["prompts"][ridx]
+            ref = run_paged(torch, cpu_params, cfg32, prompt, 4, "cpu")
+            forced = [int(r.argmax()) for r in ref[:-1]]
+            card = run_paged(torch, params, cfg, prompt, 4, "cuda",
+                             forced=forced)
+            diffs = [float((a - b).abs().max()) for a, b in zip(card, ref)]
+            for step, (a, b) in enumerate(zip(card, ref)):
+                assert bool(torch.isfinite(a).all()), "non-finite logits"
+                assert a.shape == (cfg.padded_vocab,)
+                top2 = torch.topk(b, 2).values
+                if float(top2[0] - top2[1]) > LOGIT_TOL:
+                    assert int(a.argmax()) == int(b.argmax()), \
+                        f"prompt {ridx} step {step}: token differs"
+            engine_first = serve["outs"][ridx].token_ids[0]
+            top2 = torch.topk(ref[0], 2).values
+            if float(top2[0] - top2[1]) > LOGIT_TOL:
+                assert engine_first == int(ref[0].argmax()), \
+                    f"prompt {ridx}: engine's first token differs from CPU"
+            assert max(diffs) <= LOGIT_TOL, \
+                f"prompt {ridx}: card vs CPU logits differ by {max(diffs)}"
+            report.append({"prompt": ridx, "len": len(prompt),
+                           "max_abs_logit_diff": diffs,
+                           "cpu_top2_margin": float(top2[0] - top2[1]),
+                           "engine_first_token": engine_first,
+                           "cpu_first_token": int(ref[0].argmax())})
+    emit({"phase": "check", "tolerance": LOGIT_TOL, "prompts": report})
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,92 @@
+"""Public kernel entry points, dispatched by the device of their inputs.
+
+A CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor
+launches the hand-written Hopper kernel, or raises. There is no mode
+switch and no fallback from a failed build or launch to the plain
+version. (The JAX package's ``repro/kernels/ops.py`` picks between its
+Pallas kernels and their references by platform and an environment
+variable; the port has neither.)
+
+``twell_gate_matmul`` applies the TwELL overflow contract of
+``repro/kernels/ops.py:29-40``: the kernel's exact per-tile counts are
+clipped to T/C and the overflow flag is raised when any tile exceeded it.
+Each call ORs its flag into ``OverflowLog`` (a device flag, read without a
+sync until ``OverflowLog.seen()``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import twell
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_chunk_attention import (
+    paged_chunk_attention_cuda, paged_chunk_attention_plain)
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention_cuda, paged_decode_attention_plain)
+from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                            twell_fused_ffn_plain)
+from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                            twell_gate_matmul_plain)
+
+
+class OverflowLog:
+    """Whether any TwELL gate tile overflowed its T/C slots since the last
+    ``reset()``. The flag stays on the device: recording costs no sync."""
+
+    _flag: Optional[torch.Tensor] = None
+
+    @classmethod
+    def record(cls, overflow: torch.Tensor) -> None:
+        if cls._flag is None or cls._flag.device != overflow.device:
+            cls._flag = overflow.clone()
+        else:
+            cls._flag |= overflow
+
+    @classmethod
+    def seen(cls) -> bool:
+        return bool(cls._flag) if cls._flag is not None else False
+
+    @classmethod
+    def reset(cls) -> None:
+        cls._flag = None
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since ``reset_launch_counts()``."""
+    return dict(build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    build.reset_launches()
+
+
+def twell_gate_matmul(x, w, tile: int, compression: int, act: str = "relu"
+                      ) -> twell.TwellActs:
+    fn = twell_gate_matmul_cuda if x.is_cuda else twell_gate_matmul_plain
+    vals, idx, nnz = fn(x, w, tile, compression, act)
+    tc = tile // compression
+    overflow = (nnz > tc).any()
+    OverflowLog.record(overflow)
+    return twell.TwellActs(vals, idx, torch.clamp(nnz, max=tc), overflow,
+                           tile, compression, w.shape[1])
+
+
+def twell_fused_ffn(x, tw: twell.TwellActs, wu_t, wd):
+    """y = Eq. 3 from the packed gate; ``wu_t`` is W_u transposed (N, K)."""
+    if x.is_cuda:
+        return twell_fused_ffn_cuda(x, tw, wu_t, wd).to(x.dtype)
+    return twell_fused_ffn_plain(x, tw, wu_t, wd)
+
+
+def paged_attention_decode(q, kpool, vpool, block_tables, seq_lens):
+    fn = paged_decode_attention_cuda if q.is_cuda \
+        else paged_decode_attention_plain
+    return fn(q, kpool, vpool, block_tables, seq_lens)
+
+
+def paged_attention_extend(q, kpool, vpool, block_tables, seq_lens, num_new):
+    fn = paged_chunk_attention_cuda if q.is_cuda \
+        else paged_chunk_attention_plain
+    return fn(q, kpool, vpool, block_tables, seq_lens, num_new)

@@ -1,0 +1,185 @@
+"""Dense-family LM for paged serving (ports the paged entry points of
+``repro/models/lm.py``).
+
+Public API:
+  init(cfg, device=None, seed=0)             -> params
+  prepare_params(params)                     -> params (+ derived weights)
+  init_paged_cache(cfg, num_blocks, block_size, device=None) -> pools
+  paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
+  paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
+
+Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
+every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
+onto the other leaf for leaf. The layer stack is a Python loop (the JAX
+package scans). The KV pools are updated in place; the paged entry points
+return them anyway, in the JAX package's ``(logits, pools)`` shape.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.config import ModelConfig
+from repro_torch.core import sparse_ffn
+from repro_torch.models.layers import (attention, attn_init, embed_init,
+                                       embed_lookup, lm_logits, rmsnorm)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"the port serves the dense family with rmsnorm; got family "
+            f"{cfg.family!r}, norm {cfg.norm!r}")
+
+
+def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
+    """Random parameters (normal, std 0.02) from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (default: the card)."""
+    _check_family(cfg)
+    dev = device_mod.resolve(device)
+    dtype = device_mod.torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, L = cfg.d_model, cfg.num_layers
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    layers = []
+    for _ in range(L):
+        layers.append({
+            "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, dtype, gen, dev),
+            "ffn": sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen, dev),
+        })
+    blocks = {
+        "ln1": {"scale": ones((L, d))},
+        "ln2": {"scale": ones((L, d))},
+        "attn": {k: torch.stack([p["attn"][k] for p in layers])
+                 for k in layers[0]["attn"]},
+        "ffn": {k: torch.stack([p["ffn"][k] for p in layers])
+                for k in layers[0]["ffn"]},
+    }
+    params: Dict[str, Any] = {
+        "embed": embed_init(cfg.padded_vocab, d, dtype, gen, dev),
+        "final_ln": {"scale": ones((d,))},
+        "blocks": blocks,
+    }
+    if not cfg.tied_embeddings:
+        params["lm_head"] = embed_init(cfg.padded_vocab, d, dtype, gen, dev)
+    return prepare_params(params)
+
+
+def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Add the weights derived once at load time: ``blocks.ffn.wu_t``, W_u
+    transposed to (L, N, K), which the TwELL fused kernel (K2) reads by
+    row. Idempotent."""
+    ffn = params["blocks"]["ffn"]
+    if "wu_t" not in ffn:
+        ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
+    return params
+
+
+def params_to(params, device) -> Dict[str, Any]:
+    """The same parameter tree with every tensor on ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def _layer(tree, l: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Block-paged KV pools, (L, num_blocks, block_size, Hkv, hd) each;
+    block 0 is the null block (see serving/kv_cache.py)."""
+    _check_family(cfg)
+    if cfg.window or cfg.attn_chunk:
+        raise NotImplementedError(
+            "paged KV serving does not support windowed/chunked attention yet")
+    dev = device_mod.resolve(device)
+    dtype = device_mod.torch_dtype(cfg.param_dtype)
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"kpool": torch.zeros(shape, dtype=dtype, device=dev),
+            "vpool": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _block_apply(p, x, cfg, positions, cache, collect_aux):
+    a = attention(p["attn"], rmsnorm(x, p["ln1"]["scale"]), cfg,
+                  positions=positions, cache=cache)
+    x = x + a
+    y, aux = sparse_ffn.apply(p["ffn"], rmsnorm(x, p["ln2"]["scale"]),
+                              cfg.sparsity, cfg.gated,
+                              collect_aux=collect_aux)
+    return x + y, aux
+
+
+def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
+                num_new=None, last_rows=None, collect_aux=False):
+    probes = []
+    for l in range(cfg.num_layers):
+        cache = {"kpool": pools["kpool"][l], "vpool": pools["vpool"][l],
+                 "block_tables": block_tables, "seq_lens": seq_lens}
+        if num_new is not None:
+            cache["num_new"] = num_new
+        x, aux = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
+                              cache, collect_aux)
+        if collect_aux:
+            probes.append(aux)
+    if last_rows is not None:
+        # keep only each row's last valid hidden state before the O(V) head
+        x = x[torch.arange(x.shape[0], device=x.device), last_rows.long()
+              ][:, None]
+    x = rmsnorm(x, params["final_ln"]["scale"])
+    head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+    logits = lm_logits(x, head)
+    if collect_aux:
+        aux_stack = {k: torch.stack([a[k] for a in probes])
+                     for k in ("nnz_mean", "tile_frac")}
+        aux_stack["ffn_present"] = torch.ones(cfg.num_layers,
+                                              device=x.device)
+        return logits, aux_stack, pools
+    return logits, pools
+
+
+def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,
+                  tokens: torch.Tensor, num_new: torch.Tensor,
+                  cfg: ModelConfig, start_lens: Optional[torch.Tensor] = None,
+                  last_only: bool = False, collect_aux: bool = False):
+    """Prefill a prompt chunk into the paged pools, appending to any cached
+    history. tokens: (B, C) right-padded chunk; num_new: (B,) valid chunk
+    lengths; start_lens: (B,) tokens already cached (None = 0); all int32.
+
+    Returns (logits, pools): (B, C, V) logits (rows past num_new are
+    garbage), or with ``last_only`` each row's last valid position only,
+    (B, 1, V). ``collect_aux`` adds a per-layer sparsity probe
+    ``{"nnz_mean", "tile_frac", "ffn_present"}`` (L,) in the middle."""
+    x = embed_lookup(params["embed"], tokens)
+    if start_lens is None:
+        start_lens = torch.zeros_like(num_new)
+    positions = start_lens[:, None] + \
+        torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    last_rows = torch.clamp(num_new - 1, 0, tokens.shape[1] - 1) \
+        if last_only else None
+    return _paged_scan(params, x, pools, cfg, positions, block_tables,
+                       start_lens, num_new=num_new, last_rows=last_rows,
+                       collect_aux=collect_aux)
+
+
+def paged_decode_step(params: Dict, pools: Dict, block_tables: torch.Tensor,
+                      seq_lens: torch.Tensor, tokens: torch.Tensor,
+                      cfg: ModelConfig, collect_aux: bool = False):
+    """Continuous-batching decode: one token per request. tokens: (B, 1);
+    seq_lens: (B,) cached lengths (the new token is written there).
+    Returns (logits (B, 1, V), pools). Padded rows (all-null table,
+    seq_len 0) produce garbage logits."""
+    x = embed_lookup(params["embed"], tokens)
+    positions = seq_lens[:, None]
+    return _paged_scan(params, x, pools, cfg, positions, block_tables,
+                       seq_lens, collect_aux=collect_aux)

@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
+head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
+padded rows. Marked ``cuda``: each test skips without an NVIDIA card (the
+fixture decides at run time). On the machine with the card, from the repo
+root:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: bf16 2e-2 (rtol and atol), as tests/test_kernels.py; TwELL
+indices and counts exactly, except on rows where a gate pre-activation
+lies within 1e-3 max|pre| of zero and may round either way.
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev).bfloat16()
+
+
+def _gate(m, k, n, keep, seed, dev):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, k) * 0.5
+    col = rng.rand(n) < keep
+    wg = rng.randn(k, n) * 0.08 * col[None]
+    wu = rng.randn(k, n) * 0.08
+    wd = rng.randn(n, k) * 0.08
+    return [_bf16(a, dev) for a in (x, wg, wu, wd)]
+
+
+GATE_SHAPES = [  # (M, K, N, T, C, act, keep)
+    (1, 64, 256, 64, 1, "relu", 0.3),
+    (37, 128, 512, 128, 4, "relu", 0.1),
+    (70, 256, 768, 256, 2, "relu2", 0.1),
+    (4, 2048, 5632, 256, 8, "relu", 0.02),
+    (300, 512, 1024, 256, 8, "relu", 0.05),
+    (16, 96, 512, 64, 8, "relu", 1.0),          # overflows T/C
+    (5, 200, 256, 64, 4, "relu", 0.2),          # K not a multiple of 64
+]
+
+
+@pytest.mark.parametrize("shape", GATE_SHAPES, ids=str)
+def test_gate_matmul_and_fused_ffn_match_plain(card, shape):
+    from repro_torch.core import twell
+    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                                twell_fused_ffn_plain)
+    from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                                twell_gate_matmul_plain)
+    m, k, n, t, c, act, keep = shape
+    x, wg, wu, wd = _gate(m, k, n, keep, sum(shape[:5]), card)
+    v, i, z = twell_gate_matmul_cuda(x, wg, t, c, act)
+    pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, act)
+    pre = x.float() @ wg.float()
+    rows = ~((pre != 0) & (pre.abs() < 1e-3 * pre.abs().max())).any(-1)
+    assert torch.equal(z[rows], pz[rows])
+    assert torch.equal(i[rows], pi[rows])
+    torch.testing.assert_close(v[rows].float(), pv[rows].float(), **TOL)
+    tc = t // c
+    tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
+                         t, c, n)
+    y = twell_fused_ffn_cuda(x, tw, wu.t().contiguous(), wd)
+    py = twell_fused_ffn_plain(x, tw, wu.t().contiguous(), wd)
+    torch.testing.assert_close(y, py.float(), **TOL)
+
+
+def _paged(rng, b, hkv, hd, bs, width, dev):
+    n = 1 + b * width
+    kp = _bf16(rng.randn(n, bs, hkv, hd), dev)
+    vp = _bf16(rng.randn(n, bs, hkv, hd), dev)
+    bt = rng.permutation(np.arange(1, n))[:b * width].reshape(b, width)
+    return kp, vp, torch.from_numpy(bt.astype(np.int32)).to(dev)
+
+
+ATTN_SHAPES = [  # (B, Hkv, G, hd, bs, width)
+    (3, 2, 2, 16, 4, 6),
+    (2, 4, 1, 32, 16, 9),
+    (4, 1, 16, 64, 16, 5),
+    (2, 2, 4, 128, 8, 7),
+    (2, 2, 1, 64, 64, 3),
+    (5, 3, 3, 48, 2, 11),
+]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_paged_decode_matches_plain(card, shape):
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+    b, hkv, g, hd, bs, width = shape
+    rng = np.random.RandomState(sum(shape))
+    kp, vp, bt = _paged(rng, b, hkv, hd, bs, width, card)
+    sl = rng.randint(0, width * bs, size=b)
+    sl[0], sl[-1] = 0, width * bs - 1                 # both ends of a table
+    if b > 2:
+        sl[1] = bs                                     # a page boundary
+        bt[2] = 0                                      # a padded row
+        sl[2] = 0
+    sl = torch.from_numpy(sl.astype(np.int32)).to(card)
+    q = _bf16(rng.randn(b, 1, hkv * g, hd), card)
+    o = paged_decode_attention_cuda(q, kp, vp, bt, sl)
+    po = paged_decode_attention_plain(q, kp, vp, bt, sl)
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), po.float(), **TOL)
+
+
+@pytest.mark.parametrize("s", [1, 5, 16, 64])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_paged_chunk_matches_plain(card, shape, s):
+    from repro_torch.kernels.paged_chunk_attention import (
+        paged_chunk_attention_cuda, paged_chunk_attention_plain)
+    b, hkv, g, hd, bs, width = shape
+    width = max(width, -(-(s + 1) // bs) + 1)
+    rng = np.random.RandomState(sum(shape) + s)
+    kp, vp, bt = _paged(rng, b, hkv, hd, bs, width, card)
+    sl = rng.randint(0, width * bs - s, size=b).astype(np.int32)
+    nn = rng.randint(1, s + 1, size=b).astype(np.int32)
+    sl[0] = 0                                          # fresh prefill
+    if b > 2:
+        nn[2], sl[2] = 0, 0                            # a padded row
+        bt[2] = 0
+    sl_t = torch.from_numpy(sl).to(card)
+    nn_t = torch.from_numpy(nn).to(card)
+    q = _bf16(rng.randn(b, s, hkv * g, hd), card)
+    o = paged_chunk_attention_cuda(q, kp, vp, bt, sl_t, nn_t)
+    po = paged_chunk_attention_plain(q, kp, vp, bt, sl_t, nn_t)
+    assert torch.isfinite(o.float()).all()
+    valid = torch.from_numpy(np.arange(s)[None, :] < nn[:, None]).to(card)
+    torch.testing.assert_close(o.float()[valid], po.float()[valid], **TOL)
+    if b > 2:
+        assert float(o[2].float().abs().max()) == 0.0
+
+
+def test_ops_dispatch_counts_launches(card):
+    from repro_torch.kernels import ops
+    x, wg, wu, wd = _gate(4, 64, 256, 0.3, 0, card)
+    ops.reset_launch_counts()
+    tw = ops.twell_gate_matmul(x, wg, 64, 2)
+    y = ops.twell_fused_ffn(x, tw, wu.t().contiguous(), wd)
+    assert y.dtype == x.dtype and y.is_cuda
+    counts = ops.launch_counts()
+    assert counts["twell_gate_matmul"] == 1 and counts["twell_fused_ffn"] == 1
+    assert counts["paged_decode_attention"] == 0
