@@ -3,26 +3,34 @@
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 ``src`` on ``sys.path``, imports the port (``repro_torch``; never JAX or the
-JAX package) and runs six phases, each printing one JSON line:
+JAX package) and runs these phases, each printing one JSON line:
 
   1. device   -- ``nvidia-smi`` name and power limit, torch and CUDA versions
   2. build    -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
                  source, in parallel) into ``build/repro_torch/``
   3. kernels  -- each hand-written kernel (K1 gate matmul + TwELL pack, K2
                  fused up/down projection, K3 paged decode attention, K4 paged
-                 chunk attention) on the card at the main path's shapes in
-                 bfloat16, held against its plain PyTorch version on the same
-                 inputs, then timed beside the plain version, a library call
-                 and its bound
+                 chunk attention, K5 tile-skip gated FFN) on the card at the
+                 main path's shapes in bfloat16, held against its plain
+                 PyTorch version on the same inputs, then timed beside the
+                 plain version, a library call and its bound
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
-                 cache): 6 greedy requests; every kernel's launch count over
-                 exactly this run must be above 0
-  5. check    -- the same weights in float32 on the CPU (plain versions)
-                 against the card for two prompts: prefill plus 4 decode
-                 steps, logits within a stated tolerance
-  6. the kernel table ``{"kernels": [...]}``, then the last line
-     ``{"ok": true, "device": {...}}``.
+                 cache): 6 greedy requests; the launch count of every kernel
+                 of this path (K1-K4) over exactly this run must be above 0;
+                 then a profiled rerun (phase "profile")
+  5. spec     -- the same weights and prompts through self-speculative
+                 decoding (k = 4 tile-skip drafts, K5 + K3; one batched
+                 TwELL verify, K1 + K2 + K4): every kernel's launch count
+                 over the greedy run above 0, tokens equal to the
+                 non-speculative run's up to its first near-tie, the pool
+                 clean, and a seeded stochastic run twice with equal tokens
+  6. check    -- the same weights in float32 on the CPU (plain versions)
+                 against the card: prefill plus 4 decode steps of two prompts
+                 through the gather path and one through tile_skip, logits
+                 within a stated tolerance
+  7. the kernel table ``{"kernels": [...]}`` (launches summed over the serve
+     and spec runs), then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no last line. It
 exits non-zero without a card and when the repo's ``src/`` is absent.
@@ -46,6 +54,9 @@ BF16_TOL = 2e-2                    # as tests/test_kernels.py for bf16
 LOGIT_TOL = 0.1                    # card bf16 vs CPU f32 logits, see phase 5
 SEED = 0
 KEEP = 0.02                        # fraction of gate columns alive
+SPEC_K = 4                         # draft tokens per speculative step
+DRAFT_THRESHOLD = 2.5              # tile-skip gate threshold of the drafts:
+#                                    greedy acceptance 0.82 on these weights
 
 
 def emit(obj) -> None:
@@ -69,9 +80,11 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch)
     serve = phase_serve(torch)
+    spec = phase_spec(torch, serve)
     phase_check(torch, serve)
     for k in kernels:
-        k["launches"] = serve["launches"][k["name"]]
+        k["launches"] = serve["launches"][k["name"]] + \
+            spec["launches"][k["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -232,6 +245,65 @@ def check_k1_k2(torch, timer, m, gen):
     return k1, k2
 
 
+def check_k5(torch, timer, m, threshold, gen):
+    """K5 on the main path's FFN shape, with the W_g columns of 11 of the 22
+    tiles zeroed (dead for every row) so the skip branch runs on the card.
+    ``threshold`` None takes the median row-tile gate maximum of the live
+    tiles, so the threshold drops about half of them."""
+    from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
+                                                tile_skip_ffn_plain)
+    k, n, t = 2048, 5632, 256
+    nt = n // t
+    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
+    dead = torch.randperm(nt, generator=gen, device="cuda")[:nt // 2]
+    wg.view(k, nt, t)[:, dead] = 0
+    g = torch.relu(x.float() @ wg.float())
+    gmax = g.reshape(m, nt, t).amax(-1)
+    if threshold is None:
+        threshold = float(gmax[gmax > 0].median())
+    rb = -(-m // 32)
+    flags = torch.empty((rb, nt), dtype=torch.int32, device="cuda")
+    y, h = tile_skip_ffn_cuda(x, wg, wu, wd, t, "relu", threshold,
+                              cell_active=flags)
+    py, ph = tile_skip_ffn_plain(x, wg, wu, wd, t, "relu", threshold)
+    torch.cuda.synchronize()
+    # a row whose tile maximum lies within 1% of the threshold (or, at 0,
+    # within 1e-3 max of zero) may be kept or dropped by either side
+    near = (gmax - threshold).abs() <= 1e-2 * threshold if threshold else \
+        (gmax > 0) & (gmax <= 1e-3 * gmax.max())
+    rows = ~near.any(-1)
+    err_y, ok_y = close_err(torch, y[rows], py[rows])
+    err_h, ok_h = close_err(torch, h[rows], ph[rows])
+    assert ok_y and ok_h, \
+        f"K5 disagrees with the plain version (M={m}): {err_y} {err_h}"
+    y2, _ = tile_skip_ffn_cuda(x, wg, wu, wd, t, "relu", threshold)
+    assert torch.equal(y, y2), "K5 is not run-to-run deterministic"
+    assert not bool(flags[:, dead].any()), "K5 ran a dead tile"
+    keep = gmax > threshold                                   # (M, nT)
+    skipped = 1.0 - float(flags.float().mean())
+    tiles = int(flags.any(0).sum())        # tiles some active cell needs
+    kept_pairs = int(keep.sum())
+    nbytes = 2 * m * k + 2 * k * n + tiles * 2 * (2 * k * t) + \
+        4 * m * k + 2 * m * n
+    bnd, by = bound_ms(nbytes, 2 * m * k * n + kept_pairs * 4 * k * t)
+
+    def dense_ffn():
+        return torch.matmul(torch.matmul(x, wu) * torch.relu(
+            torch.matmul(x, wg)), wd)
+
+    return {"ms": timer.ms(lambda: tile_skip_ffn_cuda(x, wg, wu, wd, t,
+                                                       "relu", threshold)),
+            "plain_ms": timer.ms(lambda: tile_skip_ffn_plain(
+                x, wg, wu, wd, t, "relu", threshold), iters=5),
+            "library_ms": timer.ms(dense_ffn),
+            "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": max(err_y, err_h), "M": m,
+            "threshold": threshold, "dead_tiles": nt // 2,
+            "cells": rb * nt, "skipped_share": skipped,
+            "tiles_read": tiles, "kept_row_tiles": kept_pairs,
+            "near_threshold_rows": int((~rows).sum())}
+
+
 def paged_inputs(torch, gen, b, hkv, hd, bs, width):
     n = 1 + b * width
     kpool = torch.randn((n, bs, hkv, hd), generator=gen,
@@ -331,13 +403,16 @@ KERNELS = {
     "paged_chunk_attention": (
         "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
         "src/repro/kernels/paged_chunk_attention.py:78"),
+    "tile_skip_ffn": ("src/repro_torch/kernels/csrc/tile_skip_ffn.cu",
+                      "src/repro/kernels/sparse_ffn.py:159"),
 }
 
 
 def phase_kernels(torch):
     """One entry per kernel: the top-level numbers at the shape the main
-    path runs most (decode: M = 4 for K1/K2, K3; the 64-token prefill chunk
-    for K4); every measured case under "cases"."""
+    path runs most (decode: M = 4 for K1/K2, K3 and K5, K5 with a threshold
+    as the drafts run it; the 64-token prefill chunk for K4); every measured
+    case under "cases"."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timer = Timer(torch)
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
@@ -349,6 +424,10 @@ def phase_kernels(torch):
                                    check_k3(torch, timer, 32, 8, gen)],
         "paged_chunk_attention": [check_k4(torch, timer, 32, 32, gen),
                                   check_k4(torch, timer, 32, 8, gen)],
+        "tile_skip_ffn": [check_k5(torch, timer, 4, None, gen),
+                          check_k5(torch, timer, 4, 0.0, gen),
+                          check_k5(torch, timer, 256, None, gen),
+                          check_k5(torch, timer, 256, 0.0, gen)],
     }
     out = []
     for name, runs in cases.items():
@@ -393,14 +472,22 @@ def model_and_prompts(torch):
     return cfg, params, prompts
 
 
+SERVE_KERNELS = ("twell_gate_matmul", "twell_fused_ffn",
+                 "paged_decode_attention", "paged_chunk_attention")
+
+
+def serving_engine(cfg, params, new_tokens, **kw):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(params, cfg, backend="gather", block_size=16,
+                         max_batch=4, max_seq_len=512 + new_tokens,
+                         prefill_chunk=64, device="cuda", **kw)
+
+
 def phase_serve(torch):
     from repro_torch.kernels import ops
-    from repro_torch.serving import ServingEngine
     cfg, params, prompts = model_and_prompts(torch)
     new_tokens = 32
-    engine = ServingEngine(params, cfg, backend="gather", block_size=16,
-                           max_batch=4, max_seq_len=512 + new_tokens,
-                           prefill_chunk=64, device="cuda")
+    engine = serving_engine(cfg, params, new_tokens)
     ops.OverflowLog.reset()
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -409,8 +496,8 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    assert all(v > 0 for v in launches.values()), \
-        f"a kernel of the main path never launched: {launches}"
+    assert all(launches[k] > 0 for k in SERVE_KERNELS), \
+        f"a kernel of the serving path never launched: {launches}"
     assert not ops.OverflowLog.seen(), "a TwELL gate tile overflowed"
     assert all(len(o.token_ids) == new_tokens for o in outs), \
         [len(o.token_ids) for o in outs]
@@ -435,21 +522,18 @@ def phase_serve(torch):
            "launches": launches, "first_tokens": [o.token_ids[0]
                                                   for o in outs]}
     emit(res)
-    emit(profile_serve(torch, cfg, params, prompts, new_tokens))
+    emit(profile_run(torch, serving_engine(cfg, params, new_tokens), prompts,
+                     new_tokens))
     res.update(cfg=cfg, params=params, prompts=prompts, outs=outs)
     return res
 
 
-def profile_serve(torch, cfg, params, prompts, new_tokens):
-    """The same workload once more, on a fresh engine under torch.profiler:
+def profile_run(torch, engine, prompts, new_tokens):
+    """The workload once more, on a fresh engine under torch.profiler:
     device busy share (kernel time over wall time; the profiler's own host
     cost makes it a lower bound) and device time by kernel. Not part of the
-    launch counts, which cover the unprofiled run only."""
+    launch counts, which cover the unprofiled runs only."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import ServingEngine
-    engine = ServingEngine(params, cfg, backend="gather", block_size=16,
-                           max_batch=4, max_seq_len=512 + new_tokens,
-                           prefill_chunk=64, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -474,15 +558,135 @@ def profile_serve(torch, cfg, params, prompts, new_tokens):
 
 
 # --------------------------------------------------------------------------- #
-# 5. the same weights in float32 on the CPU
+# 5. self-speculative decoding on the same weights
 # --------------------------------------------------------------------------- #
 
-def run_paged(torch, params, cfg, prompt, steps, device, forced=None):
+def spec_run(torch, cfg, params, prompts, new_tokens,
+             threshold=DRAFT_THRESHOLD):
+    """One greedy speculating run on a fresh engine; launch counts over
+    exactly this run. Returns (engine, outputs, wall seconds, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SpecConfig
+    engine = serving_engine(cfg, params, new_tokens, spec=SpecConfig(
+        k=SPEC_K, draft_backend="tile_skip", draft_threshold=threshold))
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert not ops.OverflowLog.seen(), "a TwELL gate tile overflowed"
+    assert all(len(o.token_ids) == new_tokens for o in outs), \
+        [len(o.token_ids) for o in outs]
+    engine.kv.check_invariants()
+    assert engine.kv.num_available == engine.kv.num_blocks - 1, \
+        "KV blocks leaked"
+    return engine, outs, wall, launches
+
+
+def phase_spec(torch, serve):
+    """Greedy speculation: every request reaches max_tokens, no block
+    leaks, all five kernels launched, acceptance strictly between 0 and 1,
+    and tokens equal to the non-speculative run's up to the first position
+    where that run's top-2 logit margin is at most LOGIT_TOL (draft and
+    verify read attention through K3 and K4, so past a near-tie bf16 may
+    choose either). Then a seeded stochastic run, twice, equal tokens, and
+    greedy acceptance at two lower thresholds (why DRAFT_THRESHOLD)."""
+    from repro_torch.serving import SamplingParams
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    new_tokens = serve["new_tokens"]
+    engine, outs, wall, launches = spec_run(torch, cfg, params, prompts,
+                                            new_tokens)
+    assert all(v > 0 for v in launches.values()), \
+        f"a kernel of the speculative path never launched: {launches}"
+    drafted = sum(o.spec_drafted for o in outs)
+    accepted = sum(o.spec_accepted for o in outs)
+    assert 0 < accepted < drafted, \
+        f"acceptance {accepted}/{drafted} is not strictly between 0 and 1"
+    spec_steps = [s for s in engine.stats if s.spec_batch]
+    ref = serving_engine(cfg, params, new_tokens, record_logits=True
+                         ).generate(prompts, max_tokens=new_tokens)
+    compared = []
+    for o, r in zip(outs, ref):
+        n = 0
+        for pos, row in enumerate(r.logits):
+            top2 = torch.topk(torch.from_numpy(row), 2).values
+            if float(top2[0] - top2[1]) <= LOGIT_TOL:
+                break
+            assert o.token_ids[pos] == r.token_ids[pos], \
+                f"request {o.rid}: speculative token {pos} differs"
+            n += 1
+        compared.append(n)
+    ttft = sorted(o.ttft for o in outs)
+    prof = profile_run(torch, serving_engine(
+        cfg, params, new_tokens, spec=engine.spec), prompts, new_tokens)
+    runs = []
+    for _ in range(2):
+        sampled = [SamplingParams(temperature=0.8, top_k=50, seed=100 + i)
+                   for i in range(len(prompts))]
+        eng = serving_engine(cfg, params, new_tokens, spec=engine.spec)
+        hs = [eng.submit(p, sampling=sp, max_tokens=new_tokens)
+              for p, sp in zip(prompts, sampled)]
+        while eng.has_unfinished():
+            eng.step()
+        eng.kv.check_invariants()
+        assert eng.kv.num_available == eng.kv.num_blocks - 1
+        runs.append([h.result() for h in hs])
+    assert [o.token_ids for o in runs[0]] == [o.token_ids for o in runs[1]], \
+        "seeded stochastic speculation is not reproducible"
+    assert all(len(o.token_ids) == new_tokens for o in runs[0])
+    sweep = []
+    for t in (0.0, 1.5):
+        _, souts, swall, _ = spec_run(torch, cfg, params, prompts,
+                                      new_tokens, threshold=t)
+        sweep.append({"draft_threshold": t, "acceptance_rate": sum(
+            o.spec_accepted for o in souts) / sum(
+            o.spec_drafted for o in souts), "tokens_per_s":
+            sum(len(o.token_ids) for o in souts) / swall})
+    total = sum(len(o.token_ids) for o in outs)
+    res = {"phase": "spec", "arch": cfg.name, "verify_backend": "gather",
+           "draft_backend": "tile_skip", "k": SPEC_K,
+           "draft_threshold": DRAFT_THRESHOLD, "requests": len(outs),
+           "new_tokens": new_tokens, "wall_s": wall,
+           "tokens_per_s": total / wall,
+           "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
+           "ttft_ms_max": 1e3 * ttft[-1], "steps": len(engine.stats),
+           "spec_steps": len(spec_steps), "drafted": drafted,
+           "accepted": accepted, "acceptance_rate": accepted / drafted,
+           "draft_ms_mean": sum(s.draft_ms for s in spec_steps) /
+           len(spec_steps),
+           "verify_ms_mean": sum(s.verify_ms for s in spec_steps) /
+           len(spec_steps),
+           "device_busy_share": prof["device_busy_share"],
+           "profile_wall_ms": prof["wall_ms"],
+           "device_kernel_ms": prof["device_kernel_ms"],
+           "top_kernels": prof["top_kernels"][:8],
+           "tokens_equal_before_near_tie": compared,
+           "nonspec_tokens_per_s": serve["tokens_per_s"],
+           "stochastic": {"temperature": 0.8, "top_k": 50,
+                          "acceptance_rate": sum(
+                              o.spec_accepted for o in runs[0]) /
+                          max(1, sum(o.spec_drafted for o in runs[0])),
+                          "first_tokens": [o.token_ids[0] for o in runs[0]]},
+           "threshold_sweep": sweep, "launches": launches}
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# 6. the same weights in float32 on the CPU
+# --------------------------------------------------------------------------- #
+
+def run_paged(torch, params, cfg, prompt, steps, device, forced=None,
+              backend="gather"):
     """Prefill ``prompt`` in one chunk, then ``steps`` greedy decode steps
-    (feeding ``forced`` tokens when given). Returns the logits rows."""
+    (feeding ``forced`` tokens when given) through ``backend``'s FFN path.
+    Returns the logits rows."""
     from repro_torch.models import lm
     from repro_torch.serving.backends import DECODE, PREFILL, get_backend
-    be = get_backend("gather")
+    be = get_backend(backend)
     bs = 16
     width = -(-(len(prompt) + steps) // bs)
     pools = lm.init_paged_cache(cfg, 1 + width, bs, device=device)
@@ -521,12 +725,15 @@ def phase_check(torch, serve):
     cpu_params = f32(cpu_params)
     report = []
     with torch.no_grad():
-        for ridx in (2, 5):                  # the 64- and 96-token prompts
+        # the 64- and 96-token prompts through gather (K1 + K2), the
+        # 64-token one through tile_skip at threshold 0 (K5)
+        for ridx, backend in ((2, "gather"), (5, "gather"), (2, "tile_skip")):
             prompt = serve["prompts"][ridx]
-            ref = run_paged(torch, cpu_params, cfg32, prompt, 4, "cpu")
+            ref = run_paged(torch, cpu_params, cfg32, prompt, 4, "cpu",
+                            backend=backend)
             forced = [int(r.argmax()) for r in ref[:-1]]
             card = run_paged(torch, params, cfg, prompt, 4, "cuda",
-                             forced=forced)
+                             forced=forced, backend=backend)
             diffs = [float((a - b).abs().max()) for a, b in zip(card, ref)]
             for step, (a, b) in enumerate(zip(card, ref)):
                 assert bool(torch.isfinite(a).all()), "non-finite logits"
@@ -537,12 +744,13 @@ def phase_check(torch, serve):
                         f"prompt {ridx} step {step}: token differs"
             engine_first = serve["outs"][ridx].token_ids[0]
             top2 = torch.topk(ref[0], 2).values
-            if float(top2[0] - top2[1]) > LOGIT_TOL:
+            if backend == "gather" and float(top2[0] - top2[1]) > LOGIT_TOL:
                 assert engine_first == int(ref[0].argmax()), \
                     f"prompt {ridx}: engine's first token differs from CPU"
             assert max(diffs) <= LOGIT_TOL, \
                 f"prompt {ridx}: card vs CPU logits differ by {max(diffs)}"
             report.append({"prompt": ridx, "len": len(prompt),
+                           "backend": backend,
                            "max_abs_logit_diff": diffs,
                            "cpu_top2_margin": float(top2[0] - top2[1]),
                            "engine_first_token": engine_first,

@@ -6,7 +6,13 @@ Ports ``repro/core/sparse_ffn.py`` for serving (``SparsityConfig.ffn_impl``):
               as the JAX package leaves it to XLA;
 - ``gather``  Eq. 3 fused up+down projection from packed TwELL gate
               activations: kernel K1 packs the gate, kernel K2 projects
-              (``kernels/ops.py``).
+              (``kernels/ops.py``);
+- ``tile_skip`` the gated FFN end to end in kernel K5, which skips the
+              W_u/W_d work of dead (row block x tile) cells and, with
+              ``tile_skip_threshold > 0``, drops tiles whose max gate
+              activation is at most the threshold (the lossy path
+              self-speculative decoding drafts with); non-gated FFNs take
+              the dense path.
 
 ``apply`` returns ``(y, aux)``. JAX always builds the aux statistics and
 lets XLA drop what ``jit`` does not use; eager PyTorch would compute them
@@ -106,9 +112,21 @@ def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
     return y, aux
 
 
+def _tile_skip_apply(params, x, scfg: SparsityConfig, gated: bool,
+                     collect_aux: bool):
+    from repro_torch.kernels import ops
+    if not gated:
+        return _dense_apply(params, x, scfg, gated, collect_aux)
+    y, h = ops.tile_skip_ffn(x, params["wg"], params["wu"], params["wd"],
+                             scfg.twell_tile, scfg.activation,
+                             threshold=scfg.tile_skip_threshold)
+    return y, (_aux_from_h(h, scfg.twell_tile) if collect_aux else None)
+
+
 _IMPLS = {
     "dense": _dense_apply,
     "gather": _twell_apply,
+    "tile_skip": _tile_skip_apply,
 }
 
 

@@ -40,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     "twell_fused_ffn": 0,
     "paged_decode_attention": 0,
     "paged_chunk_attention": 0,
+    "tile_skip_ffn": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -25,7 +25,9 @@ from repro_torch.kernels.paged_chunk_attention import (
     paged_chunk_attention_cuda, paged_chunk_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_cuda, paged_decode_attention_plain)
-from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
+                                            tile_skip_ffn_plain,
+                                            twell_fused_ffn_cuda,
                                             twell_fused_ffn_plain)
 from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                             twell_gate_matmul_plain)
@@ -78,6 +80,16 @@ def twell_fused_ffn(x, tw: twell.TwellActs, wu_t, wd):
     if x.is_cuda:
         return twell_fused_ffn_cuda(x, tw, wu_t, wd).to(x.dtype)
     return twell_fused_ffn_plain(x, tw, wu_t, wd)
+
+
+def tile_skip_ffn(x, wg, wu, wd, tile: int, act: str = "relu",
+                  threshold: float = 0.0):
+    """Gated FFN with (row block x tile) skipping -> (y in x.dtype, h).
+    The kernel takes the threshold itself: the JAX package sends
+    ``threshold > 0`` to its reference, which computes the same function."""
+    fn = tile_skip_ffn_cuda if x.is_cuda else tile_skip_ffn_plain
+    y, h = fn(x, wg, wu, wd, tile, act, threshold)
+    return y.to(x.dtype), h
 
 
 def paged_attention_decode(q, kpool, vpool, block_tables, seq_lens):

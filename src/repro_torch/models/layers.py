@@ -67,7 +67,10 @@ def _paged_attention(q, k, v, cache) -> torch.Tensor:
       seq_lens:      (B,) int32 tokens already cached per request
 
     decode (S == 1): the new K/V go to position ``seq_len`` of each row,
-      then the read covers kpos <= seq_len (kernel K3 on the card).
+      then the read covers kpos <= seq_len (kernel K3 on the card). An
+      optional cache["write_valid"] (B,) bool sends a row's write to block
+      0, offset 0 when False (speculative draft steps past a request's
+      budget must leave the pool untouched).
     chunk-append (S > 1, "num_new" given): row i of the chunk goes to
       position seq_len + i; rows at or past num_new (the padded tail) are
       routed to the null block; the read covers the history plus the chunk
@@ -84,6 +87,10 @@ def _paged_attention(q, k, v, cache) -> torch.Tensor:
     if s == 1:
         blk = torch.gather(bt, 1, (sl // bs)[:, None].long())[:, 0].long()
         off = (sl % bs).long()
+        if "write_valid" in cache:
+            wv = cache["write_valid"]
+            blk = torch.where(wv, blk, torch.zeros_like(blk))
+            off = torch.where(wv, off, torch.zeros_like(off))
         kpool.index_put_((blk, off), k[:, 0])
         vpool.index_put_((blk, off), v[:, 0])
         return ops.paged_attention_decode(q, kpool, vpool, bt, sl)

@@ -7,6 +7,7 @@ Public API:
   init_paged_cache(cfg, num_blocks, block_size, device=None) -> pools
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
   paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
+  paged_verify(params, pools, block_tables, start_lens, num_new, tokens, cfg)
 
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
 every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
@@ -121,13 +122,16 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux):
 
 
 def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
-                num_new=None, last_rows=None, collect_aux=False):
+                num_new=None, write_valid=None, last_rows=None,
+                collect_aux=False):
     probes = []
     for l in range(cfg.num_layers):
         cache = {"kpool": pools["kpool"][l], "vpool": pools["vpool"][l],
                  "block_tables": block_tables, "seq_lens": seq_lens}
         if num_new is not None:
             cache["num_new"] = num_new
+        if write_valid is not None:
+            cache["write_valid"] = write_valid
         x, aux = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
                               cache, collect_aux)
         if collect_aux:
@@ -174,12 +178,32 @@ def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,
 
 def paged_decode_step(params: Dict, pools: Dict, block_tables: torch.Tensor,
                       seq_lens: torch.Tensor, tokens: torch.Tensor,
-                      cfg: ModelConfig, collect_aux: bool = False):
+                      cfg: ModelConfig,
+                      write_valid: Optional[torch.Tensor] = None,
+                      collect_aux: bool = False):
     """Continuous-batching decode: one token per request. tokens: (B, 1);
-    seq_lens: (B,) cached lengths (the new token is written there).
-    Returns (logits (B, 1, V), pools). Padded rows (all-null table,
-    seq_len 0) produce garbage logits."""
+    seq_lens: (B,) cached lengths (the new token is written there);
+    ``write_valid`` (B,) bool sends a row's KV write to the null block when
+    False (speculative draft steps past a request's budget). Returns
+    (logits (B, 1, V), pools). Padded rows (all-null table, seq_len 0)
+    produce garbage logits."""
     x = embed_lookup(params["embed"], tokens)
     positions = seq_lens[:, None]
     return _paged_scan(params, x, pools, cfg, positions, block_tables,
-                       seq_lens, collect_aux=collect_aux)
+                       seq_lens, write_valid=write_valid,
+                       collect_aux=collect_aux)
+
+
+def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
+                 start_lens: torch.Tensor, num_new: torch.Tensor,
+                 tokens: torch.Tensor, cfg: ModelConfig):
+    """Speculative verify: score a drafted chunk in one batched pass.
+
+    tokens (B, S): per request the last committed token followed by its
+    drafts (right-padded); start_lens (B,) cached lengths; num_new (B,)
+    valid chunk lengths. Writes exact K/V over whatever the draft left and
+    returns (logits (B, S, V), pools); row j scores the token after
+    position start + j. This is the chunk-append regime, so it delegates to
+    ``paged_prefill`` and the two cannot drift apart."""
+    return paged_prefill(params, pools, block_tables, tokens, num_new, cfg,
+                         start_lens=start_lens)

@@ -13,8 +13,13 @@ One ``step()``:
   1. decode -- every running request advances one token through one
      ``lm.paged_decode_step`` call, the batch padded to a power-of-two
      bucket and the block table clamped to a bucketed width, so the padded
-     shapes are those of the JAX engine. Greedy argmax on the device; the
-     sampled row is the one host transfer.
+     shapes are those of the JAX engine. Greedy argmax or the threefry
+     sampler on the device; the sampled row is the one host transfer.
+     With ``spec=SpecConfig(...)``, every running request with at least two
+     tokens of budget left (and no ``no_spec``) instead drafts k tokens
+     through the draft backend, and ONE batched verify pass scores them;
+     the host accepts a prefix plus one correction/bonus token per row and
+     rolls the rejected scratch blocks back to the pool.
   2. admit -- the ``Scheduler`` names the next candidate; it joins once a
      batch slot and its worst-case KV blocks (prompt + max_tokens) are
      available, after matching the longest cached prefix. When it does not
@@ -24,10 +29,13 @@ One ``step()``:
      a request whose prefill completes samples its first token from the
      same call and joins the next decode batch.
 
-The FFN path per phase (dense | gather/TwELL) comes from the
-``ServingBackend``. Not in this slice of the port: speculative decoding,
-the pipelined step, telemetry, tensor parallelism, disaggregation and
-``warmup()`` (eager PyTorch compiles nothing).
+The FFN path per phase (dense | gather/TwELL | tile_skip) comes from the
+``ServingBackend``. Stochastic sampling keys each token
+``fold_in(base_key, len(output_tokens))`` as the JAX engine does, so a
+seeded request gives the same tokens whatever its batch, its arrival order
+or its preemptions. Not in this slice of the port: the pipelined step,
+telemetry, tensor parallelism, disaggregation and ``warmup()`` (eager
+PyTorch compiles nothing).
 """
 from __future__ import annotations
 
@@ -42,7 +50,9 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
-from repro_torch.serving.backends import DECODE, PREFILL, get_backend
+from repro_torch.serving import sampling as sampling_mod
+from repro_torch.serving.backends import (DECODE, PREFILL, get_backend,
+                                          make_draft_pair)
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.request import (CANCELLED, EVENT_CANCEL,
                                          EVENT_FINISH, EVENT_PREEMPT,
@@ -53,6 +63,8 @@ from repro_torch.serving.request import (CANCELLED, EVENT_CANCEL,
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import (Scheduler, get_scheduler,
                                            plan_victims)
+from repro_torch.serving.spec import (Drafter, SpecConfig, Verifier,
+                                      rollback_after_verify)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +88,11 @@ class StepStats:
     preempted: int = 0       # PREEMPT events this step
     wall_ms: float = 0.0     # host wall-clock for the whole step
     sync_ms: float = 0.0     # ... of which spent waiting on the device
+    spec_batch: int = 0      # rows that ran draft->verify this step
+    spec_drafted: int = 0    # draft tokens proposed this step
+    spec_accepted: int = 0   # ... of which the verifier accepted
+    draft_ms: float = 0.0    # wall time of the draft loop, to its tokens
+    verify_ms: float = 0.0   # wall time of the verify pass, to its logits
 
 
 def bucket(n: int, lo: int, hi: int) -> int:
@@ -93,7 +110,9 @@ class ServingEngine:
     def __init__(self, params, cfg: ModelConfig, *, backend="dense",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_batch: int = 8, max_seq_len: int = 256,
-                 min_prefill_bucket: int = 16, record_logits: bool = False,
+                 min_prefill_bucket: int = 16, seed: int = 0,
+                 record_logits: bool = False,
+                 spec: Optional[SpecConfig] = None,
                  prefix_cache: bool = True, prefill_chunk: int = 64,
                  scheduler: Union[str, Scheduler] = "fcfs",
                  max_stats: Optional[int] = 4096, device=None):
@@ -110,6 +129,14 @@ class ServingEngine:
         self.cfg_prefill = self.backend.configure(cfg, PREFILL)
         self.cfg_decode = self.backend.configure(cfg, DECODE)
         self.params = lm.prepare_params(lm.params_to(params, self.device))
+        self.spec = spec
+        if spec is not None:
+            spec.validate()
+            self.draft_pair = make_draft_pair(self.backend, spec.draft_backend,
+                                              spec.draft_threshold)
+            self.drafter = Drafter(
+                self.draft_pair.draft.configure(cfg, DECODE), spec.k)
+            self.verifier = Verifier(self.cfg_decode)
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.min_prefill_bucket = min_prefill_bucket
@@ -133,6 +160,7 @@ class ServingEngine:
         self.cancelled_total = 0           # requests aborted via cancel()
         self.preempted_total = 0           # scheduler evictions (resumes)
         self.max_stats = max_stats         # keep only the newest N StepStats
+        self._master_key = sampling_mod.PRNGKey(seed)
         self._next_rid = 0
         self._step_idx = 0
         self._reserved = 0            # growth blocks promised to running reqs
@@ -158,19 +186,21 @@ class ServingEngine:
                sampling: Optional[SamplingParams] = None,
                max_tokens: int = 16,
                eos_token_id: Optional[int] = None,
+               no_spec: bool = False,
                priority: int = 0,
                stream: bool = False) -> RequestHandle:
         """Queue a request; returns its ``RequestHandle`` immediately.
         Admission happens in ``step()`` under the scheduler policy.
         priority: larger = more urgent (the priority scheduler may preempt
         lower tiers; FCFS ignores it). stream: buffer this request's
-        ``StepEvent``s on the handle."""
+        ``StepEvent``s on the handle. no_spec: decode this request one
+        token at a time even in a speculating engine."""
         with self._lock:
             sp = sampling or SamplingParams()
-            sp.require_greedy()
             req = Request(rid=self._next_rid, prompt=list(map(int, prompt)),
                           max_tokens=max_tokens, sampling=sp,
-                          eos_token_id=eos_token_id, priority=priority)
+                          eos_token_id=eos_token_id, no_spec=no_spec,
+                          priority=priority)
             if len(req.prompt) + max_tokens > self.max_seq_len:
                 raise ValueError(
                     f"prompt ({len(req.prompt)}) + max_tokens ({max_tokens}) "
@@ -180,6 +210,8 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {worst} KV blocks but the pool only has "
                     f"{self.kv.num_blocks - 1}; it could never be admitted")
+            req.base_key = sampling_mod.request_base_key(
+                self._master_key, req.rid, sp.seed)
             if self.record_logits:
                 req.logits_trace = []
             self._next_rid += 1
@@ -192,10 +224,11 @@ class ServingEngine:
     def add_request(self, prompt: Sequence[int], *,
                     sampling: Optional[SamplingParams] = None,
                     max_tokens: int = 16,
-                    eos_token_id: Optional[int] = None) -> int:
+                    eos_token_id: Optional[int] = None,
+                    no_spec: bool = False) -> int:
         """Compat shim over ``submit()``: queue a request, return its id."""
         return self.submit(prompt, sampling=sampling, max_tokens=max_tokens,
-                           eos_token_id=eos_token_id).rid
+                           eos_token_id=eos_token_id, no_spec=no_spec).rid
 
     def cancel(self, request: Union[RequestHandle, int]) -> bool:
         """Abort a request at the next ``step()``, wherever it is in its
@@ -213,17 +246,25 @@ class ServingEngine:
         return bool(len(self.scheduler) or self.prefilling or self.running)
 
     def step(self) -> List[StepEvent]:
-        """One engine iteration (cancel, decode, admit, prefill); returns
-        this iteration's StepEvents in commit order, also dispatched to each
-        request's handle."""
+        """One engine iteration (cancel, decode or draft->verify, admit,
+        prefill); returns this iteration's StepEvents in commit order, also
+        dispatched to each request's handle."""
         with self._lock, torch.no_grad():
             t_step = time.perf_counter()
             self._sync_s = 0.0
             events: List[StepEvent] = self._process_cancels()
             decode_batch = padded = 0
+            spec = {}
             if self.running:
-                decode_batch, padded, evs = self._decode(list(self.running))
-                events.extend(evs)
+                spec_rows = [r for r in self.running if self._can_spec(r)]
+                normal_rows = [r for r in self.running
+                               if not self._can_spec(r)]
+                if normal_rows:
+                    decode_batch, padded, evs = self._decode(normal_rows)
+                    events.extend(evs)
+                if spec_rows:
+                    spec, evs = self._speculate(spec_rows)
+                    events.extend(evs)
             admitted, cached_toks, evs = self._admit()
             events.extend(evs)
             pf_tokens, evs = self._prefill()
@@ -231,16 +272,18 @@ class ServingEngine:
             return self._finalize_step(
                 events, t_step=t_step, decode_batch=decode_batch,
                 padded=padded, admitted=admitted, cached_toks=cached_toks,
-                pf_tokens=pf_tokens)
+                pf_tokens=pf_tokens, **spec)
 
     def generate(self, prompts: Sequence[Sequence[int]], *,
                  sampling: Optional[SamplingParams] = None,
                  max_tokens: int = 16,
-                 eos_token_id: Optional[int] = None) -> List[RequestOutput]:
+                 eos_token_id: Optional[int] = None,
+                 no_spec: bool = False) -> List[RequestOutput]:
         """Submit everything, drain the engine, return outputs in
         submission order."""
         handles = [self.submit(p, sampling=sampling, max_tokens=max_tokens,
-                               eos_token_id=eos_token_id) for p in prompts]
+                               eos_token_id=eos_token_id, no_spec=no_spec)
+                   for p in prompts]
         while self.has_unfinished():
             self.step()
         return [h.result() for h in handles]
@@ -249,7 +292,10 @@ class ServingEngine:
 
     def _finalize_step(self, events: List[StepEvent], *, t_step: float,
                        decode_batch: int, padded: int, admitted: int,
-                       cached_toks: int, pf_tokens: int) -> List[StepEvent]:
+                       cached_toks: int, pf_tokens: int, spec_batch: int = 0,
+                       spec_drafted: int = 0, spec_accepted: int = 0,
+                       draft_ms: float = 0.0, verify_ms: float = 0.0
+                       ) -> List[StepEvent]:
         self._step_idx += 1
         self.stats.append(StepStats(
             step=self._step_idx, decode_batch=decode_batch,
@@ -265,7 +311,9 @@ class ServingEngine:
             cancelled=sum(1 for e in events if e.kind == EVENT_CANCEL),
             preempted=sum(1 for e in events if e.kind == EVENT_PREEMPT),
             wall_ms=(time.perf_counter() - t_step) * 1e3,
-            sync_ms=self._sync_s * 1e3))
+            sync_ms=self._sync_s * 1e3, spec_batch=spec_batch,
+            spec_drafted=spec_drafted, spec_accepted=spec_accepted,
+            draft_ms=draft_ms, verify_ms=verify_ms))
         if self.max_stats is not None and len(self.stats) >= 2 * self.max_stats:
             del self.stats[:-self.max_stats]     # amortized O(1) trim
         for ev in events:
@@ -326,6 +374,140 @@ class ServingEngine:
         return StepEvent(kind=EVENT_PREEMPT, rid=req.rid,
                          step=self._step_idx)
 
+    def _sampling_rows(self, rows: List[Request], padded: int):
+        """(temperatures, top_ks, top_ps) of a padded batch on the device;
+        padded rows are greedy."""
+        temps = np.zeros((padded,), np.float32)
+        topks = np.zeros((padded,), np.int32)
+        topps = np.ones((padded,), np.float32)
+        for i, r in enumerate(rows):
+            temps[i] = r.sampling.temperature
+            topks[i] = r.sampling.top_k
+            topps[i] = r.sampling.top_p
+        return (self._to_device(temps), self._to_device(topks),
+                self._to_device(topps))
+
+    def _keys(self, rows: List[Request], padded: int, offset: int = 0,
+              stream: Optional[int] = None) -> torch.Tensor:
+        """(padded, 2) threefry keys of each row's output position
+        ``len(output_tokens) + offset``: the decode stream, or a spec
+        stream; padded rows get zeros. Computed on the host (a few hundred
+        integer ops), then shipped."""
+        keys = torch.zeros((padded, 2), dtype=torch.int64)
+        base = torch.stack([r.base_key for r in rows])
+        pos = torch.tensor([len(r.output_tokens) + offset for r in rows],
+                           dtype=torch.int64)
+        keys[:len(rows)] = sampling_mod.batch_keys(base, pos) \
+            if stream is None else \
+            sampling_mod.spec_batch_keys(base, pos, stream)
+        return keys.to(self.device)
+
+    def _sample(self, last: torch.Tensor, rows: List[Request], padded: int
+                ) -> torch.Tensor:
+        """Next token per row on the device: argmax for an all-greedy
+        batch, else the per-row threefry sampler."""
+        if all(r.sampling.greedy for r in rows):
+            return torch.argmax(last, dim=-1)
+        return sampling_mod.sample_tokens(
+            last, self._keys(rows, padded), *self._sampling_rows(rows, padded))
+
+    def _can_spec(self, req: Request) -> bool:
+        """Speculate when >= 2 tokens of budget remain (accepting even one
+        draft must leave room for the verifier's correction/bonus token)."""
+        return (self.spec is not None and not req.no_spec
+                and req.max_tokens - len(req.output_tokens) >= 2)
+
+    def _speculate(self, rows: List[Request]):
+        """Draft -> verify -> accept -> rollback for the speculating rows.
+
+        Each row proposes ``k_eff = min(k, remaining - 1)`` tokens through
+        the draft backend, then ONE batched trusted-backend pass scores
+        them. The verify chunk is concatenated on the device from the
+        draft's tokens; the draft tokens are fetched once, after the loop,
+        which also times the draft. Returns (StepStats spec columns,
+        events)."""
+        b = len(rows)
+        k = self.spec.k
+        padded = bucket(b, 1, self.max_batch)
+        # cover every scratch position up front: draft + verify write
+        # positions seq_len-1 .. seq_len+k_eff-1, all inside the admission
+        # reservation (k_eff <= remaining - 1)
+        k_effs = []
+        for r in rows:
+            k_eff = min(k, r.max_tokens - len(r.output_tokens) - 1)
+            k_effs.append(k_eff)
+            need = self.kv.blocks_for(r.seq_len + k_eff)
+            while len(self.kv.block_table(r.rid)) < need:
+                self.kv.append_block(r.rid)
+                r.reserved_blocks -= 1
+                self._reserved -= 1
+        bt = self._to_device(self.kv.table_array(
+            [r.rid for r in rows], padded, self.table_width))
+        sl0 = np.zeros((padded,), np.int32)
+        tok0 = np.zeros((padded, 1), np.int32)
+        dlen = np.zeros((padded,), np.int32)
+        for i, r in enumerate(rows):
+            sl0[i] = r.seq_len - 1
+            tok0[i, 0] = r.last_token
+            dlen[i] = k_effs[i]
+        sl0_d, tok0_d = self._to_device(sl0), self._to_device(tok0)
+        all_greedy = all(r.sampling.greedy for r in rows)
+        if all_greedy:
+            keys, samp = None, (None, None, None)
+        else:
+            keys = torch.stack([
+                self._keys(rows, padded, j, sampling_mod.STREAM_DRAFT)
+                for j in range(k)])
+            samp = self._sampling_rows(rows, padded)
+        t0 = time.perf_counter()
+        d_toks, d_logits, _ = self.drafter.draft(
+            self.params, self.kv.pools, bt, sl0_d, tok0_d,
+            self._to_device(dlen), keys, *samp, greedy=all_greedy)
+        d_toks_np = self._fetch(d_toks)
+        t1 = time.perf_counter()
+        num_new = dlen + (dlen > 0)            # k_eff + 1; 0 for padded rows
+        t_logits, _ = self.verifier.verify(
+            self.params, self.kv.pools, bt, sl0_d, self._to_device(num_new),
+            torch.cat([tok0_d, d_toks.to(tok0_d.dtype)], dim=1))
+        t_logits_np = self._fetch(t_logits)
+        t2 = time.perf_counter()
+        d_logits_np = None if all_greedy else self._fetch(d_logits.float())
+        events: List[StepEvent] = []
+        drafted_total = accepted_total = 0
+        for i, r in enumerate(rows):
+            k_eff = k_effs[i]
+            emitted, n_acc = self.verifier.accept(
+                r, k_eff, d_toks_np[i, :k_eff],
+                None if d_logits_np is None else d_logits_np[i, :k_eff],
+                t_logits_np[i, :k_eff + 1])
+            r.spec_drafted += k_eff
+            r.spec_accepted += n_acc
+            drafted_total += k_eff
+            accepted_total += n_acc
+            reason = None
+            committed = []
+            for j, tok in enumerate(emitted):
+                if r.logits_trace is not None:
+                    r.logits_trace.append(t_logits_np[i, j])
+                committed.append(int(tok))
+                reason = r.append(int(tok))
+                if reason:
+                    break
+            events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
+                                    step=self._step_idx,
+                                    tokens=tuple(committed)))
+            if reason:
+                events.append(self._terminal_event(r, reason))
+            else:
+                # rollback: blocks past the committed length (seq_len - 1
+                # cached slots) return to the pool and the reservation
+                freed = rollback_after_verify(self.kv, r.rid, r.seq_len - 1)
+                r.reserved_blocks += freed
+                self._reserved += freed
+        return dict(spec_batch=b, spec_drafted=drafted_total,
+                    spec_accepted=accepted_total, draft_ms=(t1 - t0) * 1e3,
+                    verify_ms=(t2 - t1) * 1e3), events
+
     def _decode(self, batch: List[Request]):
         """One batched decode call; commits one token per row."""
         b = len(batch)
@@ -352,7 +534,7 @@ class ServingEngine:
             self.params, self.kv.pools, self._to_device(bt),
             self._to_device(sl), self._to_device(toks), self.cfg_decode)
         last = logits[:, -1]
-        next_toks = self._fetch(torch.argmax(last, dim=-1))
+        next_toks = self._fetch(self._sample(last, batch, padded))
         events: List[StepEvent] = []
         now = time.perf_counter()
         for i, r in enumerate(batch):
@@ -471,7 +653,10 @@ class ServingEngine:
             self._to_device(toks), self._to_device(num_new), self.cfg_prefill,
             start_lens=self._to_device(start), last_only=True)
         last = logits[:, 0]
-        tok = self._fetch(torch.argmax(last, dim=-1))
+        # the token sampled at prefill completion is output position
+        # len(output_tokens): 0 for a fresh request, the next committed
+        # slot for a resumed one, so resume replays the same draw
+        tok = self._fetch(self._sample(last, rows, padded_b))
         self.prefill_tokens_total += sum(chunk_lens)
         events: List[StepEvent] = []
         for i, r in enumerate(rows):

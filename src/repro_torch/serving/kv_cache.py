@@ -288,6 +288,21 @@ class PagedKVCache:
         """Whether ``rid`` currently owns a block table."""
         return rid in self._tables
 
+    def truncate(self, rid: int, keep_blocks: int) -> int:
+        """Shrink a request's table to its first ``keep_blocks`` blocks,
+        releasing the tail (speculative rollback: rejected draft tokens leave
+        no block-accounting trace). Tail blocks are private scratch past the
+        prompt, so a decref sends them straight back to the free list; their
+        contents are never read again. Returns the number released."""
+        if keep_blocks < 1:
+            raise ValueError(f"keep_blocks must be >= 1, got {keep_blocks}")
+        tbl = self._tables[rid]
+        freed = 0
+        while len(tbl) > keep_blocks:
+            self._decref(tbl.pop())
+            freed += 1
+        return freed
+
     # ---- views -------------------------------------------------------------
 
     def block_table(self, rid: int) -> List[int]:

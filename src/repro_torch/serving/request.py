@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import Any, Deque, List, Optional, Tuple
 
 from repro_torch.serving.sampling import GREEDY, SamplingParams
 
@@ -64,6 +64,9 @@ class Request:
     status: str = WAITING
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     logits_trace: Optional[list] = None      # per-token logits (debug mode)
+    base_key: Optional[Any] = None           # per-request threefry base key
+    #                                          (int64 (2,) tensor, see
+    #                                          sampling.request_base_key)
     reserved_blocks: int = 0                 # growth blocks admission promised
     prefill_pos: int = 0                     # next prefill position to compute
     prefill_target: Optional[List[int]] = None   # tokens this admission must

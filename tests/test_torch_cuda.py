@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
 head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
-padded rows. Marked ``cuda``: each test skips without an NVIDIA card (the
-fixture decides at run time). On the machine with the card, from the repo
-root:
+padded rows, tile-skip thresholds and dead tiles. Marked ``cuda``: each
+test skips without an NVIDIA card (the fixture decides at run time). On the
+machine with the card, from the repo root:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -76,6 +76,58 @@ def test_gate_matmul_and_fused_ffn_match_plain(card, shape):
     y = twell_fused_ffn_cuda(x, tw, wu.t().contiguous(), wd)
     py = twell_fused_ffn_plain(x, tw, wu.t().contiguous(), wd)
     torch.testing.assert_close(y, py.float(), **TOL)
+
+
+TILE_SKIP_SHAPES = [  # (M, K, N, T, act, keep, threshold, dead tiles)
+    (4, 2048, 5632, 256, "relu", 0.02, 0.0, 11),  # main path, decode
+    (4, 2048, 5632, 256, "relu", 0.3, 0.5, 11),
+    (256, 2048, 5632, 256, "relu", 0.02, 0.0, 11),
+    (1, 64, 256, 64, "relu", 0.3, 0.0, 0),
+    (37, 128, 512, 128, "relu2", 0.1, 0.0, 1),
+    (70, 256, 768, 256, "relu", 0.5, 0.3, 1),
+    (33, 96, 512, 32, "relu2", 0.4, 0.05, 5),
+]
+
+
+@pytest.mark.parametrize("shape", TILE_SKIP_SHAPES, ids=str)
+def test_tile_skip_ffn_matches_plain(card, shape):
+    """K5: y and h within bf16 tolerance, a (32-row block, tile) cell
+    flagged active exactly where some kept row has a live gate, and the
+    W_g columns of `dead` tiles zeroed so the skip branch runs."""
+    from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
+                                                tile_skip_ffn_plain)
+    m, k, n, t, act, keep, thr, dead = shape
+    x, wg, wu, wd = _gate(m, k, n, keep, m + k + n + t, card)
+    nt = n // t
+    dead_tiles = np.random.RandomState(m).permutation(nt)[:dead]
+    for j in dead_tiles:
+        wg[:, j * t:(j + 1) * t] = 0
+    rb = -(-m // 32)
+    flags = torch.full((rb, nt), -1, dtype=torch.int32, device=card)
+    y, h = tile_skip_ffn_cuda(x, wg, wu, wd, t, act, thr, cell_active=flags)
+    py, ph = tile_skip_ffn_plain(x, wg, wu, wd, t, act, thr)
+    g = torch.relu(x.float() @ wg.float())
+    g = g * g if act == "relu2" else g
+    gmax = g.reshape(m, nt, t).amax(-1)                       # (M, nT)
+    # a row whose tile maximum lies within 1% of the threshold (or, at
+    # threshold 0, within 1e-3 max of zero) may be kept or dropped
+    near = (gmax - thr).abs() <= 1e-2 * thr if thr else \
+        (gmax > 0) & (gmax <= 1e-3 * gmax.max())
+    rows = ~near.any(-1)
+    torch.testing.assert_close(y[rows], py[rows], **TOL)
+    torch.testing.assert_close(h[rows].float(), ph[rows].float(), **TOL)
+    keep_rt = gmax > thr
+    pad = rb * 32 - m
+    want = torch.nn.functional.pad(keep_rt, (0, 0, 0, pad)).reshape(
+        rb, 32, nt).any(1)
+    ok = torch.nn.functional.pad(rows, (0, pad), value=True).reshape(
+        rb, 32).all(1)
+    assert torch.equal(flags[ok].bool(), want[ok])
+    assert int(flags.min()) >= 0
+    assert not flags[:, torch.from_numpy(dead_tiles).to(card)].any()
+    if dead:
+        assert float(h.float().reshape(m, nt, t)[:, dead_tiles].abs().max()) \
+            == 0.0
 
 
 def _paged(rng, b, hkv, hd, bs, width, dev):
@@ -151,6 +203,9 @@ def test_ops_dispatch_counts_launches(card):
     tw = ops.twell_gate_matmul(x, wg, 64, 2)
     y = ops.twell_fused_ffn(x, tw, wu.t().contiguous(), wd)
     assert y.dtype == x.dtype and y.is_cuda
+    yt, ht = ops.tile_skip_ffn(x, wg, wu, wd, 64, "relu", 0.1)
+    assert yt.dtype == x.dtype and ht.shape == (4, 256)
     counts = ops.launch_counts()
     assert counts["twell_gate_matmul"] == 1 and counts["twell_fused_ffn"] == 1
+    assert counts["tile_skip_ffn"] == 1
     assert counts["paged_decode_attention"] == 0

@@ -1,8 +1,8 @@
 """The PyTorch port's ServingEngine against repro.serving.ServingEngine:
-greedy tokens identical on the same weights (bridged) and the same
-workloads as the JAX package's engine tests, and the paged KV-cache pool
-invariants of tests/test_serving.py and tests/test_prefix_cache.py on the
-port's pool. Everything runs on the CPU: the port on its plain versions,
+greedy and seeded stochastic tokens identical on the same weights
+(bridged) and the same workloads as the JAX package's engine tests, and
+the paged KV-cache pool invariants of tests/test_serving.py and
+tests/test_prefix_cache.py on the port's pool. Everything runs on the CPU: the port on its plain versions,
 JAX on its references.
 """
 import dataclasses
@@ -197,11 +197,91 @@ def test_preempt_resume_identical_gqa():
     assert res[1][2] >= 1, "preemption never happened"
 
 
-def test_engine_refuses_stochastic_sampling():
-    _, te = _engines(max_batch=2, max_seq_len=32)
-    with pytest.raises(NotImplementedError, match="greedily"):
-        te.submit([1, 2, 3], sampling=SamplingParams(temperature=1.0))
-    te.submit([1, 2, 3], sampling=SamplingParams(temperature=0.0))
+# --------------------------------------------------------------------------- #
+# seeded stochastic sampling: tests/test_serving.py:312 and
+# tests/test_handle_api.py:371, 449, 473, port vs JAX token for token
+# --------------------------------------------------------------------------- #
+
+def _jax_sp(**kw):
+    from repro.serving import SamplingParams as JaxSampling
+    return JaxSampling(**kw)
+
+
+def _each_engine(**kw):
+    """(engine, SamplingParams class) for the JAX engine, then the port's."""
+    return zip(_engines(**kw), (_jax_sp, SamplingParams))
+
+
+def test_engine_stochastic_reproducible_and_batch_independent():
+    prompts = _prompts(256, [6, 9], seed=13)
+    sp = dict(temperature=1.0, top_k=16, seed=42)
+    res = []
+    for eseed, batch in ((1, prompts[:1]), (2, prompts)):
+        outs = [[o.token_ids for o in eng.generate(batch, sampling=cls(**sp),
+                                                   max_tokens=6)]
+                for eng, cls in _each_engine(max_batch=2, max_seq_len=32,
+                                             seed=eseed)]
+        assert outs[1] == outs[0]
+        res.append(outs[1][0])
+    assert res[0] == res[1]
+
+
+def test_preempt_resume_seeded_stochastic_identical():
+    lo_p, hi_p = _prompts(256, [8, 8], seed=23)
+    sp = dict(temperature=0.9, top_k=32, seed=77)
+    res = []
+    for eng, cls in _each_engine(num_blocks=5, max_batch=2, max_seq_len=16,
+                                 seed=6, scheduler="priority"):
+        lo = eng.submit(lo_p, sampling=cls(**sp), max_tokens=6, priority=0)
+        for _ in range(3):
+            eng.step()
+        hi = eng.submit(hi_p, sampling=cls(**sp), max_tokens=4, priority=1)
+        while eng.has_unfinished():
+            eng.step()
+        res.append((lo.result().token_ids, hi.result().token_ids,
+                    lo.result().num_preemptions))
+    assert res[1] == res[0]
+    assert res[1][2] >= 1, "preemption never happened"
+    eng.kv.check_invariants()
+    _, te = _engines(max_batch=2, max_seq_len=16, seed=5)
+    solo = te.generate([lo_p], sampling=SamplingParams(**sp),
+                       max_tokens=6)[0]
+    assert solo.token_ids == res[1][0], "seeded preempt/resume diverged"
+
+
+def test_seeded_requests_identical_across_arrival_order():
+    target, filler = _prompts(256, [7, 9], seed=29)
+
+    def run(order, engine_seed):
+        res = []
+        for eng, cls in _each_engine(max_batch=2, max_seq_len=32,
+                                     seed=engine_seed):
+            hs = {}
+            for tag in order:
+                if tag == "t":
+                    hs["t"] = eng.submit(target, max_tokens=6, sampling=cls(
+                        temperature=1.0, top_k=16, seed=123))
+                else:
+                    eng.submit(filler, max_tokens=6, sampling=cls(
+                        temperature=0.8, seed=9))
+            while eng.has_unfinished():
+                eng.step()
+            res.append(hs["t"].result().token_ids)
+        assert res[1] == res[0]
+        return res[1]
+
+    assert run("tf", 1) == run("ft", 2) == run("t", 3)
+
+
+def test_unseeded_identical_prompts_draw_independently():
+    prompt = _prompts(256, [7], seed=31)[0]
+    res = [[o.token_ids for o in eng.generate(
+        [prompt, prompt], sampling=cls(temperature=1.0, top_p=0.9),
+        max_tokens=8)]
+        for eng, cls in _each_engine(max_batch=2, max_seq_len=32)]
+    assert res[1] == res[0]
+    assert res[1][0] != res[1][1], \
+        "unseeded duplicates must not replay each other's draws"
 
 
 # --------------------------------------------------------------------------- #
