@@ -7,6 +7,11 @@ leaf for leaf. It takes the tree as numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the JAX side): this module imports no JAX. A bfloat16 leaf
 (numpy dtype ``bfloat16`` from ml_dtypes) is reinterpreted bit for bit as
 ``torch.bfloat16``.
+
+The trainable tree is the JAX tree: the derived ``blocks.ffn.wu_t`` is
+added by ``from_numpy`` and dropped by ``to_numpy`` and ``lm.trainable``.
+The AdamW state (``step``, ``m``, ``v``) crosses the same way
+(``opt_state_from_numpy`` / ``opt_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.optim import adamw
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -38,15 +44,31 @@ def from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     return lm.prepare_params(_tree_to_torch(tree, torch.device(device)))
 
 
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
 def to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's parameters -> the JAX tree layout as float32/int numpy
     arrays (bfloat16 widens exactly), without the derived weights."""
-    def conv(tree, path=()):
-        if isinstance(tree, dict):
-            return {k: conv(v, path + (k,)) for k, v in tree.items()
-                    if path + (k,) != ("blocks", "ffn", "wu_t")}
-        t = tree.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy()
-    return conv(params)
+    return _tree_to_numpy(lm.trainable(params))
+
+
+def opt_state_from_numpy(state, device="cpu") -> adamw.AdamWState:
+    """JAX ``AdamWState(step, m, v)`` with numpy leaves -> the port's."""
+    step, m, v = state
+    dev = torch.device(device)
+    return adamw.AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+        _tree_to_torch(m, dev), _tree_to_torch(v, dev))
+
+
+def opt_state_to_numpy(state: adamw.AdamWState):
+    """The port's AdamW state -> (step, m, v) as numpy, the JAX layout."""
+    return (np.asarray(int(state.step), np.int32),
+            _tree_to_numpy(state.m), _tree_to_numpy(state.v))

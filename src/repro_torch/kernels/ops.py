@@ -11,16 +11,27 @@ variable; the port has neither.)
 ``repro/kernels/ops.py:29-40``: the kernel's exact per-tile counts are
 clipped to T/C and the overflow flag is raised when any tile exceeded it.
 Each call ORs its flag into ``OverflowLog`` (a device flag, read without a
-sync until ``OverflowLog.seen()``).
+sync until ``OverflowLog.seen()``); the hybrid training format's pack
+(``core/hybrid.py``) ORs its backup-overflow flag into ``HybridOverflowLog``
+the same way.
+
+``hybrid_to_dense`` and ``dense_to_hybrid`` are the ELL sides of the hybrid
+products (K8, K9; float32 out); ``flash_attention`` is causal attention
+with its gradient (K7 forward).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import twell
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
+                                               dense_to_hybrid_plain,
+                                               hybrid_to_dense_cuda,
+                                               hybrid_to_dense_plain)
 from repro_torch.kernels.paged_chunk_attention import (
     paged_chunk_attention_cuda, paged_chunk_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
@@ -53,6 +64,39 @@ class OverflowLog:
     @classmethod
     def reset(cls) -> None:
         cls._flag = None
+
+
+class HybridOverflowLog(OverflowLog):
+    """Whether any hybrid pack ran out of dense-backup rows (its overflowing
+    rows were dropped, App. B.2.1) since the last ``reset()``, and how many
+    rows the packs put on each side of the format. Counts and flag stay on
+    the device until read."""
+
+    _flag: Optional[torch.Tensor] = None
+    _rows: Optional[torch.Tensor] = None     # (ELL rows, backup rows)
+
+    @classmethod
+    def record(cls, overflow: torch.Tensor, is_dense: torch.Tensor) -> None:
+        super().record(overflow)
+        rows = torch.stack([(~is_dense).sum(), is_dense.sum()])
+        if cls._rows is None or cls._rows.device != rows.device:
+            cls._rows = rows
+        else:
+            cls._rows += rows
+
+    @classmethod
+    def rows(cls) -> Tuple[int, int]:
+        """(ELL rows, dense-backup rows) summed over the packs since the
+        last ``reset()``; rows dropped by an overflow count as backup."""
+        if cls._rows is None:
+            return 0, 0
+        ell, dense = cls._rows.tolist()
+        return ell, dense
+
+    @classmethod
+    def reset(cls) -> None:
+        cls._flag = None
+        cls._rows = None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -102,3 +146,21 @@ def paged_attention_extend(q, kpool, vpool, block_tables, seq_lens, num_new):
     fn = paged_chunk_attention_cuda if q.is_cuda \
         else paged_chunk_attention_plain
     return fn(q, kpool, vpool, block_tables, seq_lens, num_new)
+
+
+def flash_attention(q, k, v):
+    """Causal attention, (B, S, H, hd) each with one H, differentiable."""
+    return FlashAttention.apply(q, k, v)
+
+
+def hybrid_to_dense(ell_vals, ell_idx, row_nnz, is_sparse, w):
+    """ELL side of ``h @ w``, w (N, K) -> (M, K) float32."""
+    fn = hybrid_to_dense_cuda if w.is_cuda else hybrid_to_dense_plain
+    return fn(ell_vals, ell_idx, row_nnz, is_sparse, w)
+
+
+def dense_to_hybrid(x, wt, ell_idx, row_nnz, is_sparse):
+    """ELL side of ``(x @ W)[pattern]`` with W given as wt (N, K) ->
+    (M, E) float32."""
+    fn = dense_to_hybrid_cuda if x.is_cuda else dense_to_hybrid_plain
+    return fn(x, wt, ell_idx, row_nnz, is_sparse)

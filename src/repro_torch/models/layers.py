@@ -1,11 +1,12 @@
-"""Model primitives of the paged serving path: norm, RoPE, attention,
-embeddings. Ports the parts of ``repro/models/layers.py`` that the dense
-paged engine runs, keeping its layouts: activations (B, S, H, hd), pools
-(num_blocks, block_size, Hkv, hd), weights (in, out).
+"""Model primitives of the dense family: norm, RoPE, attention,
+embeddings. Ports the parts of ``repro/models/layers.py`` that the paged
+serving engine and the training forward run, keeping its layouts:
+activations (B, S, H, hd), pools (num_blocks, block_size, Hkv, hd),
+weights (in, out).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -56,6 +57,15 @@ def attn_init(d_model: int, n_heads: int, n_kv: int, head_dim: int,
         "wv": r((d_model, n_kv * head_dim)),
         "wo": r((n_heads * head_dim, d_model)),
     }
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, H, hd) by group broadcast."""
+    b, s, hkv, hd = k.shape
+    if hkv == n_heads:
+        return k
+    return k[:, :, :, None, :].expand(b, s, hkv, n_heads // hkv, hd
+                                      ).reshape(b, s, n_heads, hd)
 
 
 def _paged_attention(q, k, v, cache) -> torch.Tensor:
@@ -110,16 +120,26 @@ def _paged_attention(q, k, v, cache) -> torch.Tensor:
 
 
 def attention(params: Dict, x: torch.Tensor, cfg, *,
-              positions: torch.Tensor, cache: Dict) -> torch.Tensor:
-    """Paged causal self-attention (the serving engine's only kind)."""
+              positions: torch.Tensor, kind: str = "causal",
+              cache: Optional[Dict] = None) -> torch.Tensor:
+    """Causal self-attention: paged (the serving engine) when ``cache``
+    holds pools, else over the sequence itself (the training forward,
+    kernel K7 on the card). The windowed and chunked kinds are not ported
+    yet."""
     b, s, _ = x.shape
+    if kind != "causal":
+        raise NotImplementedError(
+            f"attention kind {kind!r} is not ported yet (causal only)")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     k = (x @ params["wk"]).reshape(b, s, hkv, hd)
     v = (x @ params["wv"]).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _paged_attention(q, k, v, cache)
+    if cache is None:
+        out = ops.flash_attention(q, repeat_kv(k, h), repeat_kv(v, h))
+    else:
+        out = _paged_attention(q, k, v, cache)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 

@@ -1,9 +1,12 @@
-"""Dense-family LM for paged serving (ports the paged entry points of
-``repro/models/lm.py``).
+"""Dense-family LM for training and paged serving (ports ``forward``,
+``loss_fn`` and the paged entry points of ``repro/models/lm.py``).
 
 Public API:
   init(cfg, device=None, seed=0)             -> params
   prepare_params(params)                     -> params (+ derived weights)
+  trainable(params)                          -> params (- derived weights)
+  forward(params, batch, cfg)                -> (logits, aux)  [training]
+  loss_fn(params, batch, cfg, l1_coeff=None) -> (loss, (metrics, aux))
   init_paged_cache(cfg, num_blocks, block_size, device=None) -> pools
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
   paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
@@ -12,8 +15,13 @@ Public API:
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
 every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
 onto the other leaf for leaf. The layer stack is a Python loop (the JAX
-package scans). The KV pools are updated in place; the paged entry points
-return them anyway, in the JAX package's ``(logits, pools)`` shape.
+package scans); the training forward unbinds the stacked leaves once, so
+autograd sums each layer's gradient into one slice, not into a zero tensor
+the size of the whole stack per layer. ``remat`` (the JAX package's
+recomputation of layer activations in the backward) is not ported: the
+training forward keeps every layer's activations. The KV pools are
+updated in place; the paged entry points return them anyway, in the JAX
+package's ``(logits, pools)`` shape.
 """
 from __future__ import annotations
 
@@ -82,6 +90,14 @@ def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return params
 
 
+def trainable(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameters an optimizer updates: the tree without the derived
+    ``blocks.ffn.wu_t`` (re-derive it with ``prepare_params`` before
+    serving trained weights)."""
+    ffn = {k: v for k, v in params["blocks"]["ffn"].items() if k != "wu_t"}
+    return {**params, "blocks": {**params["blocks"], "ffn": ffn}}
+
+
 def params_to(params, device) -> Dict[str, Any]:
     """The same parameter tree with every tensor on ``device``."""
     if isinstance(params, dict):
@@ -111,9 +127,9 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "vpool": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _block_apply(p, x, cfg, positions, cache, collect_aux):
+def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal"):
     a = attention(p["attn"], rmsnorm(x, p["ln1"]["scale"]), cfg,
-                  positions=positions, cache=cache)
+                  positions=positions, kind=kind, cache=cache)
     x = x + a
     y, aux = sparse_ffn.apply(p["ffn"], rmsnorm(x, p["ln2"]["scale"]),
                               cfg.sparsity, cfg.gated,
@@ -150,6 +166,66 @@ def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
                                               device=x.device)
         return logits, aux_stack, pools
     return logits, pools
+
+
+def _attn_kind(cfg) -> str:
+    if cfg.window:
+        return "swa"
+    if cfg.attn_chunk:
+        return "local_chunk"
+    return "causal"
+
+
+def _unstack(tree, n: int):
+    """Stacked (L, ...) leaves -> a list of L per-layer trees (views)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][l] for k in per} for l in range(n)]
+    return list(torch.unbind(tree))
+
+
+def forward(params: Dict, batch: Dict, cfg: ModelConfig):
+    """Training forward of the dense family: tokens (B, S) -> (logits
+    (B, S, V), aux), aux stacked per layer as the JAX package stacks it
+    (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``, ``tile_frac``,
+    ``ffn_present`` = 1, ``moe_balance`` = 0)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    kind = _attn_kind(cfg)
+    auxs = []
+    for p in _unstack(params["blocks"], cfg.num_layers):
+        x, aux = _block_apply(p, x, cfg, positions, None, True, kind=kind)
+        aux["ffn_present"] = torch.ones((), device=x.device)
+        aux["moe_balance"] = torch.zeros((), device=x.device)
+        auxs.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+    x = rmsnorm(x, params["final_ln"]["scale"])
+    head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+    return lm_logits(x, head), aux
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig, l1_coeff=None,
+            moe_balance_coeff: float = 0.01):
+    """Cross-entropy (f32 logsumexp) + Eq. 2 L1 regularization (the mean
+    over FFN-bearing layers) -> (loss, (metrics, aux))."""
+    logits, aux = forward(params, batch, cfg)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    mask = aux["ffn_present"]
+    denom = torch.clamp(mask.sum(), min=1)
+    l1_mean = (aux["l1"] * mask).sum() / denom
+    coeff = cfg.sparsity.l1_coeff if l1_coeff is None else l1_coeff
+    bal = (aux["moe_balance"] * mask).sum() / denom
+    loss = ce + coeff * l1_mean + moe_balance_coeff * bal
+    metrics = {"ce": ce, "l1": l1_mean,
+               "nnz_mean": (aux["nnz_mean"] * mask).sum() / denom,
+               "nnz_max": aux["nnz_max"].max(), "moe_balance": bal,
+               "loss": loss}
+    return loss, (metrics, aux)
 
 
 def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
 head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
-padded rows, tile-skip thresholds and dead tiles. Marked ``cuda``: each
+padded rows, tile-skip thresholds and dead tiles, causal attention over
+ragged sequence lengths and padded head dims, and the hybrid products over
+both sides of the format, bf16 and float32. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -196,7 +198,103 @@ def test_paged_chunk_matches_plain(card, shape, s):
         assert float(o[2].float().abs().max()) == 0.0
 
 
+FLASH_SHAPES = [  # (B, S, H, hd)
+    (1, 1, 1, 64),
+    (2, 100, 3, 64),          # S not a multiple of the 64-row tile
+    (1, 257, 2, 32),
+    (2, 64, 4, 128),
+    (1, 130, 2, 16),          # head dim padded to 32
+    (1, 200, 2, 40),          # head dim padded to 64
+    (2, 1024, 4, 64),
+]
+
+
+def _qkv(shape, dtype, dev, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_attention_matches_plain(card, shape, dtype):
+    """K7: causal attention within bf16 tolerance of the plain version (the
+    float32 kernel within 2e-4: both sum an f32 softmax, in other orders),
+    the same bits from run to run, and row 0 equal to v's row 0."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v = _qkv(shape, dtype, card, sum(shape))
+    o = flash_attention_cuda(q, k, v)
+    po = flash_attention_plain(q, k, v)
+    assert o.dtype == dtype and torch.isfinite(o.float()).all()
+    tol = TOL if dtype == torch.bfloat16 else dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(o.float(), po.float(), **tol)
+    torch.testing.assert_close(o[:, 0].float(), v[:, 0].float(), **tol)
+    assert torch.equal(o, flash_attention_cuda(q, k, v))
+
+
+def _hybrid_case(m, n, k, e, dense_rows, dtype, dev, seed):
+    """A hybrid pattern with rows on both sides of the format: ~e/2
+    non-zeros a row, and ``dense_rows`` rows with more than e."""
+    from repro_torch.core import hybrid as hyb
+    rng = np.random.RandomState(seed)
+    h = np.where(rng.rand(m, n) < 0.5 * e / n, rng.randn(m, n), 0.0)
+    h[rng.permutation(m)[:dense_rows]] = rng.randn(dense_rows, n)
+    hy = hyb.pack(torch.from_numpy(h.astype(np.float32)).to(dev).to(dtype),
+                  e, max(1, dense_rows))
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
+    return hy, x.to(dtype), w.to(dtype)
+
+
+HYBRID_SHAPES = [  # (M, N, K, E, dense rows)
+    (1, 64, 8, 4, 0),
+    (37, 256, 64, 16, 3),
+    (300, 512, 136, 32, 10),
+    (5, 128, 2056, 8, 1),         # K past one 1024-column slice
+    (8, 2048, 64, 1024, 1),       # the widest ELL row the kernels take
+    (512, 5632, 2048, 128, 8),    # paper-0.5b's FFN
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", HYBRID_SHAPES, ids=str)
+def test_hybrid_matmuls_match_plain(card, shape, dtype):
+    """K8 (ELL side of h @ W, with float32 slot values too, as the backward
+    passes them) and K9 (the SDDMM on the pattern, both orientations of
+    the products' W) against their plain versions: float32 outputs, equal
+    to 1e-4 relative (f32 sums in other orders), the same bits from run to
+    run, 0 on backup rows and invalid slots."""
+    from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
+                                                   dense_to_hybrid_plain,
+                                                   hybrid_to_dense_cuda,
+                                                   hybrid_to_dense_plain)
+    m, n, k, e, dense = shape
+    hy, x, w = _hybrid_case(m, n, k, e, dense, dtype, card, sum(shape))
+    live = ~hy.is_dense
+    assert int(hy.is_dense.sum()) == dense and not bool(hy.overflow)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for vals in (hy.ell_values, hy.ell_values.float()):
+        y = hybrid_to_dense_cuda(vals, hy.ell_indices, hy.row_nnz, live, w)
+        py = hybrid_to_dense_plain(vals, hy.ell_indices, hy.row_nnz, live, w)
+        assert y.dtype == torch.float32 and y.shape == (m, k)
+        torch.testing.assert_close(y, py, **tol)
+        assert not y[hy.is_dense].any()
+        assert torch.equal(y, hybrid_to_dense_cuda(
+            vals, hy.ell_indices, hy.row_nnz, live, w))
+    vals = dense_to_hybrid_cuda(x, w, hy.ell_indices, hy.row_nnz, live)
+    pv = dense_to_hybrid_plain(x, w, hy.ell_indices, hy.row_nnz, live)
+    assert vals.dtype == torch.float32 and vals.shape == (m, e)
+    torch.testing.assert_close(vals, pv, **tol)
+    slot = torch.arange(e, device=card)
+    valid = (slot[None] < hy.row_nnz[:, None]) & live[:, None]
+    assert not vals[~valid].any()
+    assert torch.equal(vals, dense_to_hybrid_cuda(x, w, hy.ell_indices,
+                                                  hy.row_nnz, live))
+
+
 def test_ops_dispatch_counts_launches(card):
+    from repro_torch.core import hybrid as hyb
     from repro_torch.kernels import ops
     x, wg, wu, wd = _gate(4, 64, 256, 0.3, 0, card)
     ops.reset_launch_counts()
@@ -205,7 +303,18 @@ def test_ops_dispatch_counts_launches(card):
     assert y.dtype == x.dtype and y.is_cuda
     yt, ht = ops.tile_skip_ffn(x, wg, wu, wd, 64, "relu", 0.1)
     assert yt.dtype == x.dtype and ht.shape == (4, 256)
+    q = x.reshape(1, 4, 2, 32).contiguous()
+    o = ops.flash_attention(q, q, q)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    hy = hyb.pack(torch.relu(x @ wg), 16, 1)
+    live = ~hy.is_dense
+    yh = ops.hybrid_to_dense(hy.ell_values, hy.ell_indices, hy.row_nnz, live,
+                             wd)
+    vh = ops.dense_to_hybrid(x, wu.t().contiguous(), hy.ell_indices,
+                             hy.row_nnz, live)
+    assert yh.shape == (4, 64) and vh.shape == (4, 16)
     counts = ops.launch_counts()
     assert counts["twell_gate_matmul"] == 1 and counts["twell_fused_ffn"] == 1
-    assert counts["tile_skip_ffn"] == 1
+    assert counts["tile_skip_ffn"] == 1 and counts["flash_attention"] == 1
+    assert counts["hybrid_to_dense"] == 1 and counts["dense_to_hybrid"] == 1
     assert counts["paged_decode_attention"] == 0

@@ -78,6 +78,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch or raise; the plain path is chosen by ops
     from the tensor's device, never by a failed launch."""
     from repro_torch.core import twell
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
+                                                   hybrid_to_dense_cuda)
     from repro_torch.kernels.paged_chunk_attention import \
         paged_chunk_attention_cuda
     from repro_torch.kernels.paged_decode_attention import \
@@ -102,6 +105,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         paged_decode_attention_cuda(q, pool, pool, bt, sl)
     with pytest.raises(ValueError, match="CUDA"):
         paged_chunk_attention_cuda(q, pool, pool, bt, sl, sl)
+    qkv = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(qkv, qkv, qkv)
+    idx = torch.zeros(4, 8, dtype=torch.int32)
+    nnz = torch.zeros(4, dtype=torch.int32)
+    live = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        hybrid_to_dense_cuda(torch.zeros(4, 8), idx, nnz, live, w.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_to_hybrid_cuda(x, w.t().contiguous(), idx, nnz, live)
 
 
 def test_importing_the_package_builds_nothing():
