@@ -6,7 +6,8 @@ Ports ``repro/core/sparse_ffn.py`` for serving (``SparsityConfig.ffn_impl``):
               as the JAX package leaves it to XLA;
 - ``gather``  Eq. 3 fused up+down projection from packed TwELL gate
               activations: kernel K1 packs the gate, kernel K2 projects
-              (``kernels/ops.py``);
+              (``kernels/ops.py``); a non-gated FFN (App. C.2) packs
+              act(x @ W_u) with K1 and projects down with kernel K6;
 - ``tile_skip`` the gated FFN end to end in kernel K5, which skips the
               W_u/W_d work of dead (row block x tile) cells and, with
               ``tile_skip_threshold > 0``, drops tiles whose max gate
@@ -89,21 +90,28 @@ def _dense_apply(params, x, scfg: SparsityConfig, gated: bool,
 def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
                  collect_aux: bool):
     from repro_torch.kernels import ops
-    if not gated:
-        raise NotImplementedError(
-            "the non-gated TwELL path needs twell_down_proj (TPU kernel K6), "
-            "which the port has not reached yet")
-    tw = ops.twell_gate_matmul(x, params["wg"], scfg.twell_tile,
-                               scfg.twell_c, scfg.activation)
-    y = ops.twell_fused_ffn(x, tw, params["wu_t"], params["wd"])
+    if gated:
+        tw = ops.twell_gate_matmul(x, params["wg"], scfg.twell_tile,
+                                   scfg.twell_c, scfg.activation)
+        y = ops.twell_fused_ffn(x, tw, params["wu_t"], params["wd"])
+    else:
+        # App. C.2: the up projection produces the pattern (K1), the down
+        # projection reads only its rows of W_d (K6)
+        tw = ops.twell_gate_matmul(x, params["wu"], scfg.twell_tile,
+                                   scfg.twell_c, scfg.activation)
+        y = ops.twell_down_proj(tw, params["wd"])
     if not collect_aux:
         return y, None
-    # Eq. 2's L1 is over h = h_u * h_g: recover |h| on the pattern through
-    # the same gathered h_u elements the fused kernel computes (Eq. 3)
-    valid = twell.slot_valid(tw)
-    hu_p = torch.einsum("mk,mck->mc", x, params["wu_t"][tw.indices.long()])
-    h_abs = torch.where(valid, tw.values * hu_p,
-                        torch.zeros_like(hu_p)).float().abs()
+    if gated:
+        # Eq. 2's L1 is over h = h_u * h_g: recover |h| on the pattern
+        # through the same gathered h_u elements the fused kernel computes
+        valid = twell.slot_valid(tw)
+        hu_p = torch.einsum("mk,mck->mc", x,
+                            params["wu_t"][tw.indices.long()])
+        h_abs = torch.where(valid, tw.values * hu_p,
+                            torch.zeros_like(hu_p)).float().abs()
+    else:
+        h_abs = tw.values.float().abs()
     nnz_rows = tw.nnz.sum(-1)
     active = torch.zeros((tw.n,), dtype=torch.int32, device=x.device)
     active = active.scatter_reduce(

@@ -41,6 +41,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
     "paged_chunk_attention": 0,
     "tile_skip_ffn": 0,
+    "twell_down_proj": 0,
     "flash_attention": 0,
     "hybrid_to_dense": 0,
     "dense_to_hybrid": 0,

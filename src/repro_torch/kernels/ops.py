@@ -15,6 +15,8 @@ sync until ``OverflowLog.seen()``); the hybrid training format's pack
 (``core/hybrid.py``) ORs its backup-overflow flag into ``HybridOverflowLog``
 the same way.
 
+``twell_down_proj`` is the non-gated down projection from the packed
+activations (K6, float32 in the kernel, returned in W_d's type).
 ``hybrid_to_dense`` and ``dense_to_hybrid`` are the ELL sides of the hybrid
 products (K8, K9; float32 out); ``flash_attention`` is causal attention
 with its gradient (K7 forward).
@@ -38,6 +40,8 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_cuda, paged_decode_attention_plain)
 from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
                                             tile_skip_ffn_plain,
+                                            twell_down_proj_cuda,
+                                            twell_down_proj_plain,
                                             twell_fused_ffn_cuda,
                                             twell_fused_ffn_plain)
 from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
@@ -124,6 +128,14 @@ def twell_fused_ffn(x, tw: twell.TwellActs, wu_t, wd):
     if x.is_cuda:
         return twell_fused_ffn_cuda(x, tw, wu_t, wd).to(x.dtype)
     return twell_fused_ffn_plain(x, tw, wu_t, wd)
+
+
+def twell_down_proj(tw: twell.TwellActs, wd):
+    """Non-gated y = unpack(h) @ W_d from the packed activations (App.
+    C.2), in W_d's type; ``tw.nnz`` is the count ``twell_gate_matmul``
+    already clipped to T/C."""
+    fn = twell_down_proj_cuda if wd.is_cuda else twell_down_proj_plain
+    return fn(tw.values, tw.indices, tw.nnz, wd, tw.tile).to(wd.dtype)
 
 
 def tile_skip_ffn(x, wg, wu, wd, tile: int, act: str = "relu",

@@ -1,4 +1,4 @@
-"""K2 and K5: the sparse FFN kernels of ``repro/kernels/sparse_ffn.py``.
+"""K2, K5 and K6: the sparse FFN kernels of ``repro/kernels/sparse_ffn.py``.
 
 K2, fused up + down projection from the packed TwELL gate (paper Eq. 3):
 ``twell_fused_ffn_cuda`` launches ``csrc/twell_fused_ffn.cu``, the Hopper
@@ -11,10 +11,18 @@ counterpart of ``tile_skip_ffn_pallas`` with the per-(row, tile) threshold
 of ``repro/kernels/ref.py:tile_skip_ffn``; ``tile_skip_ffn_plain`` is the
 same function in plain PyTorch.
 
-Both take ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel reads
-W_u by column, and a column of the (K, N) row-major matrix is a strided
-walk. The transposed copy is made once when the weights are loaded
-(``models.lm.prepare_params``), never per call.
+K6, the non-gated down projection ``y = unpack(h) @ W_d`` (paper App.
+C.2), where the up projection itself produced the TwELL pattern:
+``twell_down_proj_cuda`` launches ``csrc/twell_down_proj.cu``, the Hopper
+counterpart of ``twell_down_proj_pallas``; ``twell_down_proj_plain`` is the
+same function in plain PyTorch (``repro/kernels/ref.py:twell_down_proj``,
+float32 out).
+
+K2 and K5 take ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel
+reads W_u by column, and a column of the (K, N) row-major matrix is a
+strided walk. The transposed copy is made once when the weights are loaded
+(``models.lm.prepare_params``), never per call. K6 reads W_d by rows as it
+is stored.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from repro_torch.kernels import build
 
 _FN = None
 _TS_FN = None
+_DP_FN = None
 _TS_ACTS = {"relu": 0, "relu2": 1}
 
 
@@ -83,6 +92,59 @@ def twell_fused_ffn_cuda(x: torch.Tensor, tw: twell.TwellActs,
                   tw.compression, build.stream_ptr(x))
     build.check(err, "twell_fused_ffn")
     build.count_launch("twell_fused_ffn")
+    return y
+
+
+def twell_down_proj_plain(vals: torch.Tensor, idx: torch.Tensor,
+                          nnz: torch.Tensor, wd: torch.Tensor, tile: int
+                          ) -> torch.Tensor:
+    """vals/idx (M, N/C), nnz (M, N/T), wd (N, K) -> y (M, K) float32:
+    ``unpack(h) @ W_d`` in float32. The unpacked h holds each valid slot
+    once, so its cast to float32 is exact, and ``vals`` in W_d's type
+    rounds nothing when the Pallas body casts h to it."""
+    n = wd.shape[0]
+    tw = twell.TwellActs(vals, idx, nnz, None, tile, n // vals.shape[1], n)
+    return torch.matmul(twell.unpack(tw).float(), wd.float())
+
+
+def twell_down_proj_cuda(vals: torch.Tensor, idx: torch.Tensor,
+                         nnz: torch.Tensor, wd: torch.Tensor, tile: int
+                         ) -> torch.Tensor:
+    """vals (M, N/C) bf16, idx (M, N/C) int32, nnz (M, N/T) int32 (clipped
+    to T/C; the kernel reads no slot at or past it), wd (N, K) bf16 on the
+    card -> y (M, K) float32."""
+    global _DP_FN
+    m, slots = vals.shape
+    n, k = wd.shape
+    ts = (vals, idx, nnz, wd)
+    if not all(t.is_cuda and t.device == wd.device for t in ts):
+        raise ValueError("twell_down_proj_cuda: every operand must be on "
+                         "wd's CUDA device")
+    if vals.dtype != torch.bfloat16 or wd.dtype != torch.bfloat16 or \
+            idx.dtype != torch.int32 or nnz.dtype != torch.int32:
+        raise TypeError("twell_down_proj_cuda takes bfloat16 values and "
+                        "W_d and int32 indices/nnz")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("twell_down_proj_cuda: operands must be contiguous")
+    if m < 1 or tile < 1 or n % tile or k % 8 or slots % (n // tile) or \
+            idx.shape != (m, slots) or nnz.shape != (m, n // tile) or \
+            wd.data_ptr() % 16:
+        raise ValueError(
+            f"twell_down_proj_cuda: inconsistent shapes values "
+            f"{tuple(vals.shape)} idx {tuple(idx.shape)} nnz "
+            f"{tuple(nnz.shape)} wd {tuple(wd.shape)} tile {tile} (needs "
+            "N % tile == 0, K % 8 == 0 and a 16-byte aligned wd)")
+    y = torch.empty((m, k), dtype=torch.float32, device=wd.device)
+    if _DP_FN is None:
+        P, I = build.P, build.I
+        _DP_FN = build.bind("twell_down_proj", "twell_down_proj_bf16",
+                            [P, P, P, P, P, I, I, I, I, P])
+    with torch.cuda.device(wd.device):
+        err = _DP_FN(vals.data_ptr(), idx.data_ptr(), nnz.data_ptr(),
+                     wd.data_ptr(), y.data_ptr(), m, k, n // tile,
+                     slots // (n // tile), build.stream_ptr(wd))
+    build.check(err, "twell_down_proj")
+    build.count_launch("twell_down_proj")
     return y
 
 

@@ -5,6 +5,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-0.5b \
       --reduced --device cpu --backend dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --reduced --device cpu
   # self-speculative decoding (tile-skip drafts, TwELL verifies) with
   # seeded stochastic sampling
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -43,8 +45,9 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain PyTorch path)")
     ap.add_argument("--backend", default="gather",
                     choices=("gather", "dense", "tile_skip"),
-                    help="FFN path: gather (TwELL kernels K1+K2), dense, or "
-                         "tile_skip (kernel K5)")
+                    help="FFN path: gather (TwELL kernels K1+K2, or K1+K6 "
+                         "for a non-gated FFN), dense, or tile_skip (kernel "
+                         "K5)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)

@@ -1,4 +1,4 @@
-"""Model primitives of the dense family: norm, RoPE, attention,
+"""Model primitives of the dense family: norms, RoPE, attention,
 embeddings. Ports the parts of ``repro/models/layers.py`` that the paged
 serving engine and the training forward run, keeping its layouts:
 activations (B, S, H, hd), pools (num_blocks, block_size, Hkv, hd),
@@ -23,6 +23,48 @@ def rmsnorm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
     if scale is not None:
         y = y * scale.float()
     return y.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale=None, bias=None, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm (biased variance) computed in float32, returned in
+    x.dtype; without ``scale`` and ``bias`` it is olmo's non-parametric
+    LayerNorm."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype: torch.dtype, device
+              ) -> Dict[str, torch.Tensor]:
+    """A norm's parameters: ``{}`` for ``nonparametric_ln`` (olmo), a
+    ``scale`` of ones for ``rmsnorm``, and a zero ``bias`` beside it for
+    ``layernorm``."""
+    if kind == "nonparametric_ln":
+        return {}
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def norm_apply(kind: str, params: Dict[str, torch.Tensor], x: torch.Tensor
+               ) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    if kind == "nonparametric_ln":
+        return layernorm(x)
+    raise ValueError(kind)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

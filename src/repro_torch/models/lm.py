@@ -33,14 +33,17 @@ from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import sparse_ffn
 from repro_torch.models.layers import (attention, attn_init, embed_init,
-                                       embed_lookup, lm_logits, rmsnorm)
+                                       embed_lookup, lm_logits, norm_apply,
+                                       norm_init)
+
+_NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.norm != "rmsnorm":
+    if cfg.family != "dense" or cfg.norm not in _NORMS:
         raise NotImplementedError(
-            f"the port serves the dense family with rmsnorm; got family "
-            f"{cfg.family!r}, norm {cfg.norm!r}")
+            f"the port serves the dense family with a norm of {_NORMS}; got "
+            f"family {cfg.family!r}, norm {cfg.norm!r}")
 
 
 def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
@@ -52,27 +55,21 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
     layers = []
     for _ in range(L):
         layers.append({
+            "ln1": norm_init(cfg.norm, d, dtype, dev),
+            "ln2": norm_init(cfg.norm, d, dtype, dev),
             "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
                               cfg.resolved_head_dim, dtype, gen, dev),
             "ffn": sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen, dev),
         })
-    blocks = {
-        "ln1": {"scale": ones((L, d))},
-        "ln2": {"scale": ones((L, d))},
-        "attn": {k: torch.stack([p["attn"][k] for p in layers])
-                 for k in layers[0]["attn"]},
-        "ffn": {k: torch.stack([p["ffn"][k] for p in layers])
-                for k in layers[0]["ffn"]},
-    }
+    blocks = {name: {k: torch.stack([p[name][k] for p in layers])
+                     for k in layers[0][name]}
+              for name in ("ln1", "ln2", "attn", "ffn")}
     params: Dict[str, Any] = {
         "embed": embed_init(cfg.padded_vocab, d, dtype, gen, dev),
-        "final_ln": {"scale": ones((d,))},
+        "final_ln": norm_init(cfg.norm, d, dtype, dev),
         "blocks": blocks,
     }
     if not cfg.tied_embeddings:
@@ -81,11 +78,12 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
 
 
 def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Add the weights derived once at load time: ``blocks.ffn.wu_t``, W_u
-    transposed to (L, N, K), which the TwELL fused kernel (K2) reads by
-    row. Idempotent."""
+    """Add the weights derived once at load time: for a gated FFN (one with
+    ``wg``), ``blocks.ffn.wu_t``, W_u transposed to (L, N, K), which the
+    TwELL fused kernel (K2), its only reader, takes by row; a non-gated FFN
+    gets none. Idempotent."""
     ffn = params["blocks"]["ffn"]
-    if "wu_t" not in ffn:
+    if "wg" in ffn and "wu_t" not in ffn:
         ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
     return params
 
@@ -128,10 +126,10 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal"):
-    a = attention(p["attn"], rmsnorm(x, p["ln1"]["scale"]), cfg,
+    a = attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
                   positions=positions, kind=kind, cache=cache)
     x = x + a
-    y, aux = sparse_ffn.apply(p["ffn"], rmsnorm(x, p["ln2"]["scale"]),
+    y, aux = sparse_ffn.apply(p["ffn"], norm_apply(cfg.norm, p["ln2"], x),
                               cfg.sparsity, cfg.gated,
                               collect_aux=collect_aux)
     return x + y, aux
@@ -156,7 +154,7 @@ def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
         # keep only each row's last valid hidden state before the O(V) head
         x = x[torch.arange(x.shape[0], device=x.device), last_rows.long()
               ][:, None]
-    x = rmsnorm(x, params["final_ln"]["scale"])
+    x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     logits = lm_logits(x, head)
     if collect_aux:
@@ -201,7 +199,7 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
         aux["moe_balance"] = torch.zeros((), device=x.device)
         auxs.append(aux)
     aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
-    x = rmsnorm(x, params["final_ln"]["scale"])
+    x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     return lm_logits(x, head), aux
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
+the non-gated down projection past one column slice and on empty rows,
 head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
 padded rows, tile-skip thresholds and dead tiles, causal attention over
 ragged sequence lengths and padded head dims, and the hybrid products over
@@ -130,6 +131,39 @@ def test_tile_skip_ffn_matches_plain(card, shape):
     if dead:
         assert float(h.float().reshape(m, nt, t)[:, dead_tiles].abs().max()) \
             == 0.0
+
+
+DOWN_SHAPES = [  # (M, K, N, T, C, keep)
+    (4, 2048, 8192, 256, 8, 0.02),               # olmo-1b decode
+    (256, 2048, 8192, 256, 8, 0.02),             # olmo-1b 4 x 64-token chunk
+    (2, 64, 256, 64, 1, 0.3),                    # K under one 256-column slice
+    (37, 520, 512, 128, 4, 0.1),                 # K past one slice, ragged
+    (9, 256, 1024, 256, 1, 1.0),                 # C = 1: every column a slot
+    (16, 96, 512, 64, 8, 1.0),                   # overflowing pack, clipped
+]
+
+
+@pytest.mark.parametrize("shape", DOWN_SHAPES, ids=str)
+def test_down_proj_matches_plain(card, shape):
+    """K6 on the packed pattern of relu(x @ W_u) (counts clipped to T/C, as
+    ops hands them over), with the first tile dead and row 0 empty: y within
+    bf16 tolerance of the plain version, the empty row exactly 0, and the
+    same bits from run to run."""
+    from repro_torch.kernels.sparse_ffn import (twell_down_proj_cuda,
+                                                twell_down_proj_plain)
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
+    m, k, n, t, c, keep = shape
+    x, wu, _, wd = _gate(m, k, n, keep, sum(shape[:5]), card)
+    wu[:, :t] = 0
+    x[0] = 0
+    v, i, z = twell_gate_matmul_plain(x, wu, t, c, "relu")
+    z = torch.clamp(z, max=t // c)
+    y = twell_down_proj_cuda(v, i, z, wd, t)
+    py = twell_down_proj_plain(v, i, z, wd, t)
+    assert y.dtype == torch.float32 and y.shape == (m, k)
+    torch.testing.assert_close(y, py, **TOL)
+    assert float(y[0].abs().max()) == 0.0
+    assert torch.equal(y, twell_down_proj_cuda(v, i, z, wd, t))
 
 
 def _paged(rng, b, hkv, hd, bs, width, dev):
@@ -306,6 +340,8 @@ def test_ops_dispatch_counts_launches(card):
     q = x.reshape(1, 4, 2, 32).contiguous()
     o = ops.flash_attention(q, q, q)
     assert o.dtype == q.dtype and o.shape == q.shape
+    yd = ops.twell_down_proj(ops.twell_gate_matmul(x, wu, 64, 1), wd)
+    assert yd.dtype == wd.dtype and yd.shape == (4, 64)
     hy = hyb.pack(torch.relu(x @ wg), 16, 1)
     live = ~hy.is_dense
     yh = ops.hybrid_to_dense(hy.ell_values, hy.ell_indices, hy.row_nnz, live,
@@ -314,7 +350,8 @@ def test_ops_dispatch_counts_launches(card):
                              hy.row_nnz, live)
     assert yh.shape == (4, 64) and vh.shape == (4, 16)
     counts = ops.launch_counts()
-    assert counts["twell_gate_matmul"] == 1 and counts["twell_fused_ffn"] == 1
+    assert counts["twell_gate_matmul"] == 2 and counts["twell_fused_ffn"] == 1
+    assert counts["twell_down_proj"] == 1
     assert counts["tile_skip_ffn"] == 1 and counts["flash_attention"] == 1
     assert counts["hybrid_to_dense"] == 1 and counts["dense_to_hybrid"] == 1
     assert counts["paged_decode_attention"] == 0

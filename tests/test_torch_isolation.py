@@ -86,6 +86,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_cuda
     from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
+                                                twell_down_proj_cuda,
                                                 twell_fused_ffn_cuda)
     from repro_torch.kernels.twell_pack import twell_gate_matmul_cuda
     x = torch.zeros(4, 64, dtype=torch.bfloat16)
@@ -97,6 +98,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         twell_fused_ffn_cuda(x, tw, w.t().contiguous(), w.t().contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         tile_skip_ffn_cuda(x, w, w, w.t().contiguous(), 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        twell_down_proj_cuda(tw.values, tw.indices, tw.nnz,
+                             w.t().contiguous(), 256)
     q = torch.zeros(2, 1, 4, 16, dtype=torch.bfloat16)
     pool = torch.zeros(3, 4, 2, 16, dtype=torch.bfloat16)
     bt = torch.ones(2, 1, dtype=torch.int32)

@@ -46,7 +46,7 @@ def weights():
 
 
 def test_reduced_config_is_the_jax_packages():
-    for name in ("paper-0.5b",):
+    for name in ("paper-0.5b", "olmo-1b"):
         want = dataclasses.asdict(jax_get_config(name).reduced())
         assert dataclasses.asdict(get_config(name).reduced()) == want
         assert dataclasses.asdict(get_config(name)) == \

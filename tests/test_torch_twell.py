@@ -1,5 +1,5 @@
-"""TwELL format and the plain versions of kernels K1/K2 in the PyTorch port,
-held against the JAX package on the same numpy inputs.
+"""TwELL format and the plain versions of kernels K1/K2/K6 in the PyTorch
+port, held against the JAX package on the same numpy inputs.
 
 Tolerances: float32 2e-4 and bfloat16 2e-2 (rtol and atol), as
 tests/test_kernels.py; indices, counts and the overflow flag exactly.
@@ -12,11 +12,13 @@ import torch
 from repro.core import twell as jtwell
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.sparse_ffn import twell_fused_ffn_pallas
+from repro.kernels.sparse_ffn import (twell_down_proj_pallas,
+                                      twell_fused_ffn_pallas)
 from repro.kernels.twell_pack import twell_gate_matmul_pallas
 from repro_torch.core import twell
 from repro_torch.kernels import ops
-from repro_torch.kernels.sparse_ffn import twell_fused_ffn_plain
+from repro_torch.kernels.sparse_ffn import (twell_down_proj_plain,
+                                            twell_fused_ffn_plain)
 from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
 
 # (M, K, N, tile, C), as tests/test_kernels.py SHAPES
@@ -157,4 +159,58 @@ def test_ops_fused_ffn_matches_jax_ops():
     got = ops.twell_fused_ffn(torch.from_numpy(x), tw,
                               torch.from_numpy(wu).t().contiguous(),
                               torch.from_numpy(wd))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("f32"))
+
+
+def _down_inputs(m, k, n, tile, dtype, keep):
+    """The non-gated pattern: h = relu(x @ W_u) packed by the JAX oracle
+    (K1's contract, nnz clipped to T/C), with the first tile dead for every
+    row and row 1 empty; W_d in ``dtype``."""
+    x, _, wu, wd = _inputs(m, k, n, seed=11, keep=1.0)
+    col = np.random.RandomState(12).rand(n) < keep
+    wu = wu * col[None]
+    wu[:, :tile] = 0
+    x[1] = 0
+    jx, _ = _both(x, dtype)
+    jwu, _ = _both(wu, dtype)
+    jwd, twd = _both(wd, dtype)
+    return jx, jwu, jwd, twd
+
+
+@pytest.mark.parametrize("keep", [0.15, 1.0])
+@pytest.mark.parametrize("m,k,n,tile,c", SHAPES[:2])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_down_proj_matches_pallas_and_ref(m, k, n, tile, c, dtype,
+                                                keep):
+    """K6's plain version against twell_down_proj_pallas (interpret mode)
+    and ref.twell_down_proj; keep=1.0 overflows T/C and runs on the
+    clipped counts, as repro/kernels/ops.py hands them over."""
+    jx, jwu, jwd, twd = _down_inputs(m, k, n, tile, dtype, keep)
+    jtw = jops.twell_gate_matmul(jx, jwu, tile, c)
+    assert bool(jtw.overflow) == (keep == 1.0)
+    nnz = np.asarray(jtw.nnz)
+    assert (nnz[:, 0] == 0).all() and (nnz[1] == 0).all()
+    tw = _torch_tw(jtw)
+    got = twell_down_proj_plain(tw.values, tw.indices, tw.nnz, twd, tile)
+    assert got.dtype == torch.float32
+    want = twell_down_proj_pallas(jtw.values, jtw.indices, jtw.nnz, jwd,
+                                  tile, bm=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _f32(want), **_tol(dtype))
+    np.testing.assert_allclose(got.numpy(),
+                               _f32(jref.twell_down_proj(jtw, jwd)),
+                               **_tol(dtype))
+    assert float(got[1].abs().max()) == 0.0
+
+
+def test_ops_down_proj_matches_jax_ops():
+    """ops.twell_down_proj on ops.twell_gate_matmul's packed pattern against
+    the JAX package's ops (y in W_d's type)."""
+    x, _, wu, wd = _inputs(16, 128, 512, seed=13, keep=1.0)
+    wu = wu * (np.random.RandomState(14).rand(512) < 0.1)[None]
+    jtw = jops.twell_gate_matmul(jnp.asarray(x), jnp.asarray(wu), 256, 8)
+    want = jops.twell_down_proj(jtw, jnp.asarray(wd))
+    tw = ops.twell_gate_matmul(torch.from_numpy(x), torch.from_numpy(wu),
+                               256, 8)
+    got = ops.twell_down_proj(tw, torch.from_numpy(wd))
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("f32"))
