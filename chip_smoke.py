@@ -15,7 +15,9 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound
+                 version, a library call and its bound; K4 and K7 also
+                 twice for the same bits, K4 at hd 64 (MHA, GQA) and at
+                 olmo-1b's hd 128
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
@@ -56,9 +58,15 @@ JAX package) and runs these phases, each printing one JSON line:
 Any failure raises: the script exits non-zero and prints no last line. It
 exits non-zero without a card and when the repo's ``src/`` is absent.
 Random weights are made from a seed; nothing is downloaded.
+
+For an A/B of kernel versions in one call, ``--src DIR --kernels
+paged_chunk_attention,flash_attention`` runs only phases 1-3 for those
+kernels on the port under DIR (e.g. an earlier version unpacked under
+``build/``) and prints their table, without the last line.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -95,12 +103,28 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding repro_torch (default: this "
+                         "checkout's src); another copy of the port, e.g. "
+                         "an earlier version unpacked under build/, times "
+                         "that version's kernels")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernel names: run only the device, "
+                         "build and kernels phases, for those kernels, and "
+                         "print their table (no last line); for A/B timing")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from the "
               "repo root", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -110,6 +134,11 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
+    if args.kernels is not None:
+        kernels = phase_kernels(torch, args.kernels.split(","))
+        print(smi, flush=True)
+        emit({"kernels": kernels, "src": str(src)})
+        return 0
     kernels = phase_kernels(torch)
     serve = phase_serve(torch)
     spec = phase_spec(torch, serve)
@@ -446,11 +475,11 @@ def check_k3(torch, timer, h, hkv, gen):
             "H": h, "Hkv": hkv, "seq_lens": sl_list}
 
 
-def check_k4(torch, timer, h, hkv, gen):
+def check_k4(torch, timer, h, hkv, gen, hd=64):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_chunk_attention import (
         paged_chunk_attention_cuda, paged_chunk_attention_plain)
-    b, s, hd, bs, width = 4, 64, 64, 16, 64
+    b, s, bs, width = 4, 64, 16, 64
     sl_list, nn_list = [900, 448, 300, 0], [64, 40, 64, 0]
     kpool, vpool, bt = paged_inputs(torch, gen, b, hkv, hd, bs, width)
     sl = torch.tensor(sl_list, dtype=torch.int32, device="cuda")
@@ -465,6 +494,9 @@ def check_k4(torch, timer, h, hkv, gen):
     valid = (torch.arange(s, device="cuda")[None, :] < nn[:, None])
     err, ok = close_err(torch, o, po, valid[:, :, None, None].expand_as(o))
     assert ok, f"K4 disagrees with the plain version (H={h}, Hkv={hkv}): {err}"
+    assert torch.equal(o, paged_chunk_attention_cuda(q, kpool, vpool, bt, sl,
+                                                     nn)), \
+        "K4 is not run-to-run deterministic"
     pages = sum((sl_ + nn_ - 1) // bs + 1 for sl_, nn_ in zip(sl_list, nn_list)
                 if nn_ > 0)
     keys = sum(sl_ + i + 1 for sl_, nn_ in zip(sl_list, nn_list)
@@ -483,7 +515,7 @@ def check_k4(torch, timer, h, hkv, gen):
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qt, kf, vf, attn_mask=mask)),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
-            "H": h, "Hkv": hkv, "chunk": s, "seq_lens": sl_list,
+            "H": h, "Hkv": hkv, "hd": hd, "chunk": s, "seq_lens": sl_list,
             "num_new": nn_list}
 
 
@@ -642,14 +674,26 @@ KERNELS = {
 }
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, only=None):
     """One entry per kernel: the top-level numbers at the shape the main
     path runs most (decode: M = 4 for K1/K2, K3, K5 and K6, K5 with a
-    threshold as the drafts run it; the 64-token prefill chunk for K4; the
-    train phase's batch for K7, K8 and K9, K8/K9 in their forward
-    orientation); every measured case under "cases"."""
+    threshold as the drafts run it; the 64-token prefill chunk for K4, MHA
+    first, then GQA and olmo-1b's 16 heads of 128; the train phase's batch
+    for K7, K8 and K9, K8/K9 in their forward orientation); every measured
+    case under "cases". ``only``: just those kernels (A/B timing)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timer = Timer(torch)
+    if only is not None:
+        checks = {
+            "paged_chunk_attention": lambda: [
+                check_k4(torch, timer, 32, 32, gen),
+                check_k4(torch, timer, 32, 8, gen),
+                check_k4(torch, timer, 16, 16, gen, hd=128)],
+            "flash_attention": lambda: [
+                check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 64, gen),
+                check_k7(torch, timer, 1, 4096, 32, 64, gen)],
+        }
+        return kernel_table(torch, {name: checks[name]() for name in only})
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
     k1_256, k2_256 = check_k1_k2(torch, timer, 256, gen)
     cases = {
@@ -660,7 +704,9 @@ def phase_kernels(torch):
         "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
                                    check_k3(torch, timer, 32, 8, gen)],
         "paged_chunk_attention": [check_k4(torch, timer, 32, 32, gen),
-                                  check_k4(torch, timer, 32, 8, gen)],
+                                  check_k4(torch, timer, 32, 8, gen),
+                                  check_k4(torch, timer, 16, 16, gen,
+                                           hd=128)],
         "tile_skip_ffn": [check_k5(torch, timer, 4, None, gen),
                           check_k5(torch, timer, 4, 0.0, gen),
                           check_k5(torch, timer, 256, None, gen),
@@ -675,6 +721,10 @@ def phase_kernels(torch):
     cases["dense_to_hybrid"] = [check_k9(torch, timer, hybrid, o)
                                 for o in ("forward", "backward")]
     del hybrid
+    return kernel_table(torch, cases)
+
+
+def kernel_table(torch, cases):
     out = []
     for name, runs in cases.items():
         head = runs[0]

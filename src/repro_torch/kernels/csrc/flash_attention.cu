@@ -8,243 +8,293 @@
 // What bounds it on the H100: at the training shape (B 8, S 1024, H 32,
 // hd 64) reading q, k, v and writing o is 134 MB, 40 us at 3.35 TB/s; the
 // causal 2 * S^2 * hd * B * H = 34 GFLOP take 35 us at the bf16 tensor-core
-// peak. Both are near, so the products must run on the tensor cores and
-// each K/V row should be read from device memory about once per query tile.
+// peak (989 TFLOP/s), which only wgmma reaches. Both bounds are near, so
+// the products run on wgmma fed by TMA, and each K/V row is read from
+// device memory once per 128-row query tile.
 //
-// Design (kernel K4's flash form, with contiguous K/V in place of pages):
-//   * grid (batch x head, tile of 64 query rows); each of the four warps
-//     owns 16 rows, its Q held in registers as mma A fragments. The TPU
-//     grid walks KV blocks in order with (m, l, acc) in VMEM scratch; here
-//     the block loops over the key tiles itself, and only up to the
-//     diagonal: the last key any of its rows can see is its last row;
-//   * keys are staged 64 at a time: 16-byte loads into registers one tile
-//     ahead (the next tile's loads overlap this tile's math), then K
-//     row-major and V transposed in shared memory, bf16, rows padded
-//     against bank conflicts;
-//   * S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products with f32
-//     accumulation; the f32 online softmax runs on the accumulator
-//     fragments (a row's 64 scores live in 4 lanes, reduced by two
-//     shuffles); l sums the f32 probabilities and P enters the second
-//     product rounded to bf16 -- the Pallas body's p.astype(v.dtype);
-//   * output acc / max(l, 1e-30) rounded once to bf16.
+// Design (bf16; the core is attention_sm90.cuh, shared with K4):
+//   * a work item is 128 query rows of one (batch, head); a block has two
+//     consumer warpgroups of 64 rows and a producer warpgroup (384
+//     threads), whose one working thread issues the copies. setmaxnreg
+//     moves registers from the producer (40) to the consumers (232),
+//     which hold S, O and P at once. The grid is persistent, one block an
+//     SM (at most the items), and block i takes items i, i + grid, ... of
+//     a heaviest-first order (query tile reversed, then batch x head):
+//     every round of items has one weight, every block starts with its
+//     heaviest item and the light ones fill the tail. (An order by chunks
+//     of heads, to keep the running items' K/V in L2, measured 26% slower:
+//     the rounds' weights mix);
+//   * the producer loads each item's Q into one of two slots and its K and
+//     V tiles of KT keys into a ring of NST stages, all with TMA, with full
+//     and empty mbarriers; the ring runs on across items, so the next
+//     item's loads overlap this one's last tiles and epilogue. The tensor
+//     maps are 4-D over the (B, S, H, hd) layout, {hd, H, S, B} with box
+//     {64, 1, rows, 1} and the 128-byte swizzle: no host-side copy, and
+//     reads past hd or past S are zero-filled by the hardware (hd 16..56
+//     pad to one 64-column panel, hd 128 is two);
+//   * both consumer warpgroups walk the key tiles up to the item's last
+//     row: S = Q K^T and O += P V on wgmma (P from registers, V read
+//     MN-major), the f32 online softmax in base 2 with scale * log2 e
+//     folded in, software-pipelined (flash_step: a tile's Q K^T is issued
+//     with the previous tile's P V, and the softmax runs while that P V is
+//     on the tensor cores); only the tile(s) crossing the
+//     item's diagonal are masked; P enters the second product rounded to
+//     bf16 (the Pallas body's p.astype(v.dtype)) while l sums the f32
+//     probabilities;
+//   * output acc / max(l, 1e-30) rounded once to bf16, staged in the
+//     warpgroup's Q slot and written as 16-byte stores; then the slot is
+//     released to the producer.
+// KT = 128 keys for hd <= 64, 64 for hd 128 (the S and O accumulators stay
+// within the registers); the host plan (kernels/attention_plan.py) picks
+// both and the grid, and flash_attention_bf16 launches only the pairs
+// built here. At hd 128 ptxas still serialises the wgmmas (C7511, too few
+// registers for the pipeline); that shape is off the training path.
 // float32 inputs take a second, plain CUDA-core kernel (a warp per query
 // row, 32-key tiles, f32 throughout): tensor-core TF32 would not hold the
 // float32 tolerance; that path serves the tests, not the bf16 model.
 // No atomics: each result is the same from run to run.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_sm90.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace sm90;
 
 namespace {
 
-constexpr int NWARPS = 4;
-constexpr int RT = 16 * NWARPS;  // query rows per block
-constexpr int KT = 64;           // keys per staged tile
-constexpr int VS = KT + 8;       // transposed V row stride (elements)
-constexpr float NEG = -1e30f;
+constexpr int RT = 128;   // query rows of a work item (two warpgroups)
+constexpr int NST = 4;    // K/V stages in the ring
+constexpr int THREADS = 3 * 128;  // two consumer warpgroups, a producer one
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int HD, int KT>
+struct Layout {
+  static constexpr uint32_t Q = (HD / 64) * 64 * PANEL_ROW;   // a warpgroup's Q
+  static constexpr uint32_t KV = (HD / 64) * KT * PANEL_ROW;  // a K or V tile
+  static constexpr uint32_t RING = 2 * 2 * Q;                 // after 2 Q slots
+  static constexpr uint32_t BARS = RING + NST * 2 * KV;       // after the tiles
+  static constexpr size_t SMEM = 1024 + BARS + 8 * (2 * NST + 4);
+};
+
+// the query tile and (batch x head) of work item w: heaviest tiles first
+__device__ __forceinline__ void work_item(int w, int n_bh, int nqt, int& qt,
+                                          int& bh) {
+  qt = nqt - 1 - w / n_bh;
+  bh = w % n_bh;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the max / sum of a row whose values sit in the 4 lanes of a lane group
-__device__ __forceinline__ float group_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// HD: head dim padded to a multiple of 16 (32, 64 or 128)
-template <int HD>
-__global__ void __launch_bounds__(NWARPS * 32)
-    flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int S, int H, int hd, float scale) {
-  constexpr int KS = HD + 8;   // K row stride (elements)
-  constexpr int QK = HD / 16;  // k-steps of Q K^T
-  constexpr int DN = HD / 8;   // 8-wide output blocks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [KT][KS]
-  bf16* vt_s = k_s + KT * KS;                     // [HD][VS]
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * RT;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const size_t rs = (size_t)H * hd;               // one position's stride
-  const size_t base = (size_t)b * S * rs + (size_t)h * hd;
-
-  // zero the padded head dims once; tiles rewrite only dims < hd
-  for (int e = tid; e < KT * KS; e += blockDim.x)
-    k_s[e] = __float2bfloat16(0.f);
-  for (int e = tid; e < HD * VS; e += blockDim.x)
-    vt_s[e] = __float2bfloat16(0.f);
-
-  // this thread's two rows (gid and gid + 8 of the warp's 16): query
-  // position (-1 past S) and the Q fragments, zero past hd / S
-  int qpos[2];
-  uint32_t qa[QK][4];
+// The two consumer warpgroups: warpgroup wg takes rows q0 + 64 wg .. + 63
+// of each of the block's items.
+template <int HD, int KT>
+__device__ __forceinline__ void consumer(bf16* __restrict__ out, int S,
+                                         int H, int hd, float sl2, int n_bh,
+                                         int nqt, uint8_t* sm) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  typedef Layout<HD, KT> L;
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t full = s0 + L::BARS, empty = full + 8 * NST,
+                 qfull = empty + 8 * NST, qempty = qfull + 16;
+  auto q_slot = [&](int slot) { return s0 + slot * 2 * L::Q; };
+  auto k_tile = [&](int st) { return s0 + L::RING + st * 2 * L::KV; };
+  const int total = n_bh * nqt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;  // this thread's rows r0, r0 + 8
+  const size_t rs = (size_t)H * hd;           // one position's stride
+  int it = 0;
+  for (int w = blockIdx.x, i = 0; w < total; w += gridDim.x, ++i) {
+    int qt, bh;
+    work_item(w, n_bh, nqt, qt, bh);
+    const int b = bh / H, h = bh % H;
+    const int q0 = qt * RT, q0w = q0 + 64 * wg;
+    const int ntiles = (min(S, q0 + RT) + KT - 1) / KT;
+    const int qpos[2] = {q0w + r0, q0w + r0 + 8};
+    const int slot = i & 1;
+    const uint32_t q = q_slot(slot) + wg * L::Q;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float o[HD / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + gid + 8 * half;
-    const bool live = row < S;
-    qpos[half] = live ? row : -1;
-    const bf16* qr = q + base + (size_t)row * rs;
-#pragma unroll
-    for (int kk = 0; kk < QK; ++kk) {
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int d = kk * 16 + 8 * hi + tig * 2;
-        uint32_t u = 0;
-        if (live && d < hd) u = *reinterpret_cast<const uint32_t*>(qr + d);
-        qa[kk][half + 2 * hi] = u;  // a0/a1: cols 0-7, a2/a3: cols 8-15
-      }
+    for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+
+    mbar_wait(qfull + 8 * slot, (i >> 1) & 1);
+    // Every branch below is uniform over the block (tile counters, the
+    // item's q0), so ptxas keeps the wgmmas asynchronous. A key tile is
+    // masked when it crosses the block's diagonal; at hd 128 (64-key tiles)
+    // warpgroup 0's last tile lies wholly in its future and is masked whole.
+    // The first tile is peeled: no P V is pending before it.
+    float sc[KT / 2], corr[2];
+    uint32_t pf[KT / 4];
+    int st = it % NST;
+    mbar_wait(full + 8 * st, (it / NST) & 1);
+    if (KT - 1 > q0)
+      flash_step<KT, HD, true, false>(sc, o, pf, m, l, corr, sl2, 0,
+                                                qpos, q, k_tile(st), 0);
+    else
+      flash_step<KT, HD, false, false>(sc, o, pf, m, l, corr, sl2,
+                                                 0, qpos, q, k_tile(st), 0);
+    ++it;
+    for (int t = 1; t < ntiles; ++t, ++it) {
+      const int prev = st, k0 = t * KT;
+      st = it % NST;
+      mbar_wait(full + 8 * st, (it / NST) & 1);
+      const uint32_t v_prev = k_tile(prev) + L::KV;
+      if (k0 + KT - 1 > q0)
+        flash_step<KT, HD, true, true>(sc, o, pf, m, l, corr, sl2,
+                                                 k0, qpos, q, k_tile(st),
+                                                 v_prev);
+      else
+        flash_step<KT, HD, false, true>(sc, o, pf, m, l, corr, sl2,
+                                                  k0, qpos, q, k_tile(st),
+                                                  v_prev);
+      mbar_arrive_if(empty + 8 * prev, lane == 0);
     }
+    flash_drain<KT, HD>(o, pf, corr, k_tile(st) + L::KV);
+    mbar_arrive_if(empty + 8 * st, lane == 0);
+
+    const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
+                          1.f / fmaxf(l[1], 1e-30f)};
+    bf16* base = out + (size_t)b * S * rs + (size_t)h * hd;
+    store_rows<HD>(o, inv, sm + (q - s0), hd,
+                   [&](int r) -> bf16* {
+                     const int row = q0w + r;
+                     return row < S ? base + (size_t)row * rs : nullptr;
+                   },
+                   1 + wg);
+    fence_proxy_async();  // the staging writes before TMA refills the slot
+    __syncwarp();
+    mbar_arrive_if(qempty + 8 * slot, lane == 0);
   }
-  const int kend = min(S, q0 + RT);  // causal: no key past the last row
+}
 
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float o[DN][4];
-#pragma unroll
-  for (int n = 0; n < DN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+template <int HD, int KT>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, int S, int H, int hd,
+                       float sl2, int n_bh, int nqt) {
+  typedef Layout<HD, KT> L;
+  extern __shared__ __align__(1024) uint8_t smem_tiles[];
+  uint8_t* sm = smem_aligned(smem_tiles);
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t full = s0 + L::BARS, empty = full + 8 * NST,
+                 qfull = empty + 8 * NST, qempty = qfull + 16;
+  auto q_slot = [&](int slot) { return s0 + slot * 2 * L::Q; };
+  auto k_tile = [&](int st) { return s0 + L::RING + st * 2 * L::KV; };
+  const int total = n_bh * nqt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the next tile's K/V rows are fetched into registers while the current
-  // tile is computed: CPT 16-byte chunks of each per thread
-  constexpr int CPT = KT * HD / 8 / (NWARPS * 32);
-  const int cpk = hd / 8;  // 16-byte chunks per key row
-  uint4 kpf[CPT], vpf[CPT];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int e = tid + c * NWARPS * 32;
-      const int pos = k0 + e / cpk;
-      kpf[c] = make_uint4(0, 0, 0, 0);
-      vpf[c] = make_uint4(0, 0, 0, 0);
-      if (e < KT * cpk && pos < kend) {
-        const size_t off = base + (size_t)pos * rs + (e % cpk) * 8;
-        kpf[c] = *reinterpret_cast<const uint4*>(k + off);
-        vpf[c] = *reinterpret_cast<const uint4*>(v + off);
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);  // lane 0 of each consumer warp
     }
-  };
-  __syncthreads();  // the zero fill is visible
-  fetch(0);
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int e = tid + c * NWARPS * 32;
-      if (e < KT * cpk) {
-        const int j = e / cpk, d0 = (e % cpk) * 8;
-        *reinterpret_cast<uint4*>(k_s + j * KS + d0) = kpf[c];
-        const bf16* vv = reinterpret_cast<const bf16*>(&vpf[c]);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) vt_s[(d0 + t) * VS + j] = vv[t];
-      }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull + 8 * i, 1);
+      mbar_init(qempty + 8 * i, 8);
     }
-    __syncthreads();
-    if (k0 + KT < kend) fetch(k0 + KT);  // in flight during this tile's math
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T: 8 blocks of 8 keys, each 4 accumulators per thread
-    float s[KT / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < KT / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      const bf16* kr = k_s + (nb * 8 + gid) * KS + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < QK; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma16816(s[nb], qa[kk], b0, b1);
-      }
-    }
-    // online softmax on the fragments: c0/c1 belong to row gid, c2/c3 to
-    // row gid + 8; key of (nb, c) = k0 + nb*8 + tig*2 + (c & 1)
-    float corr[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = NEG;
-#pragma unroll
-      for (int nb = 0; nb < KT / 8; ++nb)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = k0 + nb * 8 + tig * 2 + c;
-          float& x = s[nb][2 * half + c];
-          x = key <= qpos[half] ? x * scale : NEG;
-          mx = fmaxf(mx, x);
+  // The block walks work items blockIdx.x, + gridDim.x, ...: Q of item i
+  // goes to slot i % 2, its K/V tiles continue one ring across items, so
+  // the next item's loads overlap this item's last tiles and epilogue.
+  if (warp >= 8) {  // the producer warpgroup: one thread issues the copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0;  // K/V tiles issued so far
+      for (int w = blockIdx.x, i = 0; w < total; w += gridDim.x, ++i) {
+        int qt, bh;
+        work_item(w, n_bh, nqt, qt, bh);
+        const int b = bh / H, h = bh % H, q0 = qt * RT;
+        const int slot = i & 1;
+        if (i >= 2) mbar_wait(qempty + 8 * slot, ((i >> 1) - 1) & 1);
+        mbar_expect_tx(qfull + 8 * slot, 2 * L::Q);
+        for (int g = 0; g < 2; ++g)
+          for (int p = 0; p < HD / 64; ++p)
+            tma_load_4d(q_slot(slot) + g * L::Q + p * 64 * PANEL_ROW, &tq,
+                        p * 64, h, q0 + 64 * g, b, qfull + 8 * slot);
+        const int ntiles = (min(S, q0 + RT) + KT - 1) / KT;
+        for (int t = 0; t < ntiles; ++t, ++it) {
+          const int st = it % NST;
+          if (it >= NST) mbar_wait(empty + 8 * st, (it / NST - 1) & 1);
+          mbar_expect_tx(full + 8 * st, 2 * L::KV);
+          for (int p = 0; p < HD / 64; ++p) {
+            const uint32_t off = p * KT * PANEL_ROW;
+            tma_load_4d(k_tile(st) + off, &tk, p * 64, h, t * KT, b,
+                        full + 8 * st);
+            tma_load_4d(k_tile(st) + L::KV + off, &tv, p * 64, h, t * KT, b,
+                        full + 8 * st);
+          }
         }
-      mx = group_max(mx);
-      const float m_new = fmaxf(m[half], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < KT / 8; ++nb)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float& x = s[nb][2 * half + c];
-          x = x > NEG ? expf(x - m_new) : 0.f;  // masked keys: exactly 0
-          sum += x;
-        }
-      corr[half] = expf(m[half] - m_new);
-      l[half] = l[half] * corr[half] + group_sum(sum);
-      m[half] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-    // O += P V: P's accumulator layout is the A-fragment layout of the next
-    // product (keys 16 per k-step = blocks 2kk and 2kk+1)
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < DN; ++n) {
-        const bf16* vr = vt_s + (n * 8 + gid) * VS + kk * 16 + tig * 2;
-        mma16816(o[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
       }
     }
+  } else {
+    consumer<HD, KT>(out, S, H, hd, sl2, n_bh, nqt, sm);
   }
+}
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (qpos[half] < 0) continue;
-    const float inv = 1.f / fmaxf(l[half], 1e-30f);
-    bf16* dst = out + base + (size_t)qpos[half] * rs;
-#pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      const int d = n * 8 + tig * 2;
-      if (d < hd)
-        *reinterpret_cast<uint32_t*>(dst + d) =
-            pack_bf16(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
-    }
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so that
+// the library needs no -lcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
+  return fn;
+}
+
+// a (B, S, H, hd) bf16 tensor as {hd, H, S, B}, box {64, 1, rows, 1},
+// 128-byte swizzle, zero fill out of bounds
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
+             int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD, int KT>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int S, int H, int hd, float scale, int grid,
+                cudaStream_t stream) {
+  typedef Layout<HD, KT> L;
+  CUtensorMap tq, tk, tv;
+  int e = make_map(&tq, q, B, S, H, hd, 64);
+  if (!e) e = make_map(&tk, k, B, S, H, hd, KT);
+  if (!e) e = make_map(&tv, v, B, S, H, hd, KT);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  const int nqt = (S + RT - 1) / RT;
+  flash_wgmma_kernel<HD, KT><<<grid, THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, (bf16*)out, S, H, hd, scale * LOG2E, B * H, nqt);
+  return (int)cudaGetLastError();
 }
 
 // float32: a warp per query row, lanes own keys for the scores and head
@@ -319,34 +369,24 @@ __global__ void __launch_bounds__(FW * 32)
   }
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int hd, float scale,
-                cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (KT * (HD + 8) + HD * VS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B * H, (S + RT - 1) / RT);
-  flash_bf16_kernel<HD><<<grid, NWARPS * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, S, H, hd,
-      scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// q, k, v, out (B, S, H, hd) bf16; requires hd % 8 == 0 and hd <= 128.
+// q, k, v, out (B, S, H, hd) bf16, 16-byte aligned; requires hd % 8 == 0
+// and hd <= 128. hd_pad, key_tile and grid (persistent blocks) are the host
+// plan's (attention_plan.flash_plan): (64, 128) for hd <= 64, (128, 64)
+// above; 1 <= grid <= the query tiles of all heads.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
-                                    int H, int hd, float scale, void* stream) {
+                                    int H, int hd, float scale, int hd_pad,
+                                    int key_tile, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 32) return launch_bf16<32>(q, k, v, out, B, S, H, hd, scale, s);
-  if (hd <= 64) return launch_bf16<64>(q, k, v, out, B, S, H, hd, scale, s);
-  return launch_bf16<128>(q, k, v, out, B, S, H, hd, scale, s);
+  if (grid < 1 || grid > B * H * ((S + RT - 1) / RT))
+    return (int)cudaErrorInvalidValue;
+  if (hd_pad == 64 && key_tile == 128 && hd <= 64)
+    return launch_bf16<64, 128>(q, k, v, out, B, S, H, hd, scale, grid, s);
+  if (hd_pad == 128 && key_tile == 64 && hd <= 128)
+    return launch_bf16<128, 64>(q, k, v, out, B, S, H, hd, scale, grid, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // q, k, v, out (B, S, H, hd) float32; requires hd <= 128.

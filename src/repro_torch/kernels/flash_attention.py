@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import attention_plan, build
 
 _FN = {}
 _NEG = -1e30
@@ -86,17 +86,23 @@ def flash_attention_cuda(q, k, v):
             f"flash_attention_cuda: unsupported shapes q {tuple(q.shape)} k "
             f"{tuple(k.shape)} v {tuple(v.shape)} (needs equal shapes, "
             "hd <= 128, bf16 hd % 8 == 0, 16-byte aligned)")
-    name = "flash_attention_bf16" if q.dtype == torch.bfloat16 \
-        else "flash_attention_f32"
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention_f32"
     if name not in _FN:
         P, I = build.P, build.I
+        tiles = [I, I, I] if bf16 else []
         _FN[name] = build.bind("flash_attention", name,
-                               [P, P, P, P, I, I, I, I, build.F, P])
+                               [P, P, P, P, I, I, I, I, build.F, *tiles, P])
+    tiles = ()
+    if bf16:  # the plan: head-dim padding, key tile, persistent grid
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = attention_plan.flash_plan(b, s, h, hd, sms)
+        tiles = (plan.hd_pad, plan.key_tile, plan.grid)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _FN[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), b, s, h, hd, 1.0 / hd ** 0.5,
-                        build.stream_ptr(q))
+                        *tiles, build.stream_ptr(q))
     build.check(err, "flash_attention")
     build.count_launch("flash_attention")
     return out

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import attention_plan, build
 from repro_torch.kernels.paged_decode_attention import (gather_pages,
                                                          masked_sdpa)
 
@@ -55,22 +55,27 @@ def paged_chunk_attention_cuda(q, kpool, vpool, block_tables, seq_lens,
     if hd != hd2 or hd > 128 or hd % 8 or vpool.shape != kpool.shape or \
             h % hkv or \
             block_tables.shape[0] != b or seq_lens.shape != (b,) or \
-            num_new.shape != (b,) or b < 1 or s < 1 or width < 1:
+            num_new.shape != (b,) or b < 1 or s < 1 or width < 1 or \
+            any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
         raise ValueError(
             f"paged_chunk_attention_cuda: unsupported shapes q "
             f"{tuple(q.shape)} pools {tuple(kpool.shape)} tables "
-            f"{tuple(block_tables.shape)} (needs hd % 8 == 0, hd <= 128)")
+            f"{tuple(block_tables.shape)} (needs hd % 8 == 0, hd <= 128, "
+            "16-byte aligned)")
+    # rows per block and the cluster's key split, from shapes only
+    plan = attention_plan.chunk_plan(b, s, h, hkv, width, bs)
     out = torch.empty_like(q)
     if _FN is None:
         P, I = build.P, build.I
         _FN = build.bind("paged_chunk_attention", "paged_chunk_attention_bf16",
                          [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                          build.F, P])
+                          build.F, I, I, P])
     with torch.cuda.device(q.device):
         err = _FN(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                   block_tables.data_ptr(), seq_lens.data_ptr(),
                   num_new.data_ptr(), out.data_ptr(), b, s, h, hkv, hd, bs,
-                  width, 1.0 / (hd ** 0.5), build.stream_ptr(q))
+                  width, 1.0 / (hd ** 0.5), plan.rows, plan.cluster,
+                  build.stream_ptr(q))
     build.check(err, "paged_chunk_attention")
     build.count_launch("paged_chunk_attention")
     return out

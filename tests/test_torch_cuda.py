@@ -3,7 +3,10 @@ over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
 the non-gated down projection past one column slice and on empty rows,
 head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
 padded rows, tile-skip thresholds and dead tiles, causal attention over
-ragged sequence lengths and padded head dims, and the hybrid products over
+ragged sequence lengths and padded head dims, paged chunk attention split
+over a cluster (live keys in every split, empty splits, 512 rows, over 2048
+keys) and causal attention in more than one wave of blocks, bit-identical
+from run to run, and the hybrid products over
 both sides of the format, bf16 and float32. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
@@ -265,6 +268,79 @@ def test_flash_attention_matches_plain(card, shape, dtype):
     torch.testing.assert_close(o.float(), po.float(), **tol)
     torch.testing.assert_close(o[:, 0].float(), v[:, 0].float(), **tol)
     assert torch.equal(o, flash_attention_cuda(q, k, v))
+
+
+# K7 at shapes with S not a multiple of the 128-row query tile and more
+# work items (batch x head x query tiles) than the H100's 132 SMs, so the
+# persistent blocks take several items each in heaviest-first order (and
+# refill both Q slots and the K/V ring across items)
+FLASH_WAVE_SHAPES = [  # (B, S, H, hd)
+    (4, 1000, 8, 64),         # 32 x 8 = 256 items
+    (2, 777, 12, 128),        # 24 x 7 = 168 items, key tile 64
+    (3, 1100, 7, 40),         # 21 x 9 = 189 items, hd padded to 64
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_WAVE_SHAPES, ids=str)
+def test_flash_attention_heavy_first_waves(card, shape):
+    from repro_torch.kernels.attention_plan import flash_plan
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    b, s, h, hd = shape
+    plan = flash_plan(b, s, h, hd, 132)
+    assert s % 128 and plan.n_bh * plan.n_q_tiles > 132
+    q, k, v = _qkv(shape, torch.bfloat16, card, sum(shape))
+    o = flash_attention_cuda(q, k, v)
+    po = flash_attention_plain(q, k, v)
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), po.float(), **TOL)
+    assert torch.equal(o, flash_attention_cuda(q, k, v))
+
+
+# K4 with the keys of a row tile split over a thread-block cluster
+CHUNK_SPLIT_CASES = [  # (Hkv, G, hd, bs, width, S, seq_lens, num_new)
+    # 2464 live keys over all 8 splits (> 2048); a short request leaves
+    # most splits without a live key; a padded request
+    (2, 2, 64, 16, 160, 64, [2400, 100, 0], [64, 30, 0]),
+    # G * S = 512 rows: four 128-row tiles, each over 4 splits
+    (2, 8, 64, 16, 64, 64, [900, 0, 0], [64, 64, 0]),
+    # olmo-1b's head dim, 4 splits
+    (4, 1, 128, 16, 64, 64, [900, 100, 0], [64, 40, 0]),
+    # 8-key pages, hd 32 padded to 64, cluster capped at 8 (2400 keys)
+    (4, 1, 32, 8, 300, 16, [2380, 7, 0], [16, 3, 0]),
+]
+
+
+@pytest.mark.parametrize("case", CHUNK_SPLIT_CASES, ids=str)
+def test_paged_chunk_cluster_splits(card, case):
+    """Every split of request 0 holds live keys, request 1 leaves splits
+    empty, request 2 is padding (exactly zero); live rows within bf16
+    tolerance of the plain version; the same bits from run to run."""
+    from repro_torch.kernels.attention_plan import chunk_plan, chunk_splits
+    from repro_torch.kernels.paged_chunk_attention import (
+        paged_chunk_attention_cuda, paged_chunk_attention_plain)
+    hkv, g, hd, bs, width, s, sl, nn = case
+    b = len(sl)
+    plan = chunk_plan(b, s, hkv * g, hkv, width, bs)
+    kend = [min(sl_ + nn_, width * bs) if nn_ else sl_
+            for sl_, nn_ in zip(sl, nn)]
+    assert plan.cluster > 1
+    assert all(hi > lo for lo, hi in chunk_splits(kend[0], plan.cluster))
+    assert any(hi == lo for lo, hi in chunk_splits(kend[1], plan.cluster))
+    rng = np.random.RandomState(sum(sl) + hd)
+    kp, vp, bt = _paged(rng, b, hkv, hd, bs, width, card)
+    bt[2] = 0
+    sl_t = torch.tensor(sl, dtype=torch.int32, device=card)
+    nn_t = torch.tensor(nn, dtype=torch.int32, device=card)
+    q = _bf16(rng.randn(b, s, hkv * g, hd), card)
+    o = paged_chunk_attention_cuda(q, kp, vp, bt, sl_t, nn_t)
+    po = paged_chunk_attention_plain(q, kp, vp, bt, sl_t, nn_t)
+    assert torch.isfinite(o.float()).all()
+    valid = torch.arange(s, device=card)[None, :] < nn_t[:, None]
+    torch.testing.assert_close(o.float()[valid], po.float()[valid], **TOL)
+    assert float(o[2].float().abs().max()) == 0.0
+    assert torch.equal(o, paged_chunk_attention_cuda(q, kp, vp, bt, sl_t,
+                                                     nn_t))
 
 
 def _hybrid_case(m, n, k, e, dense_rows, dtype, dev, seed):
