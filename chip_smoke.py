@@ -15,9 +15,11 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound; K4 and K7 also
-                 twice for the same bits, K4 at hd 64 (MHA, GQA) and at
-                 olmo-1b's hd 128
+                 version, a library call and its bound (K1 also the host
+                 time of a call beside the library call's); K1, K4 and K7
+                 also twice for the same bits, K1 at M 4, 20, 64 and 256 on
+                 paper-0.5b's W_g and at M 4 and 256 on olmo-1b's N 8192,
+                 K4 at hd 64 (MHA, GQA) and at olmo-1b's hd 128
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
@@ -60,9 +62,13 @@ exits non-zero without a card and when the repo's ``src/`` is absent.
 Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
-paged_chunk_attention,flash_attention`` runs only phases 1-3 for those
-kernels on the port under DIR (e.g. an earlier version unpacked under
-``build/``) and prints their table, without the last line.
+twell_gate_matmul,paged_chunk_attention,flash_attention`` runs only phases
+1-3 for those kernels on the port under DIR (e.g. an earlier version
+unpacked under ``build/``) and prints their table, without the last line.
+``--k1-plans`` runs phases 1-2 and then K1 at each of its timed shapes under
+the launch plans around ``gate_plan``'s (cluster size, rows a block, ring
+depth), each checked against the plain version and timed beside the
+clusters the card holds at once; for tuning the plan (no last line).
 """
 from __future__ import annotations
 
@@ -114,6 +120,12 @@ def parse_args(argv):
                     help="comma-separated kernel names: run only the device, "
                          "build and kernels phases, for those kernels, and "
                          "print their table (no last line); for A/B timing")
+    ap.add_argument("--k1-plans", action="store_true",
+                    help="run only the device and build phases and K1 at "
+                         "each of K1_SHAPES under the launch plans around "
+                         "gate_plan's (cluster size, rows a block, ring "
+                         "depth), each checked and timed (no last line); "
+                         "for tuning the plan")
     return ap.parse_args(argv)
 
 
@@ -134,6 +146,10 @@ def main(argv=None) -> int:
 
     smi = phase_device(torch)
     phase_build()
+    if args.k1_plans:
+        phase_k1_plans(torch)
+        print(smi, flush=True)
+        return 0
     if args.kernels is not None:
         kernels = phase_kernels(torch, args.kernels.split(","))
         print(smi, flush=True)
@@ -219,6 +235,21 @@ class Timer:
         return total / iters
 
 
+def host_us(torch, fn, calls=200):
+    """Mean host time of one call, in microseconds: the wrapper's checks,
+    plan and launch, not the device work (the serving runs are
+    host-bound). Host clock around ``calls`` calls issued back to back,
+    after one warm call; synchronised only after the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def bound_ms(nbytes, flops):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -254,17 +285,13 @@ def gate_inputs(torch, m, k, n, gen):
     return x, wg, wu, wd
 
 
-def check_k1_k2(torch, timer, m, gen):
-    from repro_torch.core import twell
-    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
-                                                twell_fused_ffn_plain)
+def k1_agrees(torch, x, wg, t, c, case):
+    """K1 on x, wg (relu) against the plain version: nnz and indices equal
+    on the rows with no pre-activation near zero, values within BF16_TOL,
+    and the same bits from run to run. Returns (max abs error, near-zero
+    rows, the plain version's outputs)."""
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
-    k, n, t, c = 2048, 5632, 256, 8
-    tc = t // c
-    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
-    wu_t = wu.t().contiguous()
-    # K1
     v, i, z = twell_gate_matmul_cuda(x, wg, t, c, "relu")
     pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, "relu")
     torch.cuda.synchronize()
@@ -272,11 +299,28 @@ def check_k1_k2(torch, timer, m, gen):
     # a pre-activation within 1e-3 max|pre| of zero may round either way
     near = ((pre != 0) & (pre.abs() < 1e-3 * pre.abs().max())).any(-1)
     rows = ~near
-    assert bool((z[rows] == pz[rows]).all()), f"K1 nnz mismatch (M={m})"
-    assert bool((i[rows] == pi[rows]).all()), f"K1 indices mismatch (M={m})"
-    assert int(z.max()) <= tc, f"K1 geometry overflows (M={m})"
-    err1, ok1 = close_err(torch, v[rows], pv[rows])
-    assert ok1, f"K1 values disagree with the plain version (M={m}): {err1}"
+    assert bool((z[rows] == pz[rows]).all()), f"K1 nnz mismatch ({case})"
+    assert bool((i[rows] == pi[rows]).all()), f"K1 indices mismatch ({case})"
+    assert int(z.max()) <= t // c, f"K1 geometry overflows ({case})"
+    err, ok = close_err(torch, v[rows], pv[rows])
+    assert ok, f"K1 values disagree with the plain version ({case}): {err}"
+    v2, i2, z2 = twell_gate_matmul_cuda(x, wg, t, c, "relu")
+    assert torch.equal(v, v2) and torch.equal(i, i2) and \
+        torch.equal(z, z2), f"K1 is not run-to-run deterministic ({case})"
+    return err, int(near.sum()), (pv, pi, pz)
+
+
+def check_k1(torch, timer, m, n, gen, t=256, c=8):
+    """K1 on a KEEP-masked gate weight (K 2048; N 5632 is paper-0.5b's W_g,
+    8192 olmo-1b's W_u), held by ``k1_agrees`` and timed. Returns the case
+    and the inputs with the plain version's outputs."""
+    from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                                twell_gate_matmul_plain)
+    k = 2048
+    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
+    err1, near, (pv, pi, pz) = k1_agrees(torch, x, wg, t, c,
+                                         f"M={m}, N={n}")
+    # x and W read once, the packed values, indices and counts written
     out_bytes = m * n // c * (2 + 4) + m * n // t * 4
     b1, by1 = bound_ms(2 * (m * k + k * n) + out_bytes, 2 * m * k * n)
     k1 = {"ms": timer.ms(lambda: twell_gate_matmul_cuda(x, wg, t, c)),
@@ -284,7 +328,21 @@ def check_k1_k2(torch, timer, m, gen):
                                iters=5),
           "library_ms": timer.ms(lambda: torch.matmul(x, wg)),
           "bound_ms": b1, "bound_by": by1, "max_abs_err": err1,
-          "near_zero_rows": int(near.sum()), "M": m}
+          "host_us": host_us(torch, lambda: twell_gate_matmul_cuda(
+              x, wg, t, c)),
+          "library_host_us": host_us(torch, lambda: torch.matmul(x, wg)),
+          "near_zero_rows": near, "M": m, "N": n}
+    return k1, (x, wg, wu, wd, pv, pi, pz)
+
+
+def check_k1_k2(torch, timer, m, gen):
+    from repro_torch.core import twell
+    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                                twell_fused_ffn_plain)
+    k, n, t, c = 2048, 5632, 256, 8
+    tc = t // c
+    k1, (x, wg, wu, wd, pv, pi, pz) = check_k1(torch, timer, m, n, gen)
+    wu_t = wu.t().contiguous()
     # K2, on the plain version's packed gate (the same input for both)
     tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
                          t, c, n)
@@ -674,6 +732,69 @@ KERNELS = {
 }
 
 
+# K1's timed shapes, (N, M): paper-0.5b's W_g at decode (4), the 256-row
+# prefill step, the spec verify (4 requests x 5 tokens = 20) and 64 rows;
+# olmo-1b's W_u (N 8192) at decode and prefill
+K1_SHAPES = [(5632, 4), (5632, 256), (5632, 20), (5632, 64), (8192, 4),
+             (8192, 256)]
+
+
+def k1_plan_variants(tp, m, k, n, t, sms):
+    """gate_plan's plan first, then every cluster size 1..8 (at most the K
+    stages) x rows a block (the plan's width; 64 and 128 above 64 rows) x
+    ring depth (3, and as deep as the rank's K loop within the shared
+    memory)."""
+    base = tp.gate_plan(m, k, n, t, sms)
+    yield base
+    widths = sorted({base.width} | ({64, 128} if m > 64 else set()))
+    for w in widths:
+        rb = -(-m // w)
+        fit = (tp.SMEM_BYTES - 1024) // (tp.stage_bytes(t, w) + 16)
+        for ks in range(1, min(tp.MAX_KS, base.k_stages) + 1):
+            deep = min(max(tp.MIN_STAGES, -(-base.k_stages // ks)), fit)
+            for st in sorted({tp.MIN_STAGES, deep}):
+                plan = tp.GatePlan(w, rb, ks, st, base.k_stages,
+                                   (n // t * ks, rb))
+                if plan != base:
+                    yield plan
+
+
+def phase_k1_plans(torch):
+    """K1 at each of K1_SHAPES under each of ``k1_plan_variants``: held by
+    ``k1_agrees``, timed, with the runtime's count of the clusters the card
+    holds at once (cudaOccupancyMaxActiveClusters). Then the fixed cost of a call: K1 and ``x @ W`` at one
+    K stage (M 4, K 64, N 5632), and the Timer around no work."""
+    from repro_torch.kernels import twell_pack as tp
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timer = Timer(torch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    default = tp.gate_plan
+    k, t, c = 2048, 256, 8
+    rows = []
+    for n, m in K1_SHAPES:
+        x, wg, _, _ = gate_inputs(torch, m, k, n, gen)
+        base = default(m, k, n, t, sms)
+        for plan in list(k1_plan_variants(tp, m, k, n, t, sms)):
+            tp.gate_plan = lambda *a, _p=plan: _p
+            try:
+                k1_agrees(torch, x, wg, t, c, f"M={m}, N={n}, {plan}")
+                ms = timer.ms(lambda: tp.twell_gate_matmul_cuda(x, wg, t, c))
+            finally:
+                tp.gate_plan = default
+            rows.append({
+                "M": m, "N": n, "width": plan.width, "ks": plan.ks,
+                "stages": plan.stages, "blocks": plan.blocks,
+                "clusters": plan.blocks // plan.ks,
+                "resident": tp.gate_resident_clusters(t, plan),
+                "default": plan == base, "ms": ms})
+    x, wg, _, _ = gate_inputs(torch, 4, 64, 5632, gen)
+    floor = {"M": 4, "K": 64, "N": 5632,
+             "ms": timer.ms(lambda: tp.twell_gate_matmul_cuda(x, wg, t, c)),
+             "library_ms": timer.ms(lambda: torch.matmul(x, wg)),
+             "empty_ms": timer.ms(lambda: None)}
+    emit({"phase": "k1_plans", "cases": rows, "floor": floor})
+
+
 def phase_kernels(torch, only=None):
     """One entry per kernel: the top-level numbers at the shape the main
     path runs most (decode: M = 4 for K1/K2, K3, K5 and K6, K5 with a
@@ -685,6 +806,9 @@ def phase_kernels(torch, only=None):
     timer = Timer(torch)
     if only is not None:
         checks = {
+            "twell_gate_matmul": lambda: [
+                check_k1(torch, timer, m, n, gen)[0]
+                for n, m in K1_SHAPES],
             "paged_chunk_attention": lambda: [
                 check_k4(torch, timer, 32, 32, gen),
                 check_k4(torch, timer, 32, 8, gen),
@@ -697,7 +821,8 @@ def phase_kernels(torch, only=None):
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
     k1_256, k2_256 = check_k1_k2(torch, timer, 256, gen)
     cases = {
-        "twell_gate_matmul": [k1_4, k1_256],
+        "twell_gate_matmul": [k1_4, k1_256] + [
+            check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[2:]],
         "twell_fused_ffn": [k2_4, k2_256],
         "twell_down_proj": [check_k6(torch, timer, 4, gen),
                             check_k6(torch, timer, 256, gen)],

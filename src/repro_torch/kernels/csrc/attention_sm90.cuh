@@ -20,147 +20,14 @@
 //     previous tile's P V, and the softmax runs while that P V is on the
 //     tensor cores; O is rescaled just before the P V that adds to it.
 #pragma once
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace sm90 {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr uint32_t PANEL_ROW = 128;  // bytes of one row of a panel
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of (row, 16-byte chunk of the panel) in a 128B-swizzled panel
-__device__ __forceinline__ uint32_t sw128_off(int row, int chunk) {
-  return row * PANEL_ROW + ((chunk ^ (row & 7)) << 4);
-}
-
-// ---- mbarriers, TMA, cp.async, fences ------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed; a phase that
-// never completes (a lost arrival) traps after 2^26 polls instead of
-// hanging the card. The poll loop is inside the asm, so the compiler sees
-// no divergent branch around the wgmmas that follow.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\n.reg .u32 polls;\nmov.u32 polls, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "add.u32 polls, polls, 1;\n"
-      "setp.lt.u32 P1, polls, 67108864;\n"
-      "@P1 bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// mbarrier arrival by the threads where `pred` holds (predicated, not a
-// branch)
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred P1;\nsetp.ne.b32 P1, %1, 0;\n"
-      "@P1 mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"((int)pred)
-      : "memory");
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar) : "memory");
-}
-
-// 16 bytes global -> shared; zero-filled when !pred (no byte is read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// makes this thread's generic-proxy shared-memory writes (st.shared,
-// cp.async) visible to the async proxy (wgmma's operand reads)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ---- wgmma ---------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accesses of wgmma's registers across the
-// asynchronous region
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// matrix descriptor of a 128B-swizzled operand at shared address `addr`:
-// SBO = 1024 (the next 8-row atom); LBO = the next 64-column panel (read
-// only for an MN-major operand wider than one panel)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // D (64 x 64, f32) {+}= A (64 x 16, shared, K-major) * B (64 x 16,
 // shared, K-major)^T; scale_d = 0 overwrites D
@@ -499,12 +366,6 @@ __device__ __forceinline__ void store_rows(const float* o, const float* inv,
     *reinterpret_cast<uint4*>(dst + ch * 8) = *reinterpret_cast<const uint4*>(
         stage + (ch / 8) * 64 * PANEL_ROW + sw128_off(r, ch % 8));
   }
-}
-
-// the 1024-aligned start of dynamic shared memory (1 KB of slack requested)
-__device__ __forceinline__ uint8_t* smem_aligned(uint8_t* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + (((a + 1023) & ~1023u) - a);
 }
 
 }  // namespace sm90

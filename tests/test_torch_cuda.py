@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
-the non-gated down projection past one column slice and on empty rows,
-head dims 16..128, GQA groups up to 16, block sizes up to 64, boundary and
-padded rows, tile-skip thresholds and dead tiles, causal attention over
-ragged sequence lengths and padded head dims, paged chunk attention split
-over a cluster (live keys in every split, empty splits, 512 rows, over 2048
-keys) and causal attention in more than one wave of blocks, bit-identical
-from run to run, and the hybrid products over
-both sides of the format, bf16 and float32. Marked ``cuda``: each
+K1 at its launch plan's row-block boundaries and at olmo-1b's N 8192, K1's
+plan against the runtime's resident clusters and its refusal of pointers
+TMA cannot take, the non-gated down projection past one column slice and
+on empty rows, head dims 16..128, GQA groups up to 16, block sizes up to
+64, boundary and padded rows, tile-skip thresholds and dead tiles, causal
+attention over ragged sequence lengths and padded head dims, paged chunk
+attention split over a cluster (live keys in every split, empty splits,
+512 rows, over 2048 keys) and causal attention in more than one wave of
+blocks, bit-identical from run to run, and the hybrid products over both
+sides of the format, bf16 and float32. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -57,6 +59,11 @@ GATE_SHAPES = [  # (M, K, N, T, C, act, keep)
     (300, 512, 1024, 256, 8, "relu", 0.05),
     (16, 96, 512, 64, 8, "relu", 1.0),          # overflows T/C
     (5, 200, 256, 64, 4, "relu", 0.2),          # K not a multiple of 64
+] + [  # K1's launch plan: M at the block-width and row-block boundaries
+    (m, 2048, 5632, 256, 8, "relu", 0.02)
+    for m in (8, 9, 20, 64, 65, 128, 129, 256)
+] + [  # olmo-1b's W_u, decode and prefill
+    (m, 2048, 8192, 256, 8, "relu", 0.02) for m in (4, 256)
 ]
 
 
@@ -76,12 +83,44 @@ def test_gate_matmul_and_fused_ffn_match_plain(card, shape):
     assert torch.equal(z[rows], pz[rows])
     assert torch.equal(i[rows], pi[rows])
     torch.testing.assert_close(v[rows].float(), pv[rows].float(), **TOL)
+    v2, i2, z2 = twell_gate_matmul_cuda(x, wg, t, c, act)  # same bits
+    assert torch.equal(v, v2) and torch.equal(i, i2) and torch.equal(z, z2)
     tc = t // c
     tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
                          t, c, n)
     y = twell_fused_ffn_cuda(x, tw, wu.t().contiguous(), wd)
     py = twell_fused_ffn_plain(x, tw, wu.t().contiguous(), wd)
     torch.testing.assert_close(y, py.float(), **TOL)
+
+
+@pytest.mark.parametrize("shape", [  # (M, K, N): serving, then wider K1
+    (4, 2048, 5632), (20, 2048, 5632), (64, 2048, 5632), (256, 2048, 5632),
+    (4, 2048, 8192), (256, 2048, 8192), (300, 512, 1024)], ids=str)
+def test_gate_plan_clusters_resident(card, shape):
+    """K1's plan counts on its clusters being resident at once: the
+    CUDA runtime's count (cudaOccupancyMaxActiveClusters) holds them
+    all."""
+    from repro_torch.kernels import twell_pack as tp
+    m, k, n = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = tp.gate_plan(m, k, n, 256, sms)
+    assert plan.blocks // plan.ks <= tp.gate_resident_clusters(256, plan)
+
+
+def test_gate_matmul_refuses_misaligned_pointers(card):
+    """TMA needs 16-byte aligned x and W: a contiguous view one element
+    past an aligned start raises before any launch."""
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_cuda
+    x, wg, _, _ = _gate(4, 64, 256, 0.5, 0, card)
+    xo = torch.empty(4 * 64 + 1, dtype=torch.bfloat16,
+                     device=card)[1:].view(4, 64)
+    wo = torch.empty(64 * 256 + 1, dtype=torch.bfloat16,
+                     device=card)[1:].view(64, 256)
+    assert xo.is_contiguous() and wo.is_contiguous()
+    with pytest.raises(ValueError):
+        twell_gate_matmul_cuda(xo, wg, 64, 4)
+    with pytest.raises(ValueError):
+        twell_gate_matmul_cuda(x, wo, 64, 4)
 
 
 TILE_SKIP_SHAPES = [  # (M, K, N, T, act, keep, threshold, dead tiles)
