@@ -15,11 +15,14 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound (K1 also the host
-                 time of a call beside the library call's); K1, K4 and K7
-                 also twice for the same bits, K1 at M 4, 20, 64 and 256 on
-                 paper-0.5b's W_g and at M 4 and 256 on olmo-1b's N 8192,
-                 K4 at hd 64 (MHA, GQA) and at olmo-1b's hd 128
+                 version, a library call and its bound (K1 and K5 also the
+                 host time of a call beside the library call's); K1, K4, K5
+                 and K7 also twice for the same bits, K1 at M 4, 20, 64 and
+                 256 on paper-0.5b's W_g and at M 4 and 256 on olmo-1b's N
+                 8192, K3 and K4 at hd 64 (MHA, GQA) and at olmo-1b's hd
+                 128, K5 at M 4 and 256 with its launch plan, its two
+                 kernels' device times apart and its time without
+                 programmatic dependent launch
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
@@ -62,7 +65,8 @@ exits non-zero without a card and when the repo's ``src/`` is absent.
 Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
-twell_gate_matmul,paged_chunk_attention,flash_attention`` runs only phases
+tile_skip_ffn`` (or any of twell_gate_matmul, paged_decode_attention,
+paged_chunk_attention, flash_attention, comma-separated) runs only phases
 1-3 for those kernels on the port under DIR (e.g. an earlier version
 unpacked under ``build/``) and prints their table, without the last line.
 ``--k1-plans`` runs phases 1-2 and then K1 at each of its timed shapes under
@@ -75,6 +79,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -152,6 +157,7 @@ def main(argv=None) -> int:
         return 0
     if args.kernels is not None:
         kernels = phase_kernels(torch, args.kernels.split(","))
+        k5_splits(torch)
         print(smi, flush=True)
         emit({"kernels": kernels, "src": str(src)})
         return 0
@@ -161,6 +167,7 @@ def main(argv=None) -> int:
     olmo = phase_serve_olmo(torch, serve)
     train = phase_train(torch)
     phase_check(torch, serve, olmo)
+    k5_splits(torch)
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in
                             (serve, spec, olmo, train))
@@ -235,19 +242,24 @@ class Timer:
         return total / iters
 
 
-def host_us(torch, fn, calls=200):
-    """Mean host time of one call, in microseconds: the wrapper's checks,
-    plan and launch, not the device work (the serving runs are
-    host-bound). Host clock around ``calls`` calls issued back to back,
-    after one warm call; synchronised only after the clock stops."""
+def host_us(torch, fn, calls=40, repeats=5):
+    """Host time of one call, in microseconds: the wrapper's checks, plan
+    and launch, not the device work (the serving runs are host-bound).
+    The median over ``repeats`` batches of the host clock around ``calls``
+    calls issued back to back, after one warm call, each batch
+    synchronised only after its clock stops: the card's host is shared,
+    and one stall moves a single long batch's mean by tens of percent."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
+    means = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        means.append((t1 - t0) / calls * 1e6)
+    return statistics.median(means)
 
 
 def bound_ms(nbytes, flops):
@@ -431,7 +443,11 @@ def check_k5(torch, timer, m, threshold, gen):
     """K5 on the main path's FFN shape, with the W_g columns of 11 of the 22
     tiles zeroed (dead for every row) so the skip branch runs on the card.
     ``threshold`` None takes the median row-tile gate maximum of the live
-    tiles, so the threshold drops about half of them."""
+    tiles, so the threshold drops about half of them. Beside the times: the
+    host time of a call (and of ``x @ W_g``) and the launch plan. Each of
+    the two kernels' device time from a profiled call is added later, by
+    ``k5_splits``."""
+    from repro_torch.kernels import sparse_ffn as sf
     from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
                                                 tile_skip_ffn_plain)
     k, n, t = 2048, 5632, 256
@@ -469,21 +485,83 @@ def check_k5(torch, timer, m, threshold, gen):
         4 * m * k + 2 * m * n
     bnd, by = bound_ms(nbytes, 2 * m * k * n + kept_pairs * 4 * k * t)
 
+    def k5():
+        return tile_skip_ffn_cuda(x, wg, wu, wd, t, "relu", threshold)
+
     def dense_ffn():
         return torch.matmul(torch.matmul(x, wu) * torch.relu(
             torch.matmul(x, wg)), wd)
 
-    return {"ms": timer.ms(lambda: tile_skip_ffn_cuda(x, wg, wu, wd, t,
-                                                       "relu", threshold)),
-            "plain_ms": timer.ms(lambda: tile_skip_ffn_plain(
-                x, wg, wu, wd, t, "relu", threshold), iters=5),
-            "library_ms": timer.ms(dense_ffn),
-            "bound_ms": bnd, "bound_by": by,
-            "max_abs_err": max(err_y, err_h), "M": m,
-            "threshold": threshold, "dead_tiles": nt // 2,
-            "cells": rb * nt, "skipped_share": skipped,
-            "tiles_read": tiles, "kept_row_tiles": kept_pairs,
-            "near_threshold_rows": int((~rows).sum())}
+    res = {"ms": timer.ms(k5),
+           "plain_ms": timer.ms(lambda: tile_skip_ffn_plain(
+               x, wg, wu, wd, t, "relu", threshold), iters=5),
+           "library_ms": timer.ms(dense_ffn),
+           "bound_ms": bnd, "bound_by": by,
+           "max_abs_err": max(err_y, err_h), "M": m,
+           "threshold": threshold, "dead_tiles": nt // 2,
+           "cells": rb * nt, "skipped_share": skipped,
+           "tiles_read": tiles, "kept_row_tiles": kept_pairs,
+           "near_threshold_rows": int((~rows).sum()),
+           "host_us": host_us(torch, k5),
+           "x_wg_host_us": host_us(torch, lambda: torch.matmul(x, wg))}
+    if hasattr(sf, "tile_skip_plan"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = sf.tile_skip_plan(m, k, n, t, sms)
+        res["plan"] = {"n": plan.width, "ks": plan.ks, "ring": plan.stages,
+                       "g_rows": plan.g_rows, "per_sm": plan.per_sm,
+                       "down_cols": plan.cols, "down_ks": plan.ks_down,
+                       "down_ring": plan.stages_down}
+    K5_SPLITS.append((res, timer, k5))
+    return res
+
+
+# (case record, timer, call) of every K5 case, profiled by k5_splits
+K5_SPLITS = []
+
+
+def k5_splits(torch):
+    """Each K5 case's up and down kernels' device times from a profiled
+    call, added to its record. Run after the main path: once
+    torch.profiler has traced the card, later launches cost more host
+    time (a serve phase run after it took 50% longer a step), so no phase
+    of the main path may follow it. The down kernel is a programmatic
+    dependent of the up kernel, as the path launches it, so its device
+    time includes its wait for the up grid."""
+    for res, timer, k5 in K5_SPLITS:
+        split = kernel_split(torch, timer, k5)
+        for part in ("up", "down"):
+            got = [v for kname, v in split.items()
+                   if f"{part}_kernel" in kname]
+            launches = sum(n for _, n in got)
+            res[f"{part}_ms"] = (sum(ms * n for ms, n in got) / launches
+                                 if launches else None)
+            res[f"{part}_launches"] = launches
+    K5_SPLITS.clear()
+
+
+def kernel_split(torch, timer, fn, calls=5):
+    """{kernel name: (mean device ms a launch, launches recorded)} over
+    ``calls`` calls of ``fn`` under torch.profiler, the L2 flushed before
+    each (the flush is left out). The tracer may record fewer launches
+    than were made, so the mean is over those it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            timer.flush_buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA") or "fill" in evt.key:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if evt.count:
+            out[evt.key] = (us / 1e3 / evt.count, evt.count)
+    return out
 
 
 def paged_inputs(torch, gen, b, hkv, hd, bs, width):
@@ -502,11 +580,11 @@ def gathered(torch, pool, bt, h):
     return gather_pages(pool, bt, h).transpose(1, 2).contiguous()
 
 
-def check_k3(torch, timer, h, hkv, gen):
+def check_k3(torch, timer, h, hkv, gen, hd=64):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
-    b, hd, bs, width = 4, 64, 16, 64
+    b, bs, width = 4, 16, 64
     sl_list = [1000, 517, 33, 700]
     kpool, vpool, bt = paged_inputs(torch, gen, b, hkv, hd, bs, width)
     sl = torch.tensor(sl_list, dtype=torch.int32, device="cuda")
@@ -530,7 +608,7 @@ def check_k3(torch, timer, h, hkv, gen):
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qt, kf, vf, attn_mask=mask)),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
-            "H": h, "Hkv": hkv, "seq_lens": sl_list}
+            "H": h, "Hkv": hkv, "hd": hd, "seq_lens": sl_list}
 
 
 def check_k4(torch, timer, h, hkv, gen, hd=64):
@@ -798,8 +876,9 @@ def phase_k1_plans(torch):
 def phase_kernels(torch, only=None):
     """One entry per kernel: the top-level numbers at the shape the main
     path runs most (decode: M = 4 for K1/K2, K3, K5 and K6, K5 with a
-    threshold as the drafts run it; the 64-token prefill chunk for K4, MHA
-    first, then GQA and olmo-1b's 16 heads of 128; the train phase's batch
+    threshold as the drafts run it, K3 MHA first, then GQA and olmo-1b's 16
+    heads of 128; the 64-token prefill chunk for K4, in the same order; the
+    train phase's batch
     for K7, K8 and K9, K8/K9 in their forward orientation); every measured
     case under "cases". ``only``: just those kernels (A/B timing)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -816,6 +895,10 @@ def phase_kernels(torch, only=None):
             "flash_attention": lambda: [
                 check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 64, gen),
                 check_k7(torch, timer, 1, 4096, 32, 64, gen)],
+            "tile_skip_ffn": lambda: k5_cases(torch, timer, gen),
+            "paged_decode_attention": lambda: [
+                check_k3(torch, timer, 32, 32, gen),
+                check_k3(torch, timer, 16, 16, gen, hd=128)],
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
@@ -827,15 +910,14 @@ def phase_kernels(torch, only=None):
         "twell_down_proj": [check_k6(torch, timer, 4, gen),
                             check_k6(torch, timer, 256, gen)],
         "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
-                                   check_k3(torch, timer, 32, 8, gen)],
+                                   check_k3(torch, timer, 32, 8, gen),
+                                   check_k3(torch, timer, 16, 16, gen,
+                                            hd=128)],
         "paged_chunk_attention": [check_k4(torch, timer, 32, 32, gen),
                                   check_k4(torch, timer, 32, 8, gen),
                                   check_k4(torch, timer, 16, 16, gen,
                                            hd=128)],
-        "tile_skip_ffn": [check_k5(torch, timer, 4, None, gen),
-                          check_k5(torch, timer, 4, 0.0, gen),
-                          check_k5(torch, timer, 256, None, gen),
-                          check_k5(torch, timer, 256, 0.0, gen)],
+        "tile_skip_ffn": k5_cases(torch, timer, gen),
         "flash_attention": [check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ,
                                      32, 64, gen),
                             check_k7(torch, timer, 1, 4096, 32, 64, gen)],
@@ -847,6 +929,13 @@ def phase_kernels(torch, only=None):
                                 for o in ("forward", "backward")]
     del hybrid
     return kernel_table(torch, cases)
+
+
+def k5_cases(torch, timer, gen):
+    """K5 at the drafts' M = 4 (threshold at the median, then 0) and at a
+    256-row chunk (the same two thresholds)."""
+    return [check_k5(torch, timer, m, thr, gen)
+            for m, thr in ((4, None), (4, 0.0), (256, None), (256, 0.0))]
 
 
 def kernel_table(torch, cases):
@@ -968,8 +1057,10 @@ def profile_run(torch, engine, prompts, new_tokens):
 
 def profile_fn(torch, fn):
     """``fn()`` under torch.profiler: device busy share (kernel time over
-    wall time; the profiler's own host cost makes it a lower bound) and
-    device time by kernel."""
+    wall time; the profiler's own host cost makes it a lower bound), device
+    time by kernel (the top 12), and every kernel of the port's own
+    (``csrc/*.cu``: their symbols are in anonymous namespaces) with its
+    device time and calls."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -992,7 +1083,11 @@ def profile_fn(torch, fn):
             "device_kernel_ms": busy_ms if kernels else "not measured",
             "device_busy_share": busy_ms / wall_ms if kernels else None,
             "top_kernels": [{"ms": ms, "calls": n, "name": name}
-                            for ms, n, name in kernels[:12]]}
+                            for ms, n, name in kernels[:12]],
+            "port_kernels": [{"ms": ms, "calls": n, "name": name}
+                             for ms, n, name in kernels
+                             if name.split("::")[0].endswith(
+                                 "(anonymous namespace)")]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1101,6 +1196,7 @@ def phase_spec(torch, serve):
            "profile_wall_ms": prof["wall_ms"],
            "device_kernel_ms": prof["device_kernel_ms"],
            "top_kernels": prof["top_kernels"][:8],
+           "port_kernels": prof["port_kernels"],
            "tokens_equal_before_near_tie": compared,
            "nonspec_tokens_per_s": serve["tokens_per_s"],
            "stochastic": {"temperature": 0.8, "top_k": 50,

@@ -1,8 +1,9 @@
 // Hopper primitives shared by the wgmma kernels of this directory (K1
-// twell_pack.cu, K4 paged_chunk_attention.cu, K7 flash_attention.cu through
-// attention_sm90.cuh): shared-memory addressing of 128B-swizzled panels,
-// mbarriers, TMA, cp.async, the proxy fence, named barriers, wgmma's
-// fence / commit / wait and matrix descriptors, and the host-side lookup of
+// twell_pack.cu, K5 tile_skip_ffn.cu, K4 paged_chunk_attention.cu, K7
+// flash_attention.cu through attention_sm90.cuh): shared-memory addressing
+// of 128B-swizzled panels, mbarriers, TMA, cp.async, the proxy fence, named
+// barriers, programmatic dependent launch, wgmma's fence / commit / wait
+// and matrix descriptors, and the host-side lookup of
 // cuTensorMapEncodeTiled. Header-only; every .cu that includes it is built
 // into its own library.
 #pragma once
@@ -106,6 +107,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// programmatic dependent launch: a grid lets the next kernel on its stream
+// start launching its blocks (launch_dependents); that kernel waits for the
+// whole of the previous grid, its writes visible, before it reads them
+// (griddep_wait; returns at once when launched without the attribute)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---- wgmma ---------------------------------------------------------------

@@ -9,7 +9,9 @@ K5, the gated FFN end to end with (row block x tile) skipping:
 ``tile_skip_ffn_cuda`` launches ``csrc/tile_skip_ffn.cu``, the Hopper
 counterpart of ``tile_skip_ffn_pallas`` with the per-(row, tile) threshold
 of ``repro/kernels/ref.py:tile_skip_ffn``; ``tile_skip_ffn_plain`` is the
-same function in plain PyTorch.
+same function in plain PyTorch. ``tile_skip_plan`` is its launch plan, a
+plain function of shapes like K1's ``twell_pack.gate_plan``, whose
+residency model it reuses.
 
 K6, the non-gated down projection ``y = unpack(h) @ W_d`` (paper App.
 C.2), where the up projection itself produced the TwELL pattern:
@@ -18,20 +20,25 @@ counterpart of ``twell_down_proj_pallas``; ``twell_down_proj_plain`` is the
 same function in plain PyTorch (``repro/kernels/ref.py:twell_down_proj``,
 float32 out).
 
-K2 and K5 take ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel
-reads W_u by column, and a column of the (K, N) row-major matrix is a
-strided walk. The transposed copy is made once when the weights are loaded
-(``models.lm.prepare_params``), never per call. K6 reads W_d by rows as it
-is stored.
+K2 takes ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel reads
+W_u by column, and a column of the (K, N) row-major matrix is a strided
+walk. The transposed copy is made once when the weights are loaded
+(``models.lm.prepare_params``), never per call. K5 reads W_g and W_u as
+they are stored, (K, N), through TMA, and W_d (N, K) likewise; K6 reads
+W_d by rows as it is stored.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import twell
 from repro_torch.kernels import build
+from repro_torch.kernels import twell_pack as tp
 
 _FN = None
 _TS_FN = None
@@ -181,18 +188,162 @@ def tile_skip_ffn_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.matmul(h.float(), wd.float()), h
 
 
+TILE_SKIP_TILES = tp.GATE_TILES  # T the kernel is built for
+TILE_SKIP_COLS = (64, 128)       # columns of y a down block
+
+
+def _warps(cols: int) -> int:
+    """Warps of a K5 block of ``cols`` output columns: one consumer
+    warpgroup at 64 columns, two above, and the producer warp."""
+    return (1 if cols == 64 else 2) * 4 + 1
+
+
+def up_smem(tile: int, width: int, stages: int, g_rows: int) -> int:
+    """Dynamic shared memory of an up block (``Cfg::up_smem``): 1 KB of
+    alignment slack, the ring or the f32 partial tile aliased over it, two
+    mbarriers a stage, the block's keep bits and every rank's (4 words
+    each) and the ``g_rows`` rows of g a rank keeps beyond one a warp."""
+    region = max(stages * tp.stage_bytes(tile, width),
+                 width * (tile + 4) * 4)
+    return 1024 + region + 16 * stages + 16 + 16 * tp.MAX_KS + \
+        g_rows * tile * 4
+
+
+def down_smem(cols: int, width: int, stages: int, tiles: int) -> int:
+    """Dynamic shared memory of a down block (``Cfg::down_smem``): the
+    slack, the ring or the partial tile, the mbarriers, a byte a tile."""
+    region = max(stages * tp.stage_bytes(cols, width),
+                 width * (cols + 4) * 4)
+    return 1024 + region + 16 * stages + tp.cdiv(tiles, 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSkipPlan:
+    width: int                 # wgmma N: rows a block (M rounded up)
+    row_blocks: int            # blocks along M, both kernels
+    k_stages: int              # GATE_BK-deep stages of the up K loops
+    ks: int                    # up: blocks a cluster splitting them
+    stages: int                # up: ring depth
+    g_rows: int                # up: g rows a rank keeps in shared memory
+    per_sm: int                # up: blocks an SM the plan counts on
+    cols: int                  # down: columns of y a block
+    ks_down: int               # down: blocks a cluster
+    stages_down: int           # down: ring depth
+    per_sm_down: int           # down: blocks an SM
+    n_stages: int              # down: GATE_BK-deep stages of all of N
+    grid: Tuple[int, int]      # up: (tiles x ks, row blocks)
+    grid_down: Tuple[int, int]  # down: (column blocks x ks_down, row blocks)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def blocks_down(self) -> int:
+        return self.grid_down[0] * self.grid_down[1]
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def tile_skip_plan(m: int, k: int, n: int, tile: int, sms: int
+                   ) -> TileSkipPlan:
+    """K5's launch plan from shapes and the card's SM count, as
+    ``twell_pack.gate_plan``: rows a block n = M rounded up to one of
+    GATE_WIDTHS (at most 128), for both kernels. Up: the widest cluster
+    (<= 8, <= the K stages) with tiles x row blocks x ks <= the SMs and
+    every cluster resident at once (``resident_clusters``); a rank keeps
+    ceil(rows / ks) rows of g, one a warp in registers and the rest in
+    shared memory (``g_rows``), so that at n <= 32 two blocks share an SM
+    with a ring of 3. Down: the same rule over column blocks x row blocks,
+    taking 64 or 128 columns a block, whichever leaves the shorter chain of
+    stages a rank (the most a row block can keep: all N / 64), ties to 64.
+    Cached: the serving path calls it every launch with a few shapes."""
+    tp.check_ints(m, k, n, tile, sms)
+    if tile not in TILE_SKIP_TILES or min(m, k, n, sms) < 1 or n % tile:
+        raise ValueError(f"tile_skip_plan: unsupported M {m}, K {k}, N {n}, "
+                         f"tile {tile} (tile in {TILE_SKIP_TILES}, "
+                         "N % tile == 0)")
+    width = next(w for w in tp.GATE_WIDTHS
+                 if w >= min(m, tp.GATE_WIDTHS[-1]))
+    row_blocks = tp.cdiv(m, width)
+    rows = min(m, width)
+    k_stages = tp.cdiv(k, tp.GATE_BK)
+    tiles = n // tile
+    up = None
+    base = tiles * row_blocks                        # clusters
+    for ks in range(min(tp.MAX_KS, k_stages), 0, -1):
+        g_rows = max(0, tp.cdiv(rows, ks) - _warps(tile))
+        per_sm, stages = tp.ring_plan(
+            lambda st: up_smem(tile, width, st, g_rows), width, k_stages)
+        if stages is not None and (
+                ks == 1 or tp.one_wave(base, ks, per_sm, sms)):
+            up = (ks, stages, g_rows, per_sm)
+            break
+    n_stages = n // tp.GATE_BK
+    down = None
+    for cols in TILE_SKIP_COLS:
+        base_d = tp.cdiv(k, cols) * row_blocks
+        per_sm, stages = tp.ring_plan(
+            lambda st: down_smem(cols, width, st, tiles), width, n_stages)
+        if stages is None:
+            continue
+        ks = tp.widest_cluster(base_d, n_stages, per_sm, sms)
+        key = (tp.cdiv(n_stages, ks), cols)
+        if down is None or key < down[0]:
+            down = (key, cols, ks, stages, per_sm)
+    if up is None or down is None:
+        raise ValueError(f"tile_skip_plan: M {m}, K {k}, N {n}, tile {tile} "
+                         "does not fit a block's shared memory")
+    ks, stages, g_rows, per_sm = up
+    _, cols, ks_d, stages_d, per_sm_d = down
+    return TileSkipPlan(width, row_blocks, k_stages, ks, stages, g_rows,
+                        per_sm, cols, ks_d, stages_d, per_sm_d, n_stages,
+                        (tiles * ks, row_blocks),
+                        (tp.cdiv(k, cols) * ks_d, row_blocks))
+
+
+def tile_skip_resident_clusters(tile: int, plan: TileSkipPlan, n: int
+                                ) -> Tuple[int, int, int, int]:
+    """The CUDA runtime's count of the plan's clusters the current card
+    holds at once, and a block's shared memory as the kernel computes it:
+    (up clusters, up bytes, down clusters, down bytes). For measuring
+    plans; the kernel path never calls it."""
+    fn = build.bind("tile_skip_ffn", "tile_skip_resident_clusters",
+                    [build.I] * 6 + [build.P] * 2)
+    out = []
+    for down, cols, ks, stages, extra in (
+            (0, tile, plan.ks, plan.stages, plan.g_rows),
+            (1, plan.cols, plan.ks_down, plan.stages_down, n // tile)):
+        held, smem = ctypes.c_int(0), ctypes.c_int(0)
+        build.check(fn(down, cols, plan.width, ks, stages, extra,
+                       ctypes.addressof(held), ctypes.addressof(smem)),
+                    "tile_skip_resident_clusters")
+        out += [held.value, smem.value]
+    return tuple(out)
+
+
 def tile_skip_ffn_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                        wd: torch.Tensor, tile: int, act: str = "relu",
                        threshold: float = 0.0,
                        cell_active: Optional[torch.Tensor] = None):
-    """x (M, K), wg/wu (K, N), wd (N, K) bf16 on the card -> (y (M, K)
-    float32, h (M, N) bf16). ``cell_active``, when given, is an int32
-    (ceil(M/32), N/tile) tensor the kernel fills with 1 for every (32-row
-    block, tile) cell that ran its W_u/W_d work and 0 for a skipped one."""
+    """x (M, K), wg/wu (K, N), wd (N, K) bf16 on the card, 16-byte aligned
+    -> (y (M, K) float32, h (M, N) bf16). ``cell_active``, when given, is
+    an int32 (ceil(M/32), N/tile) tensor the kernel fills with 1 for every
+    (32-row group, tile) cell in which some valid row keeps the tile (its
+    max gate above the threshold) and 0 elsewhere. The kernel reads a
+    tile's W_u and W_d slices for a row block of the plan only when one of
+    the block's groups is flagged."""
     global _TS_FN
     _check_act(act)
     m, k = x.shape
     n = wg.shape[1]
+    if wg.shape != (k, n) or wu.shape != (k, n) or wd.shape != (n, k) or \
+            m < 1 or k % 8 or tile not in TILE_SKIP_TILES or n % tile or \
+            not threshold >= 0:
+        raise ValueError(
+            f"tile_skip_ffn_cuda: unsupported shapes x {tuple(x.shape)} "
+            f"wg {tuple(wg.shape)} wu {tuple(wu.shape)} wd {tuple(wd.shape)} "
+            f"tile {tile} threshold {threshold} (needs K % 8 == 0, tile in "
+            f"{TILE_SKIP_TILES}, N % tile == 0, threshold >= 0)")
     ts = (x, wg, wu, wd)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("tile_skip_ffn_cuda: every operand must be on x's "
@@ -201,14 +352,10 @@ def tile_skip_ffn_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise TypeError("tile_skip_ffn_cuda takes bfloat16 operands")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("tile_skip_ffn_cuda: operands must be contiguous")
-    if wg.shape != (k, n) or wu.shape != (k, n) or wd.shape != (n, k) or \
-            m < 1 or k % 32 or tile % 32 or not 32 <= tile <= 256 or \
-            n % tile or n // tile > 1024 or threshold < 0:
-        raise ValueError(
-            f"tile_skip_ffn_cuda: unsupported shapes x {tuple(x.shape)} "
-            f"wg {tuple(wg.shape)} wu {tuple(wu.shape)} wd {tuple(wd.shape)} "
-            f"tile {tile} threshold {threshold} (needs K % 32 == 0, "
-            "tile in 32..256 a multiple of 32, N % tile == 0)")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("tile_skip_ffn_cuda: operands must be 16-byte "
+                         "aligned (TMA)")
+    plan = tile_skip_plan(m, k, n, tile, tp.sm_count(x.device))
     rb = -(-m // 32)
     if cell_active is None:
         cell_active = torch.empty((rb, n // tile), dtype=torch.int32,
@@ -225,12 +372,14 @@ def tile_skip_ffn_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if _TS_FN is None:
         P, I, F = build.P, build.I, build.F
         _TS_FN = build.bind("tile_skip_ffn", "tile_skip_ffn_bf16",
-                            [P, P, P, P, P, P, P, I, I, I, I, I, F, P])
+                            [P] * 7 + [I] * 5 + [F] + [I] * 7 + [P])
     with torch.cuda.device(x.device):
         err = _TS_FN(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
                      wd.data_ptr(), y.data_ptr(), h.data_ptr(),
                      cell_active.data_ptr(), m, k, n, tile, _TS_ACTS[act],
-                     float(threshold), build.stream_ptr(x))
+                     float(threshold), plan.width, plan.ks, plan.stages,
+                     plan.g_rows, plan.cols, plan.ks_down, plan.stages_down,
+                     build.stream_ptr(x))
     build.check(err, "tile_skip_ffn")
     build.count_launch("tile_skip_ffn")
     return y, h

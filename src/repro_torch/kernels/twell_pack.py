@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -47,15 +47,29 @@ SM_SMEM_BYTES = 233472         # shared memory of one SM (H100)
 PAIR_WIDTH = 32                # the widest block two of which share an SM
 
 
-def _ints(*xs) -> None:
+def check_ints(*xs) -> None:
+    """Launch plans take Python ints (shapes), never tensors."""
     for x in xs:
         if type(x) is not int:
-            raise TypeError(f"gate_plan takes Python ints (shapes), got "
+            raise TypeError(f"launch plans take Python ints (shapes), got "
                             f"{type(x).__name__}")
 
 
-def _cdiv(a: int, b: int) -> int:
+def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def splits(count: int, ks: int) -> List[Tuple[int, int]]:
+    """[lo, hi) of ``count`` items (K stages, rows) each of ``ks`` ranks
+    takes, in rank order; a split may be empty (that rank adds zeros)."""
+    return [(r * count // ks, (r + 1) * count // ks) for r in range(ks)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once a device: the
+    serving path is host-bound and every launch plan needs it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,15 +86,12 @@ class GatePlan:
         return self.grid[0] * self.grid[1]
 
     def k_splits(self) -> List[Tuple[int, int]]:
-        """[lo, hi) of the K stages each rank of a cluster takes (a split
-        may be empty: that rank contributes zeros)."""
-        return [(r * self.k_stages // self.ks,
-                 (r + 1) * self.k_stages // self.ks) for r in range(self.ks)]
+        """[lo, hi) of the K stages each rank of a cluster takes."""
+        return splits(self.k_stages, self.ks)
 
     def pack_rows(self, valid: int) -> List[Tuple[int, int]]:
         """[lo, hi) of a block's ``valid`` rows each rank sums and packs."""
-        return [(r * valid // self.ks, (r + 1) * valid // self.ks)
-                for r in range(self.ks)]
+        return splits(valid, self.ks)
 
 
 def stage_bytes(tile: int, width: int) -> int:
@@ -95,13 +106,28 @@ def block_smem(tile: int, width: int, stages: int) -> int:
     return 1024 + stages * (stage_bytes(tile, width) + 16)
 
 
+def ring_plan(smem: Callable[[int], int], width: int, cap: int
+              ) -> Tuple[int, Optional[int]]:
+    """(blocks an SM, ring depth) of a wgmma block of ``width`` rows whose
+    dynamic shared memory is ``smem(depth)``: two blocks with a ring of
+    MIN_STAGES where two fit one SM's shared memory (each also takes 1 KB
+    reserved by the system) at a width whose accumulators leave registers
+    for two (the kernels' launch bounds ask for two blocks an SM up to
+    PAIR_WIDTH); else one block with a ring as deep as MAX_STAGES, the
+    shared memory and ``cap`` (the stages of the loop) allow. Depth None:
+    no ring fits. K1's and K5's plans both use it."""
+    if width <= PAIR_WIDTH and \
+            2 * (smem(MIN_STAGES) + 1024) <= SM_SMEM_BYTES:
+        return 2, MIN_STAGES
+    fit = [st for st in range(MIN_STAGES, MAX_STAGES + 1)
+           if smem(st) <= SMEM_BYTES]
+    return 1, (max(MIN_STAGES, min(fit[-1], cap)) if fit else None)
+
+
 def blocks_per_sm(tile: int, width: int) -> int:
-    """2 when two blocks with a ring of MIN_STAGES fit one SM's shared
-    memory (each also takes 1 KB reserved by the system) at a width whose
-    accumulators leave registers for two (the kernel's launch bounds ask
-    for two blocks an SM up to PAIR_WIDTH); else 1."""
-    pair = 2 * (block_smem(tile, width, MIN_STAGES) + 1024) <= SM_SMEM_BYTES
-    return 2 if width <= PAIR_WIDTH and pair else 1
+    """K1's blocks an SM at (tile, width), from ``ring_plan``."""
+    return ring_plan(lambda st: block_smem(tile, width, st), width,
+                     MIN_STAGES)[0]
 
 
 def resident_clusters(ks: int, per_sm: int, sms: int) -> int:
@@ -111,9 +137,23 @@ def resident_clusters(ks: int, per_sm: int, sms: int) -> int:
     counts 3/4 of the block slots for them. The CUDA runtime's own count
     (cudaOccupancyMaxActiveClusters, ``gate_resident_clusters``) was 77-91%
     of the slots for clusters of 3-8 on the H100."""
-    _ints(ks, per_sm, sms)
+    check_ints(ks, per_sm, sms)
     slots = sms * per_sm
     return slots // ks if ks <= 2 else slots * 3 // (4 * ks)
+
+
+def one_wave(clusters: int, ks: int, per_sm: int, sms: int) -> bool:
+    """Whether ``clusters`` clusters of ``ks`` blocks take at most one
+    block an SM and are all resident at once (``resident_clusters``)."""
+    return clusters * ks <= sms and \
+        clusters <= resident_clusters(ks, per_sm, sms)
+
+
+def widest_cluster(clusters: int, stages: int, per_sm: int, sms: int) -> int:
+    """The widest cluster (at most MAX_KS and ``stages``, the loop's
+    stages it splits) that keeps ``clusters`` to ``one_wave``; else 1."""
+    return max([1] + [c for c in range(1, min(MAX_KS, stages) + 1)
+                      if one_wave(clusters, c, per_sm, sms)])
 
 
 @functools.lru_cache(maxsize=None, typed=True)
@@ -123,21 +163,17 @@ def gate_plan(m: int, k: int, n: int, tile: int, sms: int) -> GatePlan:
     at once (``resident_clusters``): tiles x row blocks x ks <= sms.
     Cached: the serving path is host-bound and calls it every launch with
     a few shapes."""
-    _ints(m, k, n, tile, sms)
+    check_ints(m, k, n, tile, sms)
     if tile not in GATE_TILES or min(m, k, n, sms) < 1 or n % tile:
         raise ValueError(f"gate_plan: unsupported M {m}, K {k}, N {n}, "
                          f"tile {tile}")
     width = next(w for w in GATE_WIDTHS if w >= min(m, GATE_WIDTHS[-1]))
-    row_blocks = _cdiv(m, width)
-    k_stages = _cdiv(k, GATE_BK)
+    row_blocks = cdiv(m, width)
+    k_stages = cdiv(k, GATE_BK)
     base = n // tile * row_blocks              # clusters
-    per_sm = blocks_per_sm(tile, width)
-    fit = (SMEM_BYTES - 1024) // (stage_bytes(tile, width) + 16)
-    stages = MIN_STAGES if per_sm == 2 else \
-        max(MIN_STAGES, min(MAX_STAGES, fit, k_stages))
-    ks = max([1] + [c for c in range(1, min(MAX_KS, k_stages) + 1)
-                    if base * c <= sms and
-                    base <= resident_clusters(c, per_sm, sms)])
+    per_sm, stages = ring_plan(lambda st: block_smem(tile, width, st), width,
+                               k_stages)
+    ks = widest_cluster(base, k_stages, per_sm, sms)
     return GatePlan(width, row_blocks, ks, stages, k_stages,
                     (n // tile * ks, row_blocks))
 
@@ -197,8 +233,7 @@ def twell_gate_matmul_cuda(x: torch.Tensor, w: torch.Tensor, tile: int,
     if act not in _ACTS:
         raise ValueError(f"twell_gate_matmul_cuda: activation {act!r}")
     # rows a block, the cluster's K split and the ring depth, from shapes only
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = gate_plan(m, k, n, tile, sms)
+    plan = gate_plan(m, k, n, tile, sm_count(x.device))
     slots = n // tile * (tile // compression)
     vals = torch.empty((m, slots), dtype=x.dtype, device=x.device)
     idx = torch.empty((m, slots), dtype=torch.int32, device=x.device)

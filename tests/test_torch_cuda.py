@@ -4,7 +4,8 @@ K1 at its launch plan's row-block boundaries and at olmo-1b's N 8192, K1's
 plan against the runtime's resident clusters and its refusal of pointers
 TMA cannot take, the non-gated down projection past one column slice and
 on empty rows, head dims 16..128, GQA groups up to 16, block sizes up to
-64, boundary and padded rows, tile-skip thresholds and dead tiles, causal
+64, boundary and padded rows, tile-skip thresholds and dead tiles at every
+row-block width of K5's plan (and its resident clusters), causal
 attention over ragged sequence lengths and padded head dims, paged chunk
 attention split over a cluster (live keys in every split, empty splits,
 512 rows, over 2048 keys) and causal attention in more than one wave of
@@ -130,7 +131,13 @@ TILE_SKIP_SHAPES = [  # (M, K, N, T, act, keep, threshold, dead tiles)
     (1, 64, 256, 64, "relu", 0.3, 0.0, 0),
     (37, 128, 512, 128, "relu2", 0.1, 0.0, 1),
     (70, 256, 768, 256, "relu", 0.5, 0.3, 1),
-    (33, 96, 512, 32, "relu2", 0.4, 0.05, 5),
+    (33, 96, 512, 64, "relu2", 0.4, 0.05, 5),
+] + [  # K5's plan: every width (8-128) and the second row block
+    (8, 2048, 5632, 256, "relu", 0.02, 0.0, 11),
+    (9, 2048, 5632, 256, "relu", 0.3, 0.5, 11),
+    (20, 2048, 5632, 256, "relu2", 0.1, 0.05, 5),
+    (128, 2048, 5632, 256, "relu", 0.02, 0.0, 11),
+    (129, 1024, 2048, 128, "relu", 0.3, 0.5, 3),
 ]
 
 
@@ -161,6 +168,8 @@ def test_tile_skip_ffn_matches_plain(card, shape):
     rows = ~near.any(-1)
     torch.testing.assert_close(y[rows], py[rows], **TOL)
     torch.testing.assert_close(h[rows].float(), ph[rows].float(), **TOL)
+    y2, h2 = tile_skip_ffn_cuda(x, wg, wu, wd, t, act, thr)  # same bits
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     keep_rt = gmax > thr
     pad = rb * 32 - m
     want = torch.nn.functional.pad(keep_rt, (0, 0, 0, pad)).reshape(
@@ -173,6 +182,26 @@ def test_tile_skip_ffn_matches_plain(card, shape):
     if dead:
         assert float(h.float().reshape(m, nt, t)[:, dead_tiles].abs().max()) \
             == 0.0
+
+
+@pytest.mark.parametrize("shape", [  # (M, K, N, T): drafts, then wider
+    (4, 2048, 5632, 256), (20, 2048, 5632, 256), (64, 2048, 5632, 256),
+    (256, 2048, 5632, 256), (129, 1024, 2048, 128), (33, 96, 512, 64)],
+    ids=str)
+def test_tile_skip_plan_clusters_resident(card, shape):
+    """K5's plan counts on the clusters of both kernels being resident at
+    once: the CUDA runtime's count (cudaOccupancyMaxActiveClusters) holds
+    them all, and each block's shared memory is the plan's."""
+    from repro_torch.kernels import sparse_ffn as sf
+    m, k, n, t = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = sf.tile_skip_plan(m, k, n, t, sms)
+    up, up_smem, down, down_smem = sf.tile_skip_resident_clusters(t, plan, n)
+    assert plan.blocks // plan.ks <= up
+    assert plan.blocks_down // plan.ks_down <= down
+    assert up_smem == sf.up_smem(t, plan.width, plan.stages, plan.g_rows)
+    assert down_smem == sf.down_smem(plan.cols, plan.width, plan.stages_down,
+                                     n // t)
 
 
 DOWN_SHAPES = [  # (M, K, N, T, C, keep)
