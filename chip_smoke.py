@@ -7,7 +7,9 @@ JAX package) and runs these phases, each printing one JSON line:
 
   1. device   -- ``nvidia-smi`` name and power limit, torch and CUDA versions
   2. build    -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
-                 source, in parallel) into ``build/repro_torch/``
+                 source, in parallel) into ``build/repro_torch/``; ptxas's
+                 registers and spills, and any C75xx line (wgmma
+                 serialised or fenced by the compiler, setmaxnreg ignored)
   3. kernels  -- each hand-written kernel (K1 gate matmul + TwELL pack, K2
                  fused up/down projection, K3 paged decode attention, K4 paged
                  chunk attention, K5 tile-skip gated FFN, K6 non-gated TwELL
@@ -15,19 +17,20 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound (K1 and K5 also the
-                 host time of a call beside the library call's); K1, K4, K5
-                 and K7 also twice for the same bits, K1 at M 4, 20, 64 and
-                 256 on paper-0.5b's W_g and at M 4 and 256 on olmo-1b's N
-                 8192, K3 and K4 at hd 64 (MHA, GQA) and at olmo-1b's hd
-                 128, K5 at M 4 and 256 with its launch plan, its two
-                 kernels' device times apart and its time without
+                 version, a library call and its bound (K1, K3 and K5 also
+                 the host time of a call beside the library call's); K1,
+                 K3, K4, K5 and K7 also twice for the same bits, K1 at M 4,
+                 20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
+                 olmo-1b's N 8192, K3 and K4 at hd 64 (MHA, GQA) and at
+                 olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
+                 its two kernels' device times apart and its time without
                  programmatic dependent launch
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
                  of this path (K1-K4) over exactly this run must be above 0;
-                 then a profiled rerun (phase "profile")
+                 then a profiled rerun (phase "profile"), with the kernel
+                 launches of 4 decode-only steps, each traced alone
   5. spec     -- the same weights and prompts through self-speculative
                  decoding (k = 4 tile-skip drafts, K5 + K3; one batched
                  TwELL verify, K1 + K2 + K4): every kernel's launch count
@@ -40,6 +43,7 @@ JAX package) and runs these phases, each printing one JSON line:
                  zeroed: K1 packs relu(x @ W_u), K6 projects down, K3/K4
                  attend; each launched over exactly this run, no overflow,
                  the prefix cache hit, the pool clean; then a profiled rerun
+                 and the kernel launches of 4 decode-only steps
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -201,9 +205,14 @@ def phase_build():
     usage = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in build.BUILD_LOG.items()}
+    # ptxas's C75xx lines: C7510-C7518 wgmma serialised, C7519 a
+    # warpgroup.arrive injected, C7508 setmaxnreg ignored
+    c75 = {name: [ln.strip() for ln in log.splitlines() if "C75" in ln]
+           for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": round(secs, 2),
           "sources": [p.name for p in build.sources()],
-          "dir": str(build.BUILD_DIR), "ptxas": usage})
+          "dir": str(build.BUILD_DIR), "ptxas": usage,
+          "c75": {name: lines for name, lines in c75.items() if lines}})
 
 
 # --------------------------------------------------------------------------- #
@@ -594,6 +603,9 @@ def check_k3(torch, timer, h, hkv, gen, hd=64):
     torch.cuda.synchronize()
     err, ok = close_err(torch, o, po)
     assert ok, f"K3 disagrees with the plain version (H={h}, Hkv={hkv}): {err}"
+    assert torch.equal(o, paged_decode_attention_cuda(q, kpool, vpool, bt,
+                                                      sl)), \
+        "K3 gave other bits on the same inputs"
     pages = sum(s // bs + 1 for s in sl_list)
     nbytes = 2 * (2 * b * h * hd) + pages * bs * hkv * hd * 2 * 2
     bnd, by = bound_ms(nbytes, 4 * h * hd * sum(s + 1 for s in sl_list))
@@ -601,12 +613,23 @@ def check_k3(torch, timer, h, hkv, gen, hd=64):
     kpos = torch.arange(width * bs, device="cuda")
     mask = (kpos[None, :] <= sl[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
-    return {"ms": timer.ms(lambda: paged_decode_attention_cuda(
-                q, kpool, vpool, bt, sl)),
+
+    def k3():
+        return paged_decode_attention_cuda(q, kpool, vpool, bt, sl)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kf, vf, attn_mask=mask)
+    one_key = torch.zeros_like(sl)
+    return {"ms": timer.ms(k3),
+            # every request at one live key (one tile, one rank): the
+            # fixed cost of a call
+            "one_tile_ms": timer.ms(lambda: paged_decode_attention_cuda(
+                q, kpool, vpool, bt, one_key)),
             "plain_ms": timer.ms(lambda: paged_decode_attention_plain(
                 q, kpool, vpool, bt, sl), iters=5),
-            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                qt, kf, vf, attn_mask=mask)),
+            "library_ms": timer.ms(sdpa),
+            "host_us": host_us(torch, k3),
+            "library_host_us": host_us(torch, sdpa),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
             "H": h, "Hkv": hkv, "hd": hd, "seq_lens": sl_list}
 
@@ -898,6 +921,7 @@ def phase_kernels(torch, only=None):
             "tile_skip_ffn": lambda: k5_cases(torch, timer, gen),
             "paged_decode_attention": lambda: [
                 check_k3(torch, timer, 32, 32, gen),
+                check_k3(torch, timer, 32, 8, gen),
                 check_k3(torch, timer, 16, 16, gen, hd=128)],
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
@@ -1037,7 +1061,10 @@ def serve_run(torch, phase, cfg, params, prompts, new_tokens, kernels):
                                                   for o in outs]}
     emit(res)
     emit({**profile_run(torch, serving_engine(cfg, params, new_tokens),
-                        prompts, new_tokens), "run": phase})
+                        prompts, new_tokens), "run": phase,
+          "decode_step_launches": decode_step_launches(
+              torch, serving_engine(cfg, params, new_tokens), prompts,
+              new_tokens)})
     res.update(cfg=cfg, params=params, prompts=prompts, outs=outs)
     return res
 
@@ -1053,6 +1080,33 @@ def profile_run(torch, engine, prompts, new_tokens):
     part of the launch counts, which cover the unprofiled runs only)."""
     return profile_fn(torch, lambda: engine.generate(prompts,
                                                      max_tokens=new_tokens))
+
+
+def decode_step_launches(torch, engine, prompts, new_tokens, steps=4):
+    """The device work of ``steps`` decode-only steps of the workload (a
+    decode batch, no prompt tokens), each traced alone by torch.profiler:
+    its decode batch, its kernel launches, and its copies and fills. The
+    other steps run untraced, after the first ``steps`` such steps too."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        engine.submit(p, max_tokens=new_tokens)
+    seen = []
+    while engine.has_unfinished():
+        if len(seen) == steps:
+            engine.step()
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+        st = engine.stats[-1]
+        if not st.decode_batch or st.prefill_tokens:
+            continue
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+        seen.append({"decode_batch": st.decode_batch,
+                     "kernels": len(names) - copies, "copies": copies})
+    return seen
 
 
 def profile_fn(torch, fn):

@@ -1,6 +1,7 @@
 // Hopper primitives shared by the wgmma kernels of this directory (K1
-// twell_pack.cu, K5 tile_skip_ffn.cu, K4 paged_chunk_attention.cu, K7
-// flash_attention.cu through attention_sm90.cuh): shared-memory addressing
+// twell_pack.cu, K5 tile_skip_ffn.cu, K3 paged_decode_attention.cu, K4
+// paged_chunk_attention.cu and K7 flash_attention.cu through
+// attention_sm90.cuh): shared-memory addressing
 // of 128B-swizzled panels, mbarriers, TMA, cp.async, the proxy fence, named
 // barriers, programmatic dependent launch, wgmma's fence / commit / wait
 // and matrix descriptors, and the host-side lookup of
@@ -282,6 +283,47 @@ struct WgmmaTA<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// D (64 x N, f32) += A (64 x 16, shared, K-major) * B (N x 16, shared,
+// K-major)^T, for N = 8, 16: the swap-AB form with both operands K-major,
+// where A is a box of 64 rows whose reduction dim is contiguous (a tile of
+// key rows, the head dim along them) and B a few rows of the same width.
+template <int N>
+struct WgmmaKA;
+template <>
+struct WgmmaKA<8> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaKA<16> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "l"(da), "l"(db), "r"(1));
   }
 };

@@ -2,11 +2,12 @@
 
 ``paged_decode_attention_cuda`` launches ``csrc/paged_decode_attention.cu``,
 the Hopper counterpart of
-``repro/kernels/paged_decode_attention.py:paged_decode_attention_pallas``:
-the kernel writes per-split partial softmax states and the merge of the
-splits is plain torch, as the JAX wrapper merges outside its kernel.
-``paged_decode_attention_plain`` is the same function in plain PyTorch
-(``repro/kernels/ref.py:paged_attention_decode``).
+``repro/kernels/paged_decode_attention.py:paged_decode_attention_pallas``
+and of its wrapper's merge of the splits: one launch a call, the keys split
+over a thread-block cluster (``attention_plan.decode_plan``), the splits
+merged in the kernel, which writes the bf16 output; the wrapper allocates
+only that output. ``paged_decode_attention_plain`` is the same function in
+plain PyTorch (``repro/kernels/ref.py:paged_attention_decode``).
 
 q: (B, 1, H, hd) roped queries; kpool/vpool: (num_blocks, block_size, Hkv,
 hd) with the new token already scattered at position ``seq_len``;
@@ -15,11 +16,13 @@ cached before this step. Returns (B, 1, H, hd) in q.dtype.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import attention_plan, build, twell_pack
 
-NUM_SPLITS = 4
 _FN = None
 
 
@@ -60,10 +63,6 @@ def paged_decode_attention_plain(q, kpool, vpool, block_tables, seq_lens):
     return masked_sdpa(q, kf, vf, mask, 1.0 / (hd ** 0.5))
 
 
-def num_splits(width: int) -> int:
-    return max(1, min(NUM_SPLITS, width))
-
-
 def paged_decode_attention_cuda(q, kpool, vpool, block_tables, seq_lens):
     global _FN
     b, one, h, hd = q.shape
@@ -84,35 +83,42 @@ def paged_decode_attention_cuda(q, kpool, vpool, block_tables, seq_lens):
     if one != 1 or hd != hd2 or hd > 128 or hd % 8 or \
             vpool.shape != kpool.shape or \
             h % hkv or h // hkv > 16 or block_tables.shape[0] != b or \
-            seq_lens.shape != (b,) or b < 1 or width < 1:
+            seq_lens.shape != (b,) or b < 1 or width < 1 or \
+            any(t.data_ptr() % 16 for t in (q, kpool, vpool)):
         raise ValueError(
             f"paged_decode_attention_cuda: unsupported shapes q "
             f"{tuple(q.shape)} pools {tuple(kpool.shape)} tables "
             f"{tuple(block_tables.shape)} (needs hd % 8 == 0, hd <= 128, "
-            "H/Hkv <= 16)")
-    g = h // hkv
-    ns = num_splits(width)
-    o = torch.empty((b, hkv, ns, g, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hkv, ns, g), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+            "H/Hkv <= 16, 16-byte aligned)")
+    # the cluster's key split, from shapes and the SM count only
+    plan = attention_plan.decode_plan(b, h, hkv, hd, width, bs,
+                                      twell_pack.sm_count(q.device))
+    out = torch.empty_like(q)
     if _FN is None:
         P, I = build.P, build.I
         _FN = build.bind("paged_decode_attention",
                          "paged_decode_attention_bf16",
-                         [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                          build.F, P])
+                         [P, P, P, P, P, P, I, I, I, I, I, I, build.F, I, P])
     with torch.cuda.device(q.device):
         err = _FN(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-                  block_tables.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-                  m.data_ptr(), l.data_ptr(), b, h, hkv, hd, bs, width, ns,
-                  1.0 / (hd ** 0.5), build.stream_ptr(q))
+                  block_tables.data_ptr(), seq_lens.data_ptr(),
+                  out.data_ptr(), b, h, hkv, hd, bs, width,
+                  1.0 / (hd ** 0.5), plan.cluster, build.stream_ptr(q))
     build.check(err, "paged_decode_attention")
     build.count_launch("paged_decode_attention")
-    # second stage: merge the splits' partial softmaxes; dead splits carry
-    # m = -1e30, l = 0 and contribute exactly 0
-    m_max = m.max(dim=2, keepdim=True).values
-    alpha = torch.exp(m - m_max)
-    l_tot = (alpha * l).sum(dim=2)
-    out = (alpha[..., None] * o).sum(dim=2) / \
-        torch.clamp(l_tot, min=1e-30)[..., None]
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    return out
+
+
+def decode_resident_clusters(hd: int, g: int, width: int, cluster: int
+                             ) -> Tuple[int, int]:
+    """(clusters of ``cluster`` blocks the current card holds at once, by
+    the CUDA runtime's count, and a block's dynamic shared memory) for the
+    kernel form that serves head dim ``hd`` and group ``g`` at a table
+    width. For checking ``decode_plan``; the kernel path never calls it."""
+    fn = build.bind("paged_decode_attention",
+                    "paged_decode_resident_clusters",
+                    [build.I] * 4 + [build.P, build.P])
+    held, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(fn(hd, g, width, cluster, ctypes.addressof(held),
+                   ctypes.addressof(smem)), "paged_decode_resident_clusters")
+    return held.value, smem.value

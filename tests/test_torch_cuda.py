@@ -9,7 +9,8 @@ row-block width of K5's plan (and its resident clusters), causal
 attention over ragged sequence lengths and padded head dims, paged chunk
 attention split over a cluster (live keys in every split, empty splits,
 512 rows, over 2048 keys) and causal attention in more than one wave of
-blocks, bit-identical from run to run, and the hybrid products over both
+blocks, bit-identical from run to run, paged decode attention as one
+launch with its plan's clusters resident, and the hybrid products over both
 sides of the format, bf16 and float32. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
@@ -252,6 +253,10 @@ ATTN_SHAPES = [  # (B, Hkv, G, hd, bs, width)
     (2, 2, 4, 128, 8, 7),
     (2, 2, 1, 64, 64, 3),
     (5, 3, 3, 48, 2, 11),
+    (3, 3, 1, 96, 16, 10),        # hd 96 (two panels, the second half zero)
+    (3, 2, 4, 96, 8, 9),          # hd 96, GQA
+    (4, 2, 2, 64, 16, 128),       # 2048 keys: K3 at CL 8, 4 tiles a rank
+    (2, 2, 2, 64, 16, 1),         # a one-page table
 ]
 
 
@@ -274,6 +279,71 @@ def test_paged_decode_matches_plain(card, shape):
     po = paged_decode_attention_plain(q, kp, vp, bt, sl)
     assert torch.isfinite(o.float()).all()
     torch.testing.assert_close(o.float(), po.float(), **TOL)
+
+
+DECODE_PLAN_SHAPES = [  # (B, H, Hkv, hd, width, bs)
+    (4, 32, 32, 64, 34, 16), (4, 32, 8, 64, 64, 16), (4, 16, 16, 128, 34, 16),
+    (1, 32, 32, 64, 34, 16), (2, 16, 16, 128, 64, 16),
+    (3, 48, 3, 96, 300, 8), (4, 32, 2, 64, 128, 16)]
+
+
+@pytest.mark.parametrize("shape", DECODE_PLAN_SHAPES, ids=str)
+def test_decode_plan_clusters_resident(card, shape):
+    """K3's plan counts on its B x Hkv clusters being resident at once:
+    the CUDA runtime's count (cudaOccupancyMaxActiveClusters) holds them
+    all, and a block's shared memory is the plan's."""
+    from repro_torch.kernels.attention_plan import decode_plan
+    from repro_torch.kernels.paged_decode_attention import \
+        decode_resident_clusters
+    b, h, hkv, hd, width, bs = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = decode_plan(b, h, hkv, hd, width, bs, sms)
+    held, smem = decode_resident_clusters(hd, h // hkv, width, plan.cluster)
+    assert plan.cluster > 1 and plan.clusters <= held
+    assert smem == plan.smem
+
+
+def _decode_case(dev, b=4, hkv=8, g=4, hd=128, bs=16, width=64):
+    rng = np.random.RandomState(7)
+    kp, vp, bt = _paged(rng, b, hkv, hd, bs, width, dev)
+    sl = torch.tensor([1000, 517, 33, 700][:b], dtype=torch.int32,
+                      device=dev)
+    q = _bf16(rng.randn(b, 1, hkv * g, hd), dev)
+    return q, kp, vp, bt, sl
+
+
+def test_paged_decode_is_one_launch(card):
+    """One K3 call is one kernel on the card (no merge kernels after it)
+    and allocates only its bf16 output (no f32 partials)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+    args = _decode_case(card)
+    paged_decode_attention_cuda(*args)                 # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = paged_decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert o.dtype == torch.bfloat16 and o.shape == args[0].shape
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= -(-o.numel() * 2 // 512) * 512
+
+
+def test_paged_decode_same_bits_every_run(card):
+    """The splits merge in rank order: two calls give the same bits."""
+    from repro_torch.kernels.attention_plan import decode_plan
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+    q, kp, vp, bt, sl = _decode_case(card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert decode_plan(4, 32, 8, 128, 64, 16, sms).cluster > 1
+    assert torch.equal(paged_decode_attention_cuda(q, kp, vp, bt, sl),
+                       paged_decode_attention_cuda(q, kp, vp, bt, sl))
 
 
 @pytest.mark.parametrize("s", [1, 5, 16, 64])
