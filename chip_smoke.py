@@ -9,7 +9,8 @@ JAX package) and runs these phases, each printing one JSON line:
   2. build    -- compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
                  source, in parallel) into ``build/repro_torch/``; ptxas's
                  registers and spills, and any C75xx line (wgmma
-                 serialised or fenced by the compiler, setmaxnreg ignored)
+                 serialised or fenced by the compiler, setmaxnreg ignored),
+                 hybrid_matmul's listed even when there is none
   3. kernels  -- each hand-written kernel (K1 gate matmul + TwELL pack, K2
                  fused up/down projection, K3 paged decode attention, K4 paged
                  chunk attention, K5 tile-skip gated FFN, K6 non-gated TwELL
@@ -17,14 +18,17 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound (K1, K3 and K5 also
+                 version, a library call and its bound (K1, K3, K5 and K9 also
                  the host time of a call beside the library call's); K1,
                  K3, K4, K5 and K7 also twice for the same bits, K1 at M 4,
                  20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
                  olmo-1b's N 8192, K3 and K4 at hd 64 (MHA, GQA) and at
                  olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
-                 programmatic dependent launch
+                 programmatic dependent launch; K9 forward and backward on
+                 the train phase's pattern and forward on a pattern
+                 scattered over all N, with its host time a call and the
+                 mean column union of a 128-row block
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
@@ -70,9 +74,12 @@ Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
 tile_skip_ffn`` (or any of twell_gate_matmul, paged_decode_attention,
-paged_chunk_attention, flash_attention, comma-separated) runs only phases
-1-3 for those kernels on the port under DIR (e.g. an earlier version
-unpacked under ``build/``) and prints their table, without the last line.
+paged_chunk_attention, flash_attention, dense_to_hybrid, comma-separated)
+runs only phases 1-3 for those kernels on the port under DIR (e.g. an
+earlier version unpacked under ``build/``) and prints their table, without
+the last line. ``--src DIR --train-only`` runs phases 1, 2 and 7 (the
+training step's times and peak memory) on that port, without the last
+line.
 ``--k1-plans`` runs phases 1-2 and then K1 at each of its timed shapes under
 the launch plans around ``gate_plan``'s (cluster size, rows a block, ring
 depth), each checked against the plain version and timed beside the
@@ -129,6 +136,10 @@ def parse_args(argv):
                     help="comma-separated kernel names: run only the device, "
                          "build and kernels phases, for those kernels, and "
                          "print their table (no last line); for A/B timing")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the device, build and train phases on "
+                         "the port under --src (no last line); for A/B "
+                         "timing of the training step")
     ap.add_argument("--k1-plans", action="store_true",
                     help="run only the device and build phases and K1 at "
                          "each of K1_SHAPES under the launch plans around "
@@ -157,6 +168,10 @@ def main(argv=None) -> int:
     phase_build()
     if args.k1_plans:
         phase_k1_plans(torch)
+        print(smi, flush=True)
+        return 0
+    if args.train_only:
+        phase_train(torch)
         print(smi, flush=True)
         return 0
     if args.kernels is not None:
@@ -212,7 +227,8 @@ def phase_build():
     emit({"phase": "build", "seconds": round(secs, 2),
           "sources": [p.name for p in build.sources()],
           "dir": str(build.BUILD_DIR), "ptxas": usage,
-          "c75": {name: lines for name, lines in c75.items() if lines}})
+          "c75": {name: lines for name, lines in c75.items() if lines},
+          "c75_hybrid_matmul": c75.get("hybrid_matmul", [])})
 
 
 # --------------------------------------------------------------------------- #
@@ -708,7 +724,8 @@ def check_k7(torch, timer, b, s, h, hd, gen):
 def hybrid_inputs(torch, gen):
     """The train phase's FFN at full width (M = 8192 tokens, K 2048, N
     5632, ELL width 128, backup M/8) with TRAIN_ALIVE gate columns alive:
-    x, the packed gate hg (its pattern), W_u, W_d and a gradient gy."""
+    x, the packed gate hg (its pattern), W_u, W_d, a gradient gy, and a
+    pattern hs scattered over all N columns."""
     from repro_torch.core import hybrid as hyb
     m, k, n = TRAIN_BATCH * TRAIN_SEQ, 2048, 5632
     x = (torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
@@ -720,7 +737,12 @@ def hybrid_inputs(torch, gen):
     g = torch.relu(x @ wg)
     hg = hyb.pack(g, 128, m // 8, mask=g > 0)
     assert not bool(hg.overflow), "the K8/K9 inputs overflow the backup"
-    return x, hg, wu, wd, gy
+    # K9's worst case: each row's columns drawn independently over all N,
+    # ~108 a row (as many as hg's), so a 128-row block's union is near N
+    scat = torch.rand((m, n), generator=gen, device="cuda") < 108 / n
+    hs = hyb.pack(scat.bfloat16(), 128, m // 8, mask=scat)
+    assert not bool(hs.overflow), "the scattered pattern overflows"
+    return x, hg, wu, wd, gy, hs
 
 
 def alive_columns(torch, gen, n):
@@ -751,7 +773,7 @@ def check_k8(torch, timer, inputs, orient):
     from repro_torch.core import hybrid as hyb
     from repro_torch.kernels.hybrid_matmul import (hybrid_to_dense_cuda,
                                                    hybrid_to_dense_plain)
-    x, hg, wu, wd, _ = inputs
+    x, hg, wu, wd, _, _ = inputs
     if orient == "forward":
         vals, w = hg.ell_values, wd
     else:
@@ -778,35 +800,71 @@ def check_k8(torch, timer, inputs, orient):
             "backup_rows": int(hg.is_dense.sum())}
 
 
-def check_k9(torch, timer, inputs, orient):
+def union_sizes(torch, hy, rows=128):
+    """The columns of the union of each ``rows``-row block's valid slots
+    (K9's bf16 kernel computes a block's rows against that union)."""
+    m, e = hy.ell_indices.shape
+    slot = torch.arange(e, device=hy.ell_indices.device)
+    valid = (slot[None] < hy.row_nnz[:, None]) & ~hy.is_dense[:, None]
+    block = (torch.arange(m, device=valid.device) // rows)[:, None]
+    hit = torch.zeros((-(-m // rows), hy.n), dtype=torch.bool,
+                      device=valid.device)
+    hit[block.expand(m, e)[valid], hy.ell_indices[valid].long()] = True
+    return hit.sum(1)
+
+
+def check_k9(torch, timer, inputs, orient, pattern="alive"):
     """K9, the SDDMM on the pattern: forward h_u = (x @ W_u)[pattern] (W_u^T
     read by rows), backward grad_h = (gy @ W_d^T)[pattern] (W_d read by
-    rows)."""
+    rows); on the train phase's pattern (TRAIN_ALIVE columns alive) or the
+    scattered one. With the host time of a call beside ``x @ W``'s and the
+    mean union of a 128-row block."""
     from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
                                                    dense_to_hybrid_plain)
-    x, hg, wu, wd, gy = inputs
+    x, hg, wu, wd, gy, hs = inputs
+    hy = hg if pattern == "alive" else hs
     a, wt = (x, wu.t().contiguous()) if orient == "forward" else (gy, wd)
-    args = (a, wt, hg.ell_indices, hg.row_nnz, ~hg.is_dense)
+    args = (a, wt, hy.ell_indices, hy.row_nnz, ~hy.is_dense)
     v = dense_to_hybrid_cuda(*args)
     pv = dense_to_hybrid_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, v, pv)
-    assert ok, f"K9 ({orient}) disagrees with the plain version: {err}"
+    assert ok, f"K9 ({orient}, {pattern}) disagrees with the plain " \
+        f"version: {err}"
     assert torch.equal(v, dense_to_hybrid_cuda(*args)), \
         "K9 is not run-to-run deterministic"
     m, k = a.shape
-    slots, read = hybrid_work(torch, hg, k, 0)
-    bnd, by = bound_ms(read + 2 * m * k + 4 * m * hg.ell_width,
+    slots, read = hybrid_work(torch, hy, k, 0)
+    bnd, by = bound_ms(read + 2 * m * k + 4 * m * hy.ell_width,
                        2 * slots * k)
     w = wt.t()
-    return {"ms": timer.ms(lambda: dense_to_hybrid_cuda(*args)),
+
+    def k9():
+        return dense_to_hybrid_cuda(*args)
+
+    def lib():
+        return torch.matmul(a, w)
+    return {"ms": timer.ms(k9),
             "plain_ms": timer.ms(lambda: dense_to_hybrid_plain(*args),
                                  iters=3),
-            "library_ms": timer.ms(lambda: torch.matmul(a, w)),
+            "library_ms": timer.ms(lib),
+            "host_us": host_us(torch, k9),
+            "library_host_us": host_us(torch, lib),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
-            "orient": orient, "M": m, "E": hg.ell_width, "K": k,
+            "orient": orient, "pattern": pattern, "M": m,
+            "E": hy.ell_width, "K": k,
             "valid_slots_per_row": slots / m,
-            "backup_rows": int(hg.is_dense.sum())}
+            "union_per_128_rows": float(union_sizes(torch, hy).float()
+                                        .mean()),
+            "backup_rows": int(hy.is_dense.sum())}
+
+
+def k9_cases(torch, timer, inputs):
+    """K9 forward and backward on the train phase's pattern, then forward
+    on the scattered one (the design's worst case)."""
+    return [check_k9(torch, timer, inputs, "forward"),
+            check_k9(torch, timer, inputs, "backward"),
+            check_k9(torch, timer, inputs, "forward", "scattered")]
 
 
 KERNELS = {
@@ -901,9 +959,9 @@ def phase_kernels(torch, only=None):
     path runs most (decode: M = 4 for K1/K2, K3, K5 and K6, K5 with a
     threshold as the drafts run it, K3 MHA first, then GQA and olmo-1b's 16
     heads of 128; the 64-token prefill chunk for K4, in the same order; the
-    train phase's batch
-    for K7, K8 and K9, K8/K9 in their forward orientation); every measured
-    case under "cases". ``only``: just those kernels (A/B timing)."""
+    train phase's batch for K7, K8 and K9, K8/K9 in their forward
+    orientation on the train phase's pattern); every measured case under
+    "cases". ``only``: just those kernels (A/B timing)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timer = Timer(torch)
     if only is not None:
@@ -923,6 +981,8 @@ def phase_kernels(torch, only=None):
                 check_k3(torch, timer, 32, 32, gen),
                 check_k3(torch, timer, 32, 8, gen),
                 check_k3(torch, timer, 16, 16, gen, hd=128)],
+            "dense_to_hybrid": lambda: k9_cases(
+                torch, timer, hybrid_inputs(torch, gen)),
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
@@ -949,8 +1009,7 @@ def phase_kernels(torch, only=None):
     hybrid = hybrid_inputs(torch, gen)
     cases["hybrid_to_dense"] = [check_k8(torch, timer, hybrid, o)
                                 for o in ("forward", "backward")]
-    cases["dense_to_hybrid"] = [check_k9(torch, timer, hybrid, o)
-                                for o in ("forward", "backward")]
+    cases["dense_to_hybrid"] = k9_cases(torch, timer, hybrid)
     del hybrid
     return kernel_table(torch, cases)
 

@@ -11,7 +11,9 @@ attention split over a cluster (live keys in every split, empty splits,
 512 rows, over 2048 keys) and causal attention in more than one wave of
 blocks, bit-identical from run to run, paged decode attention as one
 launch with its plan's clusters resident, and the hybrid products over both
-sides of the format, bf16 and float32. Marked ``cuda``: each
+sides of the format, bf16 and float32 (K9 at the train phase's batch with
+216 columns alive, on a pattern scattered over all N, on a row block with
+no ELL row, and as one launch). Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -481,13 +483,26 @@ def test_paged_chunk_cluster_splits(card, case):
                                                      nn_t))
 
 
-def _hybrid_case(m, n, k, e, dense_rows, dtype, dev, seed):
+def _hybrid_case(m, n, k, e, dense_rows, dtype, dev, seed, kind="random"):
     """A hybrid pattern with rows on both sides of the format: ~e/2
-    non-zeros a row, and ``dense_rows`` rows with more than e."""
+    non-zeros a row, and ``dense_rows`` rows with more than e. ``kind``
+    "alive216": each row takes 108 of the same 216 columns (the train
+    phase's gate, K9's union two chunks of 128); "scattered": 108 columns a
+    row drawn over all N (K9's union near N); "backup_block": the dense
+    rows are the first ones (a row block with no ELL row)."""
     from repro_torch.core import hybrid as hyb
     rng = np.random.RandomState(seed)
-    h = np.where(rng.rand(m, n) < 0.5 * e / n, rng.randn(m, n), 0.0)
-    h[rng.permutation(m)[:dense_rows]] = rng.randn(dense_rows, n)
+    if kind in ("alive216", "scattered"):
+        pool = rng.permutation(n)[:216] if kind == "alive216" else \
+            np.arange(n)
+        pick = np.argpartition(rng.rand(m, pool.size), 108, axis=1)[:, :108]
+        h = np.zeros((m, n))
+        h[np.arange(m)[:, None], pool[pick]] = rng.randn(m, 108)
+    else:
+        h = np.where(rng.rand(m, n) < 0.5 * e / n, rng.randn(m, n), 0.0)
+    dense = np.arange(dense_rows) if kind == "backup_block" else \
+        rng.permutation(m)[:dense_rows]
+    h[dense] = rng.randn(dense_rows, n)
     hy = hyb.pack(torch.from_numpy(h.astype(np.float32)).to(dev).to(dtype),
                   e, max(1, dense_rows))
     x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
@@ -495,13 +510,18 @@ def _hybrid_case(m, n, k, e, dense_rows, dtype, dev, seed):
     return hy, x.to(dtype), w.to(dtype)
 
 
-HYBRID_SHAPES = [  # (M, N, K, E, dense rows)
+HYBRID_SHAPES = [  # (M, N, K, E, dense rows[, kind])
     (1, 64, 8, 4, 0),
     (37, 256, 64, 16, 3),
     (300, 512, 136, 32, 10),
+    (40, 384, 72, 10, 2),         # E % 4: K9 reads indices 4 bytes a copy
     (5, 128, 2056, 8, 1),         # K past one 1024-column slice
     (8, 2048, 64, 1024, 1),       # the widest ELL row the kernels take
     (512, 5632, 2048, 128, 8),    # paper-0.5b's FFN
+    # the train phase's batch at paper-0.5b's FFN, 216 columns alive
+    (8192, 5632, 2048, 128, 8, "alive216"),
+    (8192, 5632, 2048, 128, 8, "scattered"),   # K9's worst case
+    (300, 512, 136, 32, 128, "backup_block"),  # a row block all backup
 ]
 
 
@@ -517,8 +537,9 @@ def test_hybrid_matmuls_match_plain(card, shape, dtype):
                                                    dense_to_hybrid_plain,
                                                    hybrid_to_dense_cuda,
                                                    hybrid_to_dense_plain)
-    m, n, k, e, dense = shape
-    hy, x, w = _hybrid_case(m, n, k, e, dense, dtype, card, sum(shape))
+    m, n, k, e, dense, *kind = shape
+    hy, x, w = _hybrid_case(m, n, k, e, dense, dtype, card,
+                            sum(shape[:5]), *kind)
     live = ~hy.is_dense
     assert int(hy.is_dense.sum()) == dense and not bool(hy.overflow)
     tol = dict(rtol=1e-4, atol=1e-4)
@@ -539,6 +560,53 @@ def test_hybrid_matmuls_match_plain(card, shape, dtype):
     assert not vals[~valid].any()
     assert torch.equal(vals, dense_to_hybrid_cuda(x, w, hy.ell_indices,
                                                   hy.row_nnz, live))
+
+
+def _graph_node_types(g):
+    """The node types of a captured ``torch.cuda.CUDAGraph(keep_graph=True)``
+    (0: a kernel), through the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphGetNodes.restype = cu.cuGraphNodeGetType.restype = ctypes.c_int
+    graph, n = g.raw_cuda_graph(), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+def test_dense_to_hybrid_is_one_launch(card):
+    """One bf16 K9 call is one kernel on the card (the union, the products
+    and the pick in one launch): captured into a CUDA graph it is one
+    kernel node and nothing else. It allocates only its f32 values. (A
+    torch.profiler session after another in the same process recorded no
+    kernel, so the graph counts.)"""
+    from repro_torch.kernels.hybrid_matmul import dense_to_hybrid_cuda
+    hy, x, w = _hybrid_case(512, 5632, 2048, 128, 8, torch.bfloat16, card,
+                            11, "alive216")
+    args = (x, w, hy.ell_indices, hy.row_nnz, ~hy.is_dense)
+    dense_to_hybrid_cuda(*args)                        # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    vals = dense_to_hybrid_cuda(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= -(-vals.numel() * 4 // 512) * 512
+    assert vals.dtype == torch.float32 and vals.shape == (512, 128)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        dense_to_hybrid_cuda(*args)
+    assert _graph_node_types(g) == [0]
 
 
 def test_ops_dispatch_counts_launches(card):
