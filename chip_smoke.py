@@ -18,17 +18,18 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound (K1, K3, K5 and K9 also
-                 the host time of a call beside the library call's); K1,
+                 version, a library call and its bound (K1, K3, K5, K8 and K9
+                 also the host time of a call beside the library call's); K1,
                  K3, K4, K5 and K7 also twice for the same bits, K1 at M 4,
                  20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
                  olmo-1b's N 8192, K3 and K4 at hd 64 (MHA, GQA) and at
                  olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
-                 programmatic dependent launch; K9 forward and backward on
-                 the train phase's pattern and forward on a pattern
-                 scattered over all N, with its host time a call and the
-                 mean column union of a 128-row block
+                 programmatic dependent launch; K8 and K9 forward and
+                 backward on the train phase's pattern and forward on a
+                 pattern scattered over all N, with their host time a call
+                 and the mean column union of a 128-row block (K8 also on
+                 an f32 W, with a digest of its output's bits)
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache): 6 greedy requests; the launch count of every kernel
@@ -74,7 +75,8 @@ Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
 tile_skip_ffn`` (or any of twell_gate_matmul, paged_decode_attention,
-paged_chunk_attention, flash_attention, dense_to_hybrid, comma-separated)
+paged_chunk_attention, flash_attention, hybrid_to_dense, dense_to_hybrid,
+comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--src DIR --train-only`` runs phases 1, 2 and 7 (the
@@ -89,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -767,37 +770,88 @@ def hybrid_work(torch, hy, k, val_bytes, w_bytes=2):
                    + m * 5 + rows * k * w_bytes)
 
 
-def check_k8(torch, timer, inputs, orient):
+def check_k8(torch, timer, inputs, orient, pattern="alive"):
     """K8, y = h @ W on the ELL side: forward h (bf16 values) @ W_d,
-    backward grad_hu (float32 values) @ W_u^T."""
+    backward a gradient on h's pattern (float32 values bf16 cannot hold,
+    as the hybrid backward passes them) @ W_u^T; on the train phase's
+    pattern or the scattered one. With the host time of a call beside the
+    library call's and the mean union of a 128-row block."""
     from repro_torch.core import hybrid as hyb
+    from repro_torch.kernels import hybrid_matmul as hm
     from repro_torch.kernels.hybrid_matmul import (hybrid_to_dense_cuda,
                                                    hybrid_to_dense_plain)
-    x, hg, wu, wd, _, _ = inputs
+    x, hg, wu, wd, _, hs = inputs
+    hy = hg if pattern == "alive" else hs
     if orient == "forward":
-        vals, w = hg.ell_values, wd
+        vals, w = hy.ell_values, wd
     else:
-        vals, w = hg.ell_values.float(), wu.t().contiguous()
-    args = (vals, hg.ell_indices, hg.row_nnz, ~hg.is_dense, w)
+        vals, w = hy.ell_values.float() / 3, wu.t().contiguous()
+    args = (vals, hy.ell_indices, hy.row_nnz, ~hy.is_dense, w)
     y = hybrid_to_dense_cuda(*args)
     py = hybrid_to_dense_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, y, py)
-    assert ok, f"K8 ({orient}) disagrees with the plain version: {err}"
+    assert ok, f"K8 ({orient}, {pattern}) disagrees with the plain " \
+        f"version: {err}"
     assert torch.equal(y, hybrid_to_dense_cuda(*args)), \
         "K8 is not run-to-run deterministic"
     m, k = y.shape
-    slots, read = hybrid_work(torch, hg, k, vals.element_size())
+    slots, read = hybrid_work(torch, hy, k, vals.element_size())
     bnd, by = bound_ms(read + 4 * m * k, 2 * slots * k)
-    dense_h = hyb.unpack(hg._replace(ell_values=vals.to(w.dtype))).to(w.dtype)
-    return {"ms": timer.ms(lambda: hybrid_to_dense_cuda(*args)),
+    dense_h = hyb.unpack(hy._replace(ell_values=vals.to(w.dtype))).to(w.dtype)
+
+    def k8():
+        return hybrid_to_dense_cuda(*args)
+
+    def lib():
+        return torch.matmul(dense_h, w)
+    plan = None
+    if hasattr(hm, "h2d_plan"):         # an earlier version has no plan
+        p = hm.h2d_plan(m, k, w.shape[0], hy.ell_width,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count, vals.element_size() // 2)
+        plan = {"splits": p.splits, "ring": p.stages, "tile_cols": p.cols,
+                "smem": p.smem}
+    return {"ms": timer.ms(k8),
             "plain_ms": timer.ms(lambda: hybrid_to_dense_plain(*args),
                                  iters=3),
-            "library_ms": timer.ms(lambda: torch.matmul(dense_h, w)),
+            "library_ms": timer.ms(lib),
+            "host_us": host_us(torch, k8),
+            "library_host_us": host_us(torch, lib),
             "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
-            "orient": orient, "M": m, "E": hg.ell_width, "K": k,
+            "orient": orient, "pattern": pattern, "M": m,
+            "E": hy.ell_width, "K": k, "values": str(vals.dtype),
+            "plan": plan,
             "valid_slots_per_row": slots / m,
-            "backup_rows": int(hg.is_dense.sum())}
+            "union_per_128_rows": float(union_sizes(torch, hy).float()
+                                        .mean()),
+            "backup_rows": int(hy.is_dense.sum())}
+
+
+def check_k8_f32(torch, inputs, rows=1024):
+    """K8 on an f32 W (the per-row kernel of the float32 gradient checks):
+    against the plain version, and a digest of its output's bits, to hold
+    against an earlier version's from the same call."""
+    from repro_torch.kernels.hybrid_matmul import (hybrid_to_dense_cuda,
+                                                   hybrid_to_dense_plain)
+    _, hg, _, wd, _, _ = inputs
+    args = (hg.ell_values[:rows].float() / 3, hg.ell_indices[:rows],
+            hg.row_nnz[:rows], ~hg.is_dense[:rows], wd.float())
+    y = hybrid_to_dense_cuda(*args)
+    err, ok = close_err(torch, y, hybrid_to_dense_plain(*args))
+    assert ok, f"K8 (f32 W) disagrees with the plain version: {err}"
+    digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return {"orient": "f32_w", "M": rows, "max_abs_err": err,
+            "digest": digest}
+
+
+def k8_cases(torch, timer, inputs):
+    """K8 forward and backward on the train phase's pattern, forward on the
+    scattered one (a union near N: the tile in chunks), then on an f32 W."""
+    return [check_k8(torch, timer, inputs, "forward"),
+            check_k8(torch, timer, inputs, "backward"),
+            check_k8(torch, timer, inputs, "forward", "scattered"),
+            check_k8_f32(torch, inputs)]
 
 
 def union_sizes(torch, hy, rows=128):
@@ -817,8 +871,9 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
     """K9, the SDDMM on the pattern: forward h_u = (x @ W_u)[pattern] (W_u^T
     read by rows), backward grad_h = (gy @ W_d^T)[pattern] (W_d read by
     rows); on the train phase's pattern (TRAIN_ALIVE columns alive) or the
-    scattered one. With the host time of a call beside ``x @ W``'s and the
-    mean union of a 128-row block."""
+    scattered one. With the host time of a call beside ``x @ W``'s, the
+    mean union of a 128-row block and a digest of the output's bits (to
+    hold against an earlier version's from the same call)."""
     from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
                                                    dense_to_hybrid_plain)
     x, hg, wu, wd, gy, hs = inputs
@@ -833,6 +888,7 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
         f"version: {err}"
     assert torch.equal(v, dense_to_hybrid_cuda(*args)), \
         "K9 is not run-to-run deterministic"
+    digest = hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
     m, k = a.shape
     slots, read = hybrid_work(torch, hy, k, 0)
     bnd, by = bound_ms(read + 2 * m * k + 4 * m * hy.ell_width,
@@ -856,7 +912,7 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
             "valid_slots_per_row": slots / m,
             "union_per_128_rows": float(union_sizes(torch, hy).float()
                                         .mean()),
-            "backup_rows": int(hy.is_dense.sum())}
+            "backup_rows": int(hy.is_dense.sum()), "digest": digest}
 
 
 def k9_cases(torch, timer, inputs):
@@ -983,6 +1039,8 @@ def phase_kernels(torch, only=None):
                 check_k3(torch, timer, 16, 16, gen, hd=128)],
             "dense_to_hybrid": lambda: k9_cases(
                 torch, timer, hybrid_inputs(torch, gen)),
+            "hybrid_to_dense": lambda: k8_cases(
+                torch, timer, hybrid_inputs(torch, gen)),
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
@@ -1007,8 +1065,7 @@ def phase_kernels(torch, only=None):
                             check_k7(torch, timer, 1, 4096, 32, 64, gen)],
     }
     hybrid = hybrid_inputs(torch, gen)
-    cases["hybrid_to_dense"] = [check_k8(torch, timer, hybrid, o)
-                                for o in ("forward", "backward")]
+    cases["hybrid_to_dense"] = k8_cases(torch, timer, hybrid)
     cases["dense_to_hybrid"] = k9_cases(torch, timer, hybrid)
     del hybrid
     return kernel_table(torch, cases)

@@ -1,6 +1,6 @@
 // Hopper primitives shared by the wgmma kernels of this directory (K1
-// twell_pack.cu, K5 tile_skip_ffn.cu, K3 paged_decode_attention.cu, K9
-// hybrid_matmul.cu, K4 paged_chunk_attention.cu and K7 flash_attention.cu
+// twell_pack.cu, K5 tile_skip_ffn.cu, K3 paged_decode_attention.cu, K8 and
+// K9 hybrid_matmul.cu, K4 paged_chunk_attention.cu and K7 flash_attention.cu
 // through attention_sm90.cuh): shared-memory addressing of 128B-swizzled
 // panels, mbarriers, TMA, cp.async, the proxy fence, named
 // barriers, programmatic dependent launch, wgmma's fence / commit / wait
@@ -355,6 +355,51 @@ struct WgmmaKA<128> {
         "%56, %57, %58, %59, %60, %61, %62, %63"
         "}, "
         "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// D (64 x N, f32) += A (64 x 16, shared, K-major) * B (16 x N, shared,
+// MN-major: the transpose bit), for N = 128: A a box of 64 activation rows
+// whose reduction dim is contiguous, B a (K, N)-row-major weight box (64
+// columns a 128-byte row, one row a k; its two 64-column panels LBO apart).
+template <int N>
+struct WgmmaTB;
+template <>
+struct WgmmaTB<128> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

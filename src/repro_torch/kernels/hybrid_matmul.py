@@ -3,17 +3,23 @@
 K8, ``y = h @ W`` with h in the hybrid format: ``hybrid_to_dense_cuda``
 launches ``csrc/hybrid_matmul.cu``, the Hopper counterpart of
 ``repro/kernels/hybrid_matmul.py:hybrid_to_dense_pallas``;
-``hybrid_to_dense_plain`` is the same function in plain PyTorch.
+``hybrid_to_dense_plain`` is the same function in plain PyTorch. For a
+bf16 W, K8 is one wgmma kernel: a block of ``H2D_ROWS`` rows builds the
+union of its valid slots' columns on the card, scatters its slot values
+into a (rows x union) tile in shared memory (f32 values as bf16 hi + lo)
+and multiplies it by the union's W rows, gathered, K slice by K slice of
+``H2D_KS`` output columns; ``h2d_plan`` is its launch plan. For an f32 W
+(the float32 gradient checks) it is a per-row kernel on CUDA cores.
 
 K9, the SDDMM ``vals = (x @ W)[pattern]``: ``dense_to_hybrid_cuda``
 launches the same source's K9 kernels, the counterpart of
 ``dense_to_hybrid_pallas``; ``dense_to_hybrid_plain`` beside it. In bf16
-K9 is one wgmma kernel: a block of ``D2H_ROWS`` rows builds the union of its
-valid slots' columns on the card, computes x's rows against that union's
-W rows in chunks of ``D2H_COLS`` columns on the tensor cores and picks its
-slots' values; ``d2h_plan``, a plain function of Python ints, is its launch
-plan. In float32 (the float32 gradient checks) K9 is a per-row kernel on
-CUDA cores, which keeps the products exact in f32.
+K9 is one wgmma kernel: a block of ``D2H_ROWS`` rows builds the same
+union, computes x's rows against that union's W rows in chunks of
+``D2H_COLS`` columns on the tensor cores and picks its slots' values;
+``d2h_plan`` is its launch plan. In float32 K9 is a per-row kernel on CUDA
+cores, which keeps the products exact in f32. Both plans are plain
+functions of Python ints: they never read the pattern.
 
 Both cover the ELL side only: slot e of row m is valid when
 ``e < row_nnz[m]`` and ``is_sparse[m]``; a row in the dense backup gives 0
@@ -46,6 +52,18 @@ D2H_STAGES = (4, 5, 6)         # ring depths built, in stages of one chunk;
 D2H_STAGE_BYTES = (D2H_ROWS + D2H_COLS) * 128   # x's rows and a chunk's
 #                                                  Wt rows, 64 of K each
 
+H2D_ROWS = 128                 # rows a block: two warpgroups of 64
+H2D_KS = 128                   # y columns a K slice: the kernel's wgmma N
+H2D_US = 64                    # union positions a ring stage (a panel row)
+H2D_STAGES = (4, 5, 6)         # ring depths built; copies run two fewer
+#                                stages ahead than the ring holds
+H2D_STAGE_BYTES = H2D_US * H2D_KS * 2      # a stage: 64 gathered W rows,
+#                                            128 y columns, bf16
+H2D_PANEL_BYTES = H2D_ROWS * 128           # 64 positions of the h tile
+H2D_RESIDENT = 256             # union positions the plan's tile holds
+#                                before its ring deepens: a 128-row block's
+#                                union at the train phase's pattern is ~216
+
 
 @dataclasses.dataclass(frozen=True)
 class D2hPlan:
@@ -77,17 +95,22 @@ class D2hPlan:
                 + [(c,) for c in mine[2 * pairs:]])
 
 
+def _union_bytes(n: int) -> int:
+    """Shared memory of a 128-row block's union of n columns (``union_bytes``
+    of the kernels): its columns and each column's position (n 16-bit
+    values each), the bitmap and its prefix (an int each per 32 columns),
+    the byte map (32 bytes per 32 columns), the rows' valid slot counts and
+    the union's size."""
+    return 4 * n + 40 * tp.cdiv(n, 32) + 4 * D2H_ROWS + 16
+
+
 def d2h_smem(n: int, stages: int) -> int:
     """K9's dynamic shared memory (``d2h_smem`` of the kernel): 1 KB of
     alignment slack, the ring (``stages`` of 128 rows of x and 128 Wt
-    rows, 64 of K each, bf16; the staged f32 accumulators alias it), the
-    union's columns (n ints), the bitmap and its prefix (an int each per
-    32 columns), the byte map (32 bytes per 32 columns), the rows' valid
-    slot counts and the union's size."""
+    rows, 64 of K each, bf16; the staged f32 accumulators alias it) and
+    the union's maps."""
     tp.check_ints(n, stages)
-    words = tp.cdiv(n, 32)
-    return (1024 + stages * D2H_STAGE_BYTES + 4 * n + 40 * words
-            + 4 * D2H_ROWS + 16)
+    return 1024 + stages * D2H_STAGE_BYTES + _union_bytes(n)
 
 
 @functools.lru_cache(maxsize=None, typed=True)
@@ -113,6 +136,89 @@ def d2h_plan(m: int, k: int, n: int, e: int, sms: int) -> D2hPlan:
                          f"memory, over {tp.SMEM_BYTES}")
     return D2hPlan(splits, fit[-1], row_blocks, max_chunks,
                    d2h_smem(n, fit[-1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class H2dPlan:
+    splits: int              # S: blocks a row block; block s takes K slices
+    #                          s, s + S, ... of y's columns
+    stages: int              # depth of the cp.async ring
+    cols: int                # HC: union positions the h tile holds; a wider
+    #                          union goes in chunks of HC, scattered again
+    #                          for each K slice
+    row_blocks: int
+    k_slices: int            # slices of H2D_KS columns of y
+    smem: int                # dynamic shared memory of a block (bytes)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return (self.row_blocks, self.splits)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.splits
+
+    def slices(self, s: int) -> List[int]:
+        """The K slices block ``s`` of a row block computes, in order."""
+        return list(range(s, self.k_slices, self.splits))
+
+    def chunks(self, union: int) -> List[Tuple[int, int]]:
+        """[lo, hi) union positions of each tile chunk of a ``union``-column
+        union, in whole 64-deep stages (the last one past the union is
+        zero): one chunk while the union fits the tile, none when empty."""
+        end = tp.cdiv(union, H2D_US) * H2D_US
+        return [(lo, min(lo + self.cols, end))
+                for lo in range(0, end, self.cols)]
+
+
+def h2d_smem(n: int, stages: int, cols: int, terms: int) -> int:
+    """K8's dynamic shared memory (``h2d_smem`` of the kernel): 1 KB of
+    alignment slack, the ring (``stages`` of 64 gathered W rows, 128 y
+    columns each, bf16), the h tile (``terms`` bf16 parts -- 2 for f32
+    values, hi and lo -- of 128 rows x ``cols`` positions) and the union's
+    maps."""
+    tp.check_ints(n, stages, cols, terms)
+    return (1024 + stages * H2D_STAGE_BYTES
+            + terms * (cols // H2D_US) * H2D_PANEL_BYTES + _union_bytes(n))
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def h2d_plan(m: int, k: int, n: int, e: int, sms: int,
+             terms: int = 1) -> H2dPlan:
+    """``sms``: the card's streaming multiprocessors; ``terms``: 1 for bf16
+    slot values, 2 for f32 ones (the tile's hi and lo parts). S as many
+    splits as keep row blocks x S within one block an SM, at most the K
+    slices (at M 8192, 64 row blocks: S = 2). The tile first holds
+    ``H2D_RESIDENT`` positions (or the widest union a block can meet,
+    min(N, min(M, H2D_ROWS) x E), if fewer), the ring then as deep as fits,
+    the tile then as wide as fits. Never reads the pattern: the union is
+    found on the card. Raises ValueError when no tile of 64 positions and
+    ring of 4 fit beside the maps (too large an N). Cached: a training step
+    calls it three times a layer."""
+    tp.check_ints(m, k, n, e, sms, terms)
+    if min(m, k, n, e, sms) < 1 or terms not in (1, 2):
+        raise ValueError(f"h2d_plan: unsupported M {m}, K {k}, N {n}, E {e}, "
+                         f"terms {terms}")
+    row_blocks = tp.cdiv(m, H2D_ROWS)
+    k_slices = tp.cdiv(k, H2D_KS)
+    splits = max(1, min(k_slices, sms // row_blocks))
+    widest = tp.cdiv(min(n, min(m, H2D_ROWS) * e), H2D_US) * H2D_US
+
+    def fits(cols, stages):
+        return h2d_smem(n, stages, cols, terms) <= tp.SMEM_BYTES
+    cols = min(widest, H2D_RESIDENT)
+    while cols > H2D_US and not fits(cols, H2D_STAGES[0]):
+        cols -= H2D_US
+    if not fits(cols, H2D_STAGES[0]):
+        raise ValueError(f"h2d_plan: N {n} is too wide: its maps, a tile of "
+                         f"{H2D_US} positions and a ring of {H2D_STAGES[0]} "
+                         f"stages take {h2d_smem(n, H2D_STAGES[0], cols, terms)}"
+                         f" bytes of shared memory, over {tp.SMEM_BYTES}")
+    stages = max(st for st in H2D_STAGES if fits(cols, st))
+    while cols + H2D_US <= widest and fits(cols + H2D_US, stages):
+        cols += H2D_US
+    return H2dPlan(splits, stages, cols, row_blocks, k_slices,
+                   h2d_smem(n, stages, cols, terms))
 
 
 def _valid(ell_idx, row_nnz, is_sparse):
@@ -160,26 +266,36 @@ def _check(name, ts, ell_idx, row_nnz, is_sparse, m, e, k):
 
 
 def hybrid_to_dense_cuda(ell_vals, ell_idx, row_nnz, is_sparse, w):
-    """ell_vals (M, E) bf16 or f32 (widened to f32, exactly), w (N, K) bf16
-    or f32 on the card -> y (M, K) float32."""
+    """ell_vals (M, E) bf16 or f32, w (N, K) bf16 or f32 on the card ->
+    y (M, K) float32. bf16 W launches the union kernel under ``h2d_plan``
+    on the values as they are (f32 ones as bf16 hi + lo); f32 W the per-row
+    kernel (the values widened to f32, exactly). Either launches or
+    raises."""
     global _H2D
     m, e = ell_vals.shape
     n, k = w.shape
     if ell_vals.dtype not in _TYPES or w.dtype not in _TYPES:
         raise TypeError("hybrid_to_dense_cuda takes bfloat16 or float32 "
                         "values and weights")
-    vals = ell_vals.float().contiguous()
+    bf16 = w.dtype == torch.bfloat16
+    vals = ell_vals if bf16 else ell_vals.float().contiguous()
     _check("hybrid_to_dense_cuda", (vals, w), ell_idx, row_nnz, is_sparse,
            m, e, k)
+    vals_bf16 = vals.dtype == torch.bfloat16
+    plan = h2d_plan(m, k, n, e, tp.sm_count(w.device),
+                    1 if vals_bf16 else 2) if bf16 else None
     y = torch.empty((m, k), dtype=torch.float32, device=w.device)
     if _H2D is None:
         P, I = build.P, build.I
         _H2D = build.bind("hybrid_matmul", "hybrid_to_dense",
-                          [P, P, P, P, P, P, I, I, I, I, P])
+                          [P] * 6 + [I] * 10 + [P])
     with torch.cuda.device(w.device):
         err = _H2D(vals.data_ptr(), ell_idx.data_ptr(), row_nnz.data_ptr(),
                    is_sparse.data_ptr(), w.data_ptr(), y.data_ptr(), m, e, k,
-                   int(w.dtype == torch.bfloat16), build.stream_ptr(w))
+                   n, int(bf16), int(vals_bf16),
+                   *((plan.splits, plan.stages, plan.cols, plan.smem) if bf16
+                     else (0, 0, 0, 0)),
+                   build.stream_ptr(w))
     build.check(err, "hybrid_to_dense")
     build.count_launch("hybrid_to_dense")
     return y

@@ -11,9 +11,10 @@ attention split over a cluster (live keys in every split, empty splits,
 512 rows, over 2048 keys) and causal attention in more than one wave of
 blocks, bit-identical from run to run, paged decode attention as one
 launch with its plan's clusters resident, and the hybrid products over both
-sides of the format, bf16 and float32 (K9 at the train phase's batch with
-216 columns alive, on a pattern scattered over all N, on a row block with
-no ELL row, and as one launch). Marked ``cuda``: each
+sides of the format, bf16 and float32 (K8 and K9 at the train phase's
+batch with 216 columns alive, on a pattern scattered over all N, on a row
+block with no ELL row, each as one launch; K8 with f32 values on a bf16 W
+and, on an f32 W, in the per-row kernel's f32 FMA order). Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -529,10 +530,12 @@ HYBRID_SHAPES = [  # (M, N, K, E, dense rows[, kind])
 @pytest.mark.parametrize("shape", HYBRID_SHAPES, ids=str)
 def test_hybrid_matmuls_match_plain(card, shape, dtype):
     """K8 (ELL side of h @ W, with float32 slot values too, as the backward
-    passes them) and K9 (the SDDMM on the pattern, both orientations of
-    the products' W) against their plain versions: float32 outputs, equal
-    to 1e-4 relative (f32 sums in other orders), the same bits from run to
-    run, 0 on backup rows and invalid slots."""
+    passes them: exactly bf16 ones and, a third of them, ones bf16 cannot
+    hold, which a bf16 W takes as hi + lo) and K9 (the SDDMM on the
+    pattern, both orientations of the products' W) against their plain
+    versions: float32 outputs, equal to 1e-4 relative (f32 sums in other
+    orders), the same bits from run to run, 0 on backup rows and invalid
+    slots."""
     from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
                                                    dense_to_hybrid_plain,
                                                    hybrid_to_dense_cuda,
@@ -543,7 +546,8 @@ def test_hybrid_matmuls_match_plain(card, shape, dtype):
     live = ~hy.is_dense
     assert int(hy.is_dense.sum()) == dense and not bool(hy.overflow)
     tol = dict(rtol=1e-4, atol=1e-4)
-    for vals in (hy.ell_values, hy.ell_values.float()):
+    for vals in (hy.ell_values, hy.ell_values.float(),
+                 hy.ell_values.float() / 3):
         y = hybrid_to_dense_cuda(vals, hy.ell_indices, hy.row_nnz, live, w)
         py = hybrid_to_dense_plain(vals, hy.ell_indices, hy.row_nnz, live, w)
         assert y.dtype == torch.float32 and y.shape == (m, k)
@@ -607,6 +611,55 @@ def test_dense_to_hybrid_is_one_launch(card):
     with torch.cuda.graph(g, capture_error_mode="relaxed"):
         dense_to_hybrid_cuda(*args)
     assert _graph_node_types(g) == [0]
+
+
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+def test_hybrid_to_dense_is_one_launch(card, vdtype):
+    """One K8 call on a bf16 W, with bf16 values and with f32 ones, is one
+    kernel on the card (the union, the h tile and the products in one
+    launch, no copy of the values): captured into a CUDA graph it is one
+    kernel node and nothing else. It allocates only y."""
+    from repro_torch.kernels.hybrid_matmul import hybrid_to_dense_cuda
+    hy, x, w = _hybrid_case(512, 5632, 2048, 128, 8, torch.bfloat16, card,
+                            12, "alive216")
+    vals = hy.ell_values.to(vdtype)
+    args = (vals, hy.ell_indices, hy.row_nnz, ~hy.is_dense, w)
+    hybrid_to_dense_cuda(*args)                        # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    y = hybrid_to_dense_cuda(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= -(-y.numel() * 4 // 512) * 512
+    assert y.dtype == torch.float32 and y.shape == (512, 2048)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        hybrid_to_dense_cuda(*args)
+    assert _graph_node_types(g) == [0]
+
+
+def test_hybrid_to_dense_f32_keeps_its_fma_order(card):
+    """An f32 W takes the per-row kernel unchanged: each y element is
+    fmaf(v, w, acc) over the row's valid slots in slot order, from 0. The
+    reference replays that order on the CPU, each FMA exact in float64 (a
+    product of two floats has 48 bits) and rounded once to float32."""
+    from repro_torch.kernels.hybrid_matmul import hybrid_to_dense_cuda
+    hy, _, w = _hybrid_case(64, 256, 128, 16, 2, torch.float32, card, 13)
+    live = ~hy.is_dense
+    y = hybrid_to_dense_cuda(hy.ell_values, hy.ell_indices, hy.row_nnz,
+                             live, w).cpu()
+    vals = hy.ell_values.cpu().double()
+    idx = hy.ell_indices.cpu().long()
+    nnz = torch.where(live, hy.row_nnz, 0).cpu()
+    wd = w.cpu().double()
+    want = torch.zeros((64, 128), dtype=torch.float32)
+    for e in range(16):
+        on = (e < nnz)[:, None]
+        step = (vals[:, e:e + 1] * wd[idx[:, e]] + want.double()).float()
+        want = torch.where(on, step, want)
+    assert torch.equal(y, want)
 
 
 def test_ops_dispatch_counts_launches(card):
