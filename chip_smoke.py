@@ -22,7 +22,9 @@ JAX package) and runs these phases, each printing one JSON line:
                  also the host time of a call beside the library call's); K1,
                  K3, K4, K5 and K7 also twice for the same bits, K1 at M 4,
                  20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
-                 olmo-1b's N 8192, K3 and K4 at hd 64 (MHA, GQA) and at
+                 olmo-1b's N 8192, K2 at M 4, 256 and 20 and on a gate with
+                 every column alive (a union near N), with its host time
+                 beside the dense FFN's, K3 and K4 at hd 64 (MHA, GQA) and at
                  olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
                  programmatic dependent launch; K8 and K9 forward and
@@ -74,9 +76,9 @@ exits non-zero without a card and when the repo's ``src/`` is absent.
 Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
-tile_skip_ffn`` (or any of twell_gate_matmul, paged_decode_attention,
-paged_chunk_attention, flash_attention, hybrid_to_dense, dense_to_hybrid,
-comma-separated)
+tile_skip_ffn`` (or any of twell_gate_matmul, twell_fused_ffn,
+paged_decode_attention, paged_chunk_attention, flash_attention,
+hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--src DIR --train-only`` runs phases 1, 2 and 7 (the
@@ -376,21 +378,32 @@ def check_k1(torch, timer, m, n, gen, t=256, c=8):
 
 
 def check_k1_k2(torch, timer, m, gen):
+    """K1 at (M, paper-0.5b's W_g), then K2 on the plain version's packed
+    gate of the same inputs."""
+    k1, (x, wg, wu, wd, pv, pi, pz) = check_k1(torch, timer, m, 5632, gen)
+    return k1, check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz)
+
+
+def check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz, pattern="alive"):
+    """K2 on a packed gate (T 256, C 8; counts clipped to T/C as ops clips
+    them) against the plain version, the same bits on a second call, timed
+    beside the dense FFN (the library call), with the host time of a call,
+    the columns the pattern names and the plan where the port has one."""
     from repro_torch.core import twell
+    from repro_torch.kernels import sparse_ffn as sf
     from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
                                                 twell_fused_ffn_plain)
-    k, n, t, c = 2048, 5632, 256, 8
+    (m, k), n, t, c = x.shape, wd.shape[0], 256, 8
     tc = t // c
-    k1, (x, wg, wu, wd, pv, pi, pz) = check_k1(torch, timer, m, n, gen)
     wu_t = wu.t().contiguous()
-    # K2, on the plain version's packed gate (the same input for both)
     tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
                          t, c, n)
     y = twell_fused_ffn_cuda(x, tw, wu_t, wd)
     py = twell_fused_ffn_plain(x, tw, wu_t, wd)
     torch.cuda.synchronize()
     err2, ok2 = close_err(torch, y, py)
-    assert ok2, f"K2 disagrees with the plain version (M={m}): {err2}"
+    assert ok2, f"K2 disagrees with the plain version (M={m}, {pattern}): " \
+        f"{err2}"
     assert torch.equal(y, twell_fused_ffn_cuda(x, tw, wu_t, wd)), \
         "K2 is not run-to-run deterministic"
     valid = twell.slot_valid(tw)
@@ -401,18 +414,64 @@ def check_k1_k2(torch, timer, m, gen):
     b2, by2 = bound_ms(in_bytes + 2 * cols * k * 2 + 4 * m * k,
                        4 * k * slots)
 
+    def k2():
+        return twell_fused_ffn_cuda(x, tw, wu_t, wd)
+
     def dense_ffn():
         return torch.matmul(torch.matmul(x, wu) * torch.relu(
             torch.matmul(x, wg)), wd)
+    plan = None
+    if hasattr(sf, "fused_ffn_plan"):     # an earlier version has no plan
+        p = sf.fused_ffn_plan(m, k, n, t, c, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        plan = {"width": p.width, "row_blocks": p.row_blocks, "ks": p.ks,
+                "ring": p.stages, "smem": p.smem, "split": p.split,
+                "other_union_ms": None}
+        if p.ks > 1:
+            # the other way of building the union (each rank all the
+            # block's rows, or the ranks split them): the same bits, timed
+            default = sf.fused_ffn_plan
+            sf.fused_ffn_plan = lambda *a, _p=dataclasses.replace(
+                p, split=not p.split): _p
+            try:
+                assert torch.equal(y, k2()), "K2's union ways disagree"
+                plan["other_union_ms"] = timer.ms(k2)
+            finally:
+                sf.fused_ffn_plan = default
+    return {"ms": timer.ms(k2),
+            "plain_ms": timer.ms(lambda: twell_fused_ffn_plain(
+                x, tw, wu_t, wd), iters=5),
+            "library_ms": timer.ms(dense_ffn),
+            "host_us": host_us(torch, k2),
+            "library_host_us": host_us(torch, dense_ffn),
+            "bound_ms": b2, "bound_by": by2, "max_abs_err": err2,
+            "active_slots_per_row": slots / m, "distinct_columns": cols,
+            "overflow": bool(tw.overflow), "M": m, "pattern": pattern,
+            "plan": plan}
 
-    k2 = {"ms": timer.ms(lambda: twell_fused_ffn_cuda(x, tw, wu_t, wd)),
-          "plain_ms": timer.ms(lambda: twell_fused_ffn_plain(x, tw, wu_t,
-                                                              wd), iters=5),
-          "library_ms": timer.ms(dense_ffn),
-          "bound_ms": b2, "bound_by": by2, "max_abs_err": err2,
-          "active_slots_per_row": slots / m, "distinct_columns": cols,
-          "M": m}
-    return k1, k2
+
+def check_k2_scattered(torch, timer, m, gen):
+    """K2 with every gate column alive (keep 1.0): each tile overflows its
+    T/C slots (clipped, as ops clips them), so every row fills all N/C
+    slots and a row block's union is near all of N. Reported, not held to
+    the library time."""
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
+    x = (torch.randn((m, 2048), generator=gen, device="cuda") * 0.5).bfloat16()
+    wg, wu, wd = ((torch.randn(shape, generator=gen, device="cuda") * 0.08)
+                  .bfloat16() for shape in ((2048, 5632), (2048, 5632),
+                                            (5632, 2048)))
+    pv, pi, pz = twell_gate_matmul_plain(x, wg, 256, 8, "relu")
+    return check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz, "scattered")
+
+
+def k2_cases(torch, timer, gen):
+    """K2 at decode (M 4), the prefill step (256), the spec verify (20) and
+    on the scattered gate (M 256); with K1's cases at the first three."""
+    k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
+    k1_256, k2_256 = check_k1_k2(torch, timer, 256, gen)
+    k1_20, k2_20 = check_k1_k2(torch, timer, 20, gen)
+    return [k1_4, k1_256, k1_20], [k2_4, k2_256, k2_20,
+                                   check_k2_scattered(torch, timer, 256, gen)]
 
 
 def check_k6(torch, timer, m, gen):
@@ -1041,14 +1100,14 @@ def phase_kernels(torch, only=None):
                 torch, timer, hybrid_inputs(torch, gen)),
             "hybrid_to_dense": lambda: k8_cases(
                 torch, timer, hybrid_inputs(torch, gen)),
+            "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1],
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
-    k1_4, k2_4 = check_k1_k2(torch, timer, 4, gen)
-    k1_256, k2_256 = check_k1_k2(torch, timer, 256, gen)
+    k1s, k2s = k2_cases(torch, timer, gen)
     cases = {
-        "twell_gate_matmul": [k1_4, k1_256] + [
-            check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[2:]],
-        "twell_fused_ffn": [k2_4, k2_256],
+        "twell_gate_matmul": k1s + [
+            check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[3:]],
+        "twell_fused_ffn": k2s,
         "twell_down_proj": [check_k6(torch, timer, 4, gen),
                             check_k6(torch, timer, 256, gen)],
         "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),

@@ -1,7 +1,8 @@
 // Hopper primitives shared by the wgmma kernels of this directory (K1
-// twell_pack.cu, K5 tile_skip_ffn.cu, K3 paged_decode_attention.cu, K8 and
-// K9 hybrid_matmul.cu, K4 paged_chunk_attention.cu and K7 flash_attention.cu
-// through attention_sm90.cuh): shared-memory addressing of 128B-swizzled
+// twell_pack.cu, K2 twell_fused_ffn.cu, K5 tile_skip_ffn.cu, K3
+// paged_decode_attention.cu, K8 and K9 hybrid_matmul.cu, K4
+// paged_chunk_attention.cu and K7 flash_attention.cu through
+// attention_sm90.cuh): shared-memory addressing of 128B-swizzled
 // panels, mbarriers, TMA, cp.async, the proxy fence, named
 // barriers, programmatic dependent launch, wgmma's fence / commit / wait
 // and matrix descriptors, and the host-side lookup of
@@ -295,10 +296,11 @@ struct WgmmaTA<128> {
 };
 
 // D (64 x N, f32) += A (64 x 16, shared, K-major) * B (N x 16, shared,
-// K-major)^T, for N = 8, 16, 128: both operands K-major, A a box of 64
-// rows whose reduction dim is contiguous (a tile of key rows, the head dim
-// along them; or 64 rows of activations) and B N rows of the same width
-// (a few query rows; or N gathered weight rows).
+// K-major)^T, for N = 8, 16, 32, 64, 128: both operands K-major, A a box of
+// 64 rows whose reduction dim is contiguous (a tile of key rows, the head
+// dim along them; 64 rows of activations; or 64 gathered weight rows) and
+// B N rows of the same width (a few query rows; N gathered weight rows; or
+// a block's activation rows).
 template <int N>
 struct WgmmaKA;
 template <>
@@ -332,6 +334,54 @@ struct WgmmaKA<16> {
         "%8, %9, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaKA<32> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaKA<64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(1));
   }
 };

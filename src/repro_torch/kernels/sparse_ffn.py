@@ -4,6 +4,18 @@ K2, fused up + down projection from the packed TwELL gate (paper Eq. 3):
 ``twell_fused_ffn_cuda`` launches ``csrc/twell_fused_ffn.cu``, the Hopper
 counterpart of ``twell_fused_ffn_pallas``; ``twell_fused_ffn_plain`` is the
 same function in plain PyTorch (``repro/kernels/ref.py:twell_fused_ffn``).
+At the serving shapes a row block's union of live gate columns is ~113 of
+5632, so K2 moves under 1 MB and does ~0.1 GFLOP: its time is fixed cost
+and latency. One launch a call: a cluster of ``ks`` blocks a row block
+builds the union of the block's valid slot columns on the card from the
+TwELL valid prefixes, computes h_u over it once on swap-AB wgmma with
+W_u^T's union rows gathered by cp.async and the K loop split over the
+ranks, sums the ranks' f32 partials in rank order through distributed
+shared memory, rounds h = h_u * g once to bf16 and multiplies it by the
+union's W_d rows into each rank's share of y's columns (wgmma again, f32
+accumulators stored as y). ``fused_ffn_plan`` is its launch plan, a plain
+function of shapes that reuses K1's residency model; from 32 rows a block
+it has the ranks split the union's rows (``split``).
 
 K5, the gated FFN end to end with (row block x tile) skipping:
 ``tile_skip_ffn_cuda`` launches ``csrc/tile_skip_ffn.cu``, the Hopper
@@ -20,19 +32,19 @@ counterpart of ``twell_down_proj_pallas``; ``twell_down_proj_plain`` is the
 same function in plain PyTorch (``repro/kernels/ref.py:twell_down_proj``,
 float32 out).
 
-K2 takes ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel reads
+K2 takes ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel gathers
 W_u by column, and a column of the (K, N) row-major matrix is a strided
 walk. The transposed copy is made once when the weights are loaded
 (``models.lm.prepare_params``), never per call. K5 reads W_g and W_u as
-they are stored, (K, N), through TMA, and W_d (N, K) likewise; K6 reads
-W_d by rows as it is stored.
+they are stored, (K, N), through TMA, and W_d (N, K) likewise; K2 and K6
+read W_d by rows as it is stored.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -60,43 +72,186 @@ def twell_fused_ffn_plain(x: torch.Tensor, tw: twell.TwellActs,
     return torch.matmul(h.float(), wd.float()).to(x.dtype)
 
 
+FUSED_FFN_WIDTHS = (8, 16, 32, 64)   # rows a block (wgmma N)
+FUSED_FFN_SLICES = (2, 4)            # 128-column slices of y a rank holds
+FUSED_FFN_UC = 128                   # union positions a chunk
+FUSED_FFN_UNIT = 128 * 128           # a ring stage: 128 rows x 64 bf16
+FUSED_FFN_STAGES = (3, 8)            # ring depth, least and most
+FUSED_FFN_ACC = 128                  # accumulator floats a thread, at most
+FUSED_FFN_MAX_N = 65535              # columns held as u16 positions
+FUSED_FFN_SPLIT_WIDTH = 32           # rows a block from which the ranks
+#                                      split the union's rows
+_FUSED_FFN_TYPES = (torch.bfloat16, torch.bfloat16, torch.int32, torch.int32,
+                    torch.bfloat16, torch.bfloat16)
+
+
+def fused_ffn_smem(width: int, k_per_rank: int, stages: int, n: int) -> int:
+    """Dynamic shared memory of a K2 block (``Layout`` in the kernel): 1 KB
+    of alignment slack, the ring, x's tile (``k_per_rank`` 64-deep stages
+    of ``width`` rows), the h tile (two 64-position panels), the f32
+    partial tile (rows x 132), the union's bitmap, the rank's own bitmap,
+    the prefix and the u16 columns, and U with the warps' totals."""
+    words = tp.cdiv(n, 32)
+    return (1024 + stages * FUSED_FFN_UNIT + k_per_rank * width * 128 +
+            2 * width * 128 + width * (FUSED_FFN_UC + 4) * 4 + 12 * words +
+            (2 * n + 15) // 16 * 16 + 48)
+
+
+def fused_ffn_staging(n: int) -> int:
+    """Bytes staged over the ring before it starts: the byte map of N (a
+    32-column word as 32 bytes)."""
+    return 32 * tp.cdiv(n, 32)
+
+
+def _fused_ffn_check(m: int, k: int, n: int, tile: int, c: int) -> None:
+    if tile not in tp.GATE_TILES or min(m, k, n, c) < 1 or n % tile or \
+            tile % c or k % 8 or n > FUSED_FFN_MAX_N:
+        raise ValueError(
+            f"twell_fused_ffn: unsupported M {m}, K {k}, N {n}, tile {tile}, "
+            f"C {c} (needs tile in {tp.GATE_TILES}, N % tile == 0, "
+            f"tile % C == 0, K % 8 == 0, N <= {FUSED_FFN_MAX_N})")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedFfnPlan:
+    width: int               # wgmma N of both products: rows a block
+    row_blocks: int          # clusters, one a row block
+    ks: int                  # blocks a cluster, splitting K's stages
+    k_stages: int            # GATE_BK-deep stages of K
+    k_per_rank: int          # the most stages a rank takes
+    slices: int              # 128-column y slices a rank's accumulators hold
+    stages: int              # depth of the cp.async ring
+    smem: int                # dynamic shared memory a block
+    grid: Tuple[int, int]    # (ks, row blocks)
+    split: bool              # the ranks split the union's rows (and OR
+    #                          their bitmaps through DSMEM)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def k_splits(self) -> List[Tuple[int, int]]:
+        """[lo, hi) of the K stages each rank takes: the reduction range
+        of its up partial and its columns of y."""
+        return tp.splits(self.k_stages, self.ks)
+
+    def scatter_rows(self, valid: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of a block's ``valid`` rows whose h each rank forms."""
+        return tp.splits(valid, self.ks)
+
+    @staticmethod
+    def chunks(union: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of the union's positions a chunk, FUSED_FFN_UC each."""
+        return [(lo, min(lo + FUSED_FFN_UC, union))
+                for lo in range(0, union, FUSED_FFN_UC)]
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
+                   ) -> FusedFfnPlan:
+    """K2's launch plan from shapes and the card's SM count; it never reads
+    the pattern. Rows a block: M rounded up to one of FUSED_FFN_WIDTHS (64
+    at most: both products' accumulators, (slices + 1) x width / 2 floats
+    a thread, stay within FUSED_FFN_ACC). The K stages are split over a
+    cluster of ``ks`` blocks a row block, the widest (<= 8, <= the stages)
+    that keeps every cluster resident at once at one block an SM
+    (``twell_pack.widest_cluster``); wider where a rank's share of y would
+    not fit its accumulators. The ring as deep as FUSED_FFN_STAGES and the
+    shared memory allow, at least a phase (the rank's stages, rounded up
+    to even). Where nothing fits, narrower row blocks. The ranks split the
+    union's rows from FUSED_FFN_SPLIT_WIDTH rows a block up. Cached: the
+    serving path calls it every launch with a few shapes."""
+    tp.check_ints(m, k, n, tile, c, sms)
+    _fused_ffn_check(m, k, n, tile, c)
+    if sms < 1:
+        raise ValueError(f"fused_ffn_plan: {sms} SMs")
+    k_stages = tp.cdiv(k, tp.GATE_BK)
+    top = next(w for w in FUSED_FFN_WIDTHS
+               if w >= min(m, FUSED_FFN_WIDTHS[-1]))
+    lo_st, hi_st = FUSED_FFN_STAGES
+    for width in [w for w in reversed(FUSED_FFN_WIDTHS) if w <= top]:
+        row_blocks = tp.cdiv(m, width)
+        first = tp.widest_cluster(row_blocks, k_stages, 1, sms)
+        for ks in range(first, min(tp.MAX_KS, k_stages) + 1):
+            per = tp.cdiv(k_stages, ks)
+            sl = next((s for s in FUSED_FFN_SLICES if 2 * s >= per), None)
+            if sl is None or (sl + 1) * width // 2 > FUSED_FFN_ACC:
+                continue
+            fit = [st for st in range(max(lo_st, 2 * tp.cdiv(per, 2)),
+                                      hi_st + 1)
+                   if fused_ffn_smem(width, per, st, n) <= tp.SMEM_BYTES
+                   and fused_ffn_staging(n) <= st * FUSED_FFN_UNIT]
+            if fit:
+                st = fit[-1]
+                return FusedFfnPlan(width, row_blocks, ks, k_stages, per, sl,
+                                    st, fused_ffn_smem(width, per, st, n),
+                                    (ks, row_blocks),
+                                    width >= FUSED_FFN_SPLIT_WIDTH and ks > 1)
+    raise ValueError(f"fused_ffn_plan: M {m}, K {k}, N {n}, tile {tile} does "
+                     "not fit a block's registers and shared memory")
+
+
+def fused_ffn_resident_clusters(k: int, n: int, tile: int,
+                                plan: FusedFfnPlan) -> Tuple[int, int]:
+    """The CUDA runtime's count of the plan's clusters the current card
+    holds at once, and a block's shared memory as the kernel computes it.
+    For measuring plans; the kernel path never calls it."""
+    fn = build.bind("twell_fused_ffn", "twell_fused_ffn_resident_clusters",
+                    [build.I] * 7 + [build.P] * 2)
+    held, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(fn(k, n, tile, plan.width, plan.slices, plan.ks, plan.stages,
+                   ctypes.addressof(held), ctypes.addressof(smem)),
+                "twell_fused_ffn_resident_clusters")
+    return held.value, smem.value
+
+
 def twell_fused_ffn_cuda(x: torch.Tensor, tw: twell.TwellActs,
                          wu_t: torch.Tensor, wd: torch.Tensor
                          ) -> torch.Tensor:
     """x (M, K) bf16, packed gate ``tw`` (nnz clipped to T/C), wu_t (N, K)
-    bf16, wd (N, K) bf16 on the card -> y (M, K) float32."""
+    bf16, wd (N, K) bf16 on the card, x, wu_t and wd 16-byte aligned ->
+    y (M, K) float32. One launch under ``fused_ffn_plan``, or raises."""
     global _FN
     m, k = x.shape
     n = wd.shape[0]
-    ts = (x, tw.values, tw.indices, tw.nnz, wu_t, wd)
-    if not all(t.is_cuda and t.device == x.device for t in ts):
-        raise ValueError("twell_fused_ffn_cuda: every operand must be on "
-                         "x's CUDA device")
-    if any(t.dtype != torch.bfloat16 for t in (x, tw.values, wu_t, wd)) or \
-            tw.indices.dtype != torch.int32 or tw.nnz.dtype != torch.int32:
+    vals, idx, nnz = tw.values, tw.indices, tw.nnz
+    if (x.dtype, vals.dtype, idx.dtype, nnz.dtype, wu_t.dtype,
+            wd.dtype) != _FUSED_FFN_TYPES:
         raise TypeError("twell_fused_ffn_cuda takes bfloat16 x/values/"
                         "weights and int32 indices/nnz")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("twell_fused_ffn_cuda: operands must be contiguous")
-    slots = n // tw.tile * tw.slot_width
-    if wu_t.shape != (n, k) or wd.shape != (n, k) or k % 8 or \
-            n != tw.n or tw.values.shape != (m, slots) or \
-            tw.indices.shape != (m, slots) or \
-            tw.nnz.shape != (m, n // tw.tile) or m < 1:
+    _fused_ffn_check(m, k, n, tw.tile, tw.compression)
+    slots, nt = n // tw.compression, n // tw.tile
+    if (*wu_t.shape, *wd.shape, *vals.shape, *idx.shape, *nnz.shape) != \
+            (n, k, n, k, m, slots, m, slots, m, nt) or n != tw.n or not (
+                x.is_contiguous() and vals.is_contiguous() and
+                idx.is_contiguous() and nnz.is_contiguous() and
+                wu_t.is_contiguous() and wd.is_contiguous()):
         raise ValueError(
             f"twell_fused_ffn_cuda: inconsistent shapes x {tuple(x.shape)} "
             f"wu_t {tuple(wu_t.shape)} wd {tuple(wd.shape)} values "
-            f"{tuple(tw.values.shape)} nnz {tuple(tw.nnz.shape)}")
-    y = torch.empty((m, k), dtype=torch.float32, device=x.device)
+            f"{tuple(tw.values.shape)} nnz {tuple(tw.nnz.shape)}, or an "
+            "operand not contiguous")
+    if x.data_ptr() % 16 or wu_t.data_ptr() % 16 or wd.data_ptr() % 16:
+        raise ValueError("twell_fused_ffn_cuda: x, wu_t and wd must be "
+                         "16-byte aligned (cp.async)")
+    dev = x.device
+    if not (x.is_cuda and vals.device == dev and idx.device == dev and
+            nnz.device == dev and wu_t.device == dev and wd.device == dev):
+        raise ValueError("twell_fused_ffn_cuda: every operand must be on "
+                         "x's CUDA device")
+    plan = fused_ffn_plan(m, k, n, tw.tile, tw.compression,
+                          tp.sm_count(dev))
+    y = torch.empty((m, k), dtype=torch.float32, device=dev)
     if _FN is None:
         P, I = build.P, build.I
         _FN = build.bind("twell_fused_ffn", "twell_fused_ffn_bf16",
-                         [P, P, P, P, P, P, P, I, I, I, I, I, P])
-    with torch.cuda.device(x.device):
-        err = _FN(tw.values.data_ptr(), tw.indices.data_ptr(),
-                  tw.nnz.data_ptr(), x.data_ptr(), wu_t.data_ptr(),
+                         [P] * 7 + [I] * 10 + [P])
+    with torch.cuda.device(dev):
+        err = _FN(vals.data_ptr(), idx.data_ptr(), nnz.data_ptr(),
+                  x.data_ptr(), wu_t.data_ptr(),
                   wd.data_ptr(), y.data_ptr(), m, k, n, tw.tile,
-                  tw.compression, build.stream_ptr(x))
+                  tw.compression, plan.width, plan.slices, plan.ks,
+                  plan.stages, int(plan.split), build.stream_ptr(x))
     build.check(err, "twell_fused_ffn")
     build.count_launch("twell_fused_ffn")
     return y

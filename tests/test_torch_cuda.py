@@ -2,7 +2,9 @@
 over shapes beyond the main path's: ragged M, C = 1, narrow tiles, relu^2,
 K1 at its launch plan's row-block boundaries and at olmo-1b's N 8192, K1's
 plan against the runtime's resident clusters and its refusal of pointers
-TMA cannot take, the non-gated down projection past one column slice and
+TMA cannot take, K2 at its plan's boundaries, on an all-empty gate and on
+unions wider than one chunk, as one launch, with its plan's clusters
+resident, the non-gated down projection past one column slice and
 on empty rows, head dims 16..128, GQA groups up to 16, block sizes up to
 64, boundary and padded rows, tile-skip thresholds and dead tiles at every
 row-block width of K5's plan (and its resident clusters), causal
@@ -126,6 +128,112 @@ def test_gate_matmul_refuses_misaligned_pointers(card):
         twell_gate_matmul_cuda(xo, wg, 64, 4)
     with pytest.raises(ValueError):
         twell_gate_matmul_cuda(x, wo, 64, 4)
+
+
+def _fused_case(m, k, n, t, c, keep, seed, dev, x_zero=False):
+    """x, K1-plain-packed gate (clipped to T/C as ops clips it), W_u^T, W_d
+    on the card; x all zero when ``x_zero`` (an all-empty gate)."""
+    from repro_torch.core import twell
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
+    x, wg, wu, wd = _gate(m, k, n, keep, seed, dev)
+    if x_zero:
+        x = torch.zeros_like(x)
+    v, i, z = twell_gate_matmul_plain(x, wg, t, c, "relu")
+    tc = t // c
+    tw = twell.TwellActs(v, i, torch.clamp(z, max=tc), (z > tc).any(), t, c,
+                         n)
+    return x, tw, wu.t().contiguous(), wd
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 20, 64, 65, 128, 129, 256, 300])
+def test_fused_ffn_plan_boundaries_match_plain(card, m):
+    """K2 at every width and row-block boundary of its plan (8-64 rows a
+    block), paper-0.5b's FFN, within bf16 tolerance, the same bits on a
+    second call."""
+    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                                twell_fused_ffn_plain)
+    args = _fused_case(m, 2048, 5632, 256, 8, 0.02, m, card)
+    y = twell_fused_ffn_cuda(*args)
+    torch.testing.assert_close(y, twell_fused_ffn_plain(*args).float(),
+                               **TOL)
+    assert torch.equal(y, twell_fused_ffn_cuda(*args))
+
+
+@pytest.mark.parametrize("case", ["all_empty", "keep1_m256", "keep1_ragged"])
+def test_fused_ffn_empty_and_scattered_unions(card, case):
+    """An all-empty gate (an empty union: y all zero) and gates with every
+    column alive (at C 8 overflowed tiles clipped to T/C; rows of more
+    than 128 valid slots, so a row block's union is wider than one
+    128-position chunk, up to all of N), against the plain version, the
+    same bits on a second call."""
+    from repro_torch.kernels.sparse_ffn import (twell_fused_ffn_cuda,
+                                                twell_fused_ffn_plain)
+    shape = {"all_empty": (20, 2048, 5632, 256, 8, 0.02),
+             "keep1_m256": (256, 2048, 5632, 256, 8, 1.0),
+             "keep1_ragged": (37, 200, 768, 64, 1, 1.0)}[case]
+    args = _fused_case(*shape, 3, card, x_zero=case == "all_empty")
+    y = twell_fused_ffn_cuda(*args)
+    if case == "all_empty":
+        assert int(args[1].nnz.sum()) == 0 and not bool(y.abs().max())
+    else:
+        assert int(args[1].nnz.sum(-1).max()) > 128
+        assert bool(args[1].overflow) == (case == "keep1_m256")
+    torch.testing.assert_close(y, twell_fused_ffn_plain(*args).float(),
+                               **TOL)
+    assert torch.equal(y, twell_fused_ffn_cuda(*args))
+
+
+def test_fused_ffn_is_one_launch(card):
+    """One K2 call is one kernel on the card (the union, both products and
+    the rank-order sums in one launch): captured into a CUDA graph it is
+    one kernel node and nothing else. It allocates only y."""
+    from repro_torch.kernels.sparse_ffn import twell_fused_ffn_cuda
+    args = _fused_case(256, 2048, 5632, 256, 8, 0.02, 5, card)
+    twell_fused_ffn_cuda(*args)                        # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    y = twell_fused_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= -(-y.numel() * 4 // 512) * 512
+    assert y.dtype == torch.float32 and y.shape == (256, 2048)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        twell_fused_ffn_cuda(*args)
+    assert _graph_node_types(g) == [0]
+
+
+@pytest.mark.parametrize("shape", [  # (M, K, N, T, C): decode, verify,
+    (4, 2048, 5632, 256, 8), (20, 2048, 5632, 256, 8),  # prefill, wider
+    (256, 2048, 5632, 256, 8), (300, 512, 1024, 256, 8),
+    (4, 2048, 8192, 256, 8), (256, 4096, 5632, 256, 8)], ids=str)
+def test_fused_ffn_plan_clusters_resident(card, shape):
+    """K2's plan counts on its row blocks' clusters being resident at once
+    (one block an SM): the CUDA runtime's count
+    (cudaOccupancyMaxActiveClusters) holds them all where the plan keeps
+    the grid to one wave, and a block's shared memory is the plan's."""
+    from repro_torch.kernels import sparse_ffn as sf
+    from repro_torch.kernels import twell_pack as tp
+    m, k, n, t, c = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = sf.fused_ffn_plan(m, k, n, t, c, sms)
+    held, smem = sf.fused_ffn_resident_clusters(k, n, t, plan)
+    assert smem == plan.smem
+    if tp.one_wave(plan.row_blocks, plan.ks, 1, sms):
+        assert plan.row_blocks <= held
+
+
+def test_fused_ffn_refuses_misaligned_pointers(card):
+    """cp.async gathers 16-byte pieces of x, W_u^T and W_d: a contiguous
+    view one element past an aligned start raises before any launch."""
+    from repro_torch.kernels.sparse_ffn import twell_fused_ffn_cuda
+    x, tw, wu_t, wd = _fused_case(4, 64, 256, 64, 2, 0.5, 0, card)
+    xo = torch.empty(4 * 64 + 1, dtype=torch.bfloat16,
+                     device=card)[1:].view(4, 64)
+    xo.copy_(x)
+    with pytest.raises(ValueError):
+        twell_fused_ffn_cuda(xo, tw, wu_t, wd)
 
 
 TILE_SKIP_SHAPES = [  # (M, K, N, T, act, keep, threshold, dead tiles)
