@@ -18,13 +18,17 @@ JAX package) and runs these phases, each printing one JSON line:
                  ELL sides of the hybrid products) on the card at the main
                  paths' shapes in bfloat16, held against its plain PyTorch
                  version on the same inputs, then timed beside the plain
-                 version, a library call and its bound (K1, K3, K5, K8 and K9
-                 also the host time of a call beside the library call's); K1,
+                 version, a library call and its bound (K1, K3, K5, K6, K8
+                 and K9 also the host time of a call beside the library
+                 call's); K1,
                  K3, K4, K5 and K7 also twice for the same bits, K1 at M 4,
                  20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
                  olmo-1b's N 8192, K2 at M 4, 256 and 20 and on a gate with
                  every column alive (a union near N), with its host time
-                 beside the dense FFN's, K3 and K4 at hd 64 (MHA, GQA) and at
+                 beside the dense FFN's, K6 at M 4 and 256 (with K1 + K6
+                 beside the dense non-gated FFN) and on a pattern with every
+                 column alive, with its union a row block and its launch
+                 plan, K3 and K4 at hd 64 (MHA, GQA) and at
                  olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
                  programmatic dependent launch; K8 and K9 forward and
@@ -77,8 +81,8 @@ Random weights are made from a seed; nothing is downloaded.
 
 For an A/B of kernel versions in one call, ``--src DIR --kernels
 tile_skip_ffn`` (or any of twell_gate_matmul, twell_fused_ffn,
-paged_decode_attention, paged_chunk_attention, flash_attention,
-hybrid_to_dense, dense_to_hybrid, comma-separated)
+twell_down_proj, paged_decode_attention, paged_chunk_attention,
+flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--src DIR --train-only`` runs phases 1, 2 and 7 (the
@@ -474,33 +478,52 @@ def k2_cases(torch, timer, gen):
                                    check_k2_scattered(torch, timer, 256, gen)]
 
 
-def check_k6(torch, timer, m, gen):
-    """K6 at olmo-1b's FFN shape (K 2048, N 8192, T 256, C 8) with KEEP of
-    the W_u columns alive, on the pattern of relu(x @ W_u) packed by the
-    plain version (the same input for both); then K1 + K6, the non-gated
-    FFN as the serving path runs it, beside the dense relu(x @ W_u) @ W_d."""
+def check_k6(torch, timer, m, gen, keep=KEEP):
+    """K6 at olmo-1b's FFN shape (K 2048, N 8192, T 256, C 8) with ``keep``
+    of the W_u columns alive, on the pattern of relu(x @ W_u) packed by the
+    plain version (the same input for both; counts clipped to T/C as ops
+    clips them), the same bits on a second call, timed beside the plain
+    version and ``unpack(h) @ W_d`` (the library call), with the host time
+    of a call, the union of each row block of the plan's width and the plan
+    where the port has one (with a cluster, also the time without one:
+    each block then builds its union and scatters h for all its rows
+    alone); at KEEP also K1 + K6,
+    the non-gated FFN as the serving path runs it, beside the dense
+    relu(x @ W_u) @ W_d. keep 1.0 (every column alive): each tile overflows
+    its T/C slots, so every row fills all N/C slots and a row block's union
+    is near all of N; reported, not held to the library time."""
     from repro_torch.core import twell
+    from repro_torch.kernels import sparse_ffn as sf
     from repro_torch.kernels.sparse_ffn import (twell_down_proj_cuda,
                                                 twell_down_proj_plain)
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
     k, n, t, c = 2048, 8192, 256, 8
     tc = t // c
-    # gate_inputs' KEEP-masked gate weight stands in for olmo's W_u (its
-    # real W_u, dense, is dropped): relu(x @ wg) is then as sparse as the
-    # up projection of the serve_olmo phase
-    x, wg, _, wd = gate_inputs(torch, m, k, n, gen)
+    if keep == KEEP:
+        # gate_inputs' KEEP-masked gate weight stands in for olmo's W_u (its
+        # real W_u, dense, is dropped): relu(x @ wg) is then as sparse as
+        # the up projection of the serve_olmo phase
+        x, wg, _, wd = gate_inputs(torch, m, k, n, gen)
+    else:
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5
+             ).bfloat16()
+        wg, wd = ((torch.randn(shape, generator=gen, device="cuda") * 0.08)
+                  .bfloat16() for shape in ((k, n), (n, k)))
     v, i, z = twell_gate_matmul_plain(x, wg, t, c, "relu")
-    assert int(z.max()) <= tc, f"K6 inputs overflow T/C (M={m})"
+    overflow = bool((z > tc).any())
+    assert overflow == (keep == 1.0), f"K6 inputs overflow T/C (M={m})"
+    z = torch.clamp(z, max=tc)
     args = (v, i, z, wd, t)
+    case = f"M={m}, keep {keep}"
     y = twell_down_proj_cuda(*args)
     py = twell_down_proj_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, y, py)
-    assert ok, f"K6 disagrees with the plain version (M={m}): {err}"
+    assert ok, f"K6 disagrees with the plain version ({case}): {err}"
     assert torch.equal(y, twell_down_proj_cuda(*args)), \
-        "K6 is not run-to-run deterministic"
-    tw = twell.TwellActs(v, i, z, (z > tc).any(), t, c, n)
+        f"K6 is not run-to-run deterministic ({case})"
+    tw = twell.TwellActs(v, i, z, torch.tensor(overflow), t, c, n)
     valid = twell.slot_valid(tw)
     slots = int(valid.sum())
     rows = int(torch.unique(i[valid]).numel())
@@ -511,19 +534,58 @@ def check_k6(torch, timer, m, gen):
     bnd, by = bound_ms(nbytes, 2 * slots * k)
     h = twell.unpack(tw)
 
-    def k1_k6():
-        pv, pi, pz = twell_gate_matmul_cuda(x, wg, t, c, "relu")
-        return twell_down_proj_cuda(pv, pi, torch.clamp(pz, max=tc), wd, t)
+    def k6():
+        return twell_down_proj_cuda(*args)
+    plan, width = None, 64
+    if hasattr(sf, "down_proj_plan"):     # an earlier version has no plan
+        p = sf.down_proj_plan(m, k, n, t, c, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        width = p.width
+        plan = {"width": p.width, "row_blocks": p.row_blocks,
+                "col_blocks": p.col_blocks, "ks": p.ks, "slices": p.slices,
+                "h_chunks": p.h_chunks, "ring": p.stages, "smem": p.smem,
+                "split": p.split, "other_union_ms": None}
+        if p.ks > 1:
+            # each block alone (no cluster: its own union and all its rows
+            # of h): the same bits, timed
+            default = sf.down_proj_plan
+            sf.down_proj_plan = lambda *a, _p=dataclasses.replace(
+                p, ks=1): _p
+            try:
+                assert torch.equal(y, k6()), "K6's union ways disagree"
+                plan["other_union_ms"] = timer.ms(k6)
+            finally:
+                sf.down_proj_plan = default
+    unions = [int(torch.unique(i[r0:r0 + width][valid[r0:r0 + width]])
+                  .numel()) for r0 in range(0, m, width)]
+    out = {"ms": timer.ms(k6),
+           "plain_ms": timer.ms(lambda: twell_down_proj_plain(*args),
+                                iters=5),
+           "library_ms": timer.ms(lambda: torch.matmul(h, wd)),
+           "host_us": host_us(torch, k6),
+           "library_host_us": host_us(torch, lambda: torch.matmul(h, wd)),
+           "bound_ms": bnd, "bound_by": by, "max_abs_err": err, "M": m,
+           "keep": keep, "overflow": overflow,
+           "valid_slots_per_row": slots / m, "distinct_rows": rows,
+           "union_per_row_block": unions, "plan": plan}
+    if keep == KEEP:
+        def k1_k6():
+            pv, pi, pz = twell_gate_matmul_cuda(x, wg, t, c, "relu")
+            return twell_down_proj_cuda(pv, pi, torch.clamp(pz, max=tc), wd,
+                                        t)
+        out["k1_k6_ms"] = timer.ms(k1_k6)
+        out["dense_ffn_ms"] = timer.ms(lambda: torch.matmul(
+            torch.relu(torch.matmul(x, wg)), wd))
+    return out
 
-    return {"ms": timer.ms(lambda: twell_down_proj_cuda(*args)),
-            "plain_ms": timer.ms(lambda: twell_down_proj_plain(*args),
-                                 iters=5),
-            "library_ms": timer.ms(lambda: torch.matmul(h, wd)),
-            "bound_ms": bnd, "bound_by": by, "max_abs_err": err, "M": m,
-            "valid_slots_per_row": slots / m, "distinct_rows": rows,
-            "k1_k6_ms": timer.ms(k1_k6),
-            "dense_ffn_ms": timer.ms(lambda: torch.matmul(
-                torch.relu(torch.matmul(x, wg)), wd))}
+
+def k6_cases(torch, timer, gen):
+    """K6 at olmo-1b's decode (M 4) and prefill step (M 256), then on a
+    pattern with every column alive (M 256; its own generator, so the
+    kernels timed after it see the inputs they saw before it was added)."""
+    scattered = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    return [check_k6(torch, timer, 4, gen), check_k6(torch, timer, 256, gen),
+            check_k6(torch, timer, 256, scattered, keep=1.0)]
 
 
 def check_k5(torch, timer, m, threshold, gen):
@@ -1101,6 +1163,7 @@ def phase_kernels(torch, only=None):
             "hybrid_to_dense": lambda: k8_cases(
                 torch, timer, hybrid_inputs(torch, gen)),
             "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1],
+            "twell_down_proj": lambda: k6_cases(torch, timer, gen),
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1s, k2s = k2_cases(torch, timer, gen)
@@ -1108,8 +1171,7 @@ def phase_kernels(torch, only=None):
         "twell_gate_matmul": k1s + [
             check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[3:]],
         "twell_fused_ffn": k2s,
-        "twell_down_proj": [check_k6(torch, timer, 4, gen),
-                            check_k6(torch, timer, 256, gen)],
+        "twell_down_proj": k6_cases(torch, timer, gen),
         "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
                                    check_k3(torch, timer, 32, 8, gen),
                                    check_k3(torch, timer, 16, 16, gen,

@@ -1,9 +1,9 @@
 // Hopper primitives shared by the wgmma kernels of this directory (K1
-// twell_pack.cu, K2 twell_fused_ffn.cu, K5 tile_skip_ffn.cu, K3
-// paged_decode_attention.cu, K8 and K9 hybrid_matmul.cu, K4
-// paged_chunk_attention.cu and K7 flash_attention.cu through
-// attention_sm90.cuh): shared-memory addressing of 128B-swizzled
-// panels, mbarriers, TMA, cp.async, the proxy fence, named
+// twell_pack.cu, K2 twell_fused_ffn.cu, K6 twell_down_proj.cu, K5
+// tile_skip_ffn.cu, K3 paged_decode_attention.cu, K8 and K9
+// hybrid_matmul.cu, K4 paged_chunk_attention.cu and K7 flash_attention.cu
+// through attention_sm90.cuh): shared-memory addressing of 128B-swizzled
+// panels, mbarriers, TMA, cp.async, the proxy fence, named and cluster
 // barriers, programmatic dependent launch, wgmma's fence / commit / wait
 // and matrix descriptors, and the host-side lookup of
 // cuTensorMapEncodeTiled. Header-only; every .cu that includes it is built
@@ -116,6 +116,17 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a cluster barrier in two halves (release on arrive, acquire on wait), so
+// that a rank can go on working between them; every thread of every block
+// of the cluster calls both
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // programmatic dependent launch: a grid lets the next kernel on its stream

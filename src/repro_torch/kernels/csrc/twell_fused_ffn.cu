@@ -17,8 +17,8 @@
 // of a row's ~50 dot products ran once per K slice, and ran the down
 // projection on CUDA cores one slot at a time.)
 //
-// Design (primitives from sm90_common.cuh; the union as K8/K9 build theirs,
-// written here for TwELL's per-tile layout):
+// Design (primitives from sm90_common.cuh; the union from twell_union.cuh,
+// shared with K6):
 //   * grid (ks, row blocks), a cluster of ks blocks a row block of NW rows
 //     (M rounded up to 8, 16, 32 or 64), two warpgroups a block. The K
 //     dimension is split over the cluster in whole 64-deep stages (K1's
@@ -75,9 +75,12 @@
 #include <cooperative_groups.h>
 
 #include "sm90_common.cuh"
+#include "twell_union.cuh"
 
 namespace cg = cooperative_groups;
 using namespace sm90;
+using twell_union::MAX_KS;
+using twell_union::staging_bytes;
 
 namespace {
 
@@ -88,7 +91,6 @@ constexpr int UC = 128;                   // union positions a chunk
 constexpr uint32_t PANEL = 64 * PANEL_ROW;  // 64 rows x 128 bytes
 constexpr uint32_t UNIT = 2 * PANEL;      // a ring stage: 128 rows
 constexpr int PS = UC + 4;                // a partial row, in floats
-constexpr int MAX_KS = 8;                 // portable cluster size
 constexpr int MAX_STAGES = 8;             // ring depth
 constexpr size_t SMEM_MAX = 232448;       // a block's shared memory
 
@@ -111,12 +113,6 @@ struct Layout {
     end = u + 4 * (WARPS + 4);
   }
 };
-
-// bytes of the byte map of N staged over the ring (a word of 32 columns
-// as 8 u32)
-__host__ __device__ inline uint32_t staging_bytes(int n) {
-  return 32 * ((n + 31) / 32);
-}
 
 __device__ __forceinline__ void cp_async_wait_n(int n) {
   switch (n) {
@@ -215,43 +211,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       g0[q] = ok && q < tc ? __bfloat162float(vals[base + q]) : 0.f;
     }
   }
-  // the union: each (row, tile)'s valid prefix of indices, 4 pairs a
-  // thread and 8 slots a pair in flight, marked in the byte map (every
-  // writer stores 1); all the block's rows, or with `split` this rank's
+  // the union: each (row, tile)'s valid prefix of indices marked in the
+  // byte map (every writer stores 1); all the block's rows, or with
+  // `split` this rank's
   const int up_pairs = split ? mine : pairs, p_lo = split ? r_lo * nt : 0;
-  for (int p0 = tid; p0 < up_pairs; p0 += 4 * THREADS) {
-    int cnt[4], col[4][8];
-    size_t base[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int p = p0 + a * THREADS, q = p_lo + p;
-      const bool ok = p < up_pairs;
-      cnt[a] = ok ? min(max(bnnz[q], 0), tc) : 0;
-      base[a] = (size_t)(m0 + q / nt) * slots + (size_t)(q % nt) * tc;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        col[a][j] = ok && j < tc ? idx[base[a] + j] : -1;
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (j < cnt[a] && (unsigned)col[a][j] < (unsigned)N)
-          flags[col[a][j]] = 1;
-    const int most = max(max(cnt[0], cnt[1]), max(cnt[2], cnt[3]));
-    for (int j0 = 8; j0 < most; j0 += 8) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          col[a][j] = j0 + j < cnt[a] ? idx[base[a] + j0 + j] : -1;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if ((unsigned)col[a][j] < (unsigned)N) flags[col[a][j]] = 1;
-    }
-  }
+  twell_union::mark_prefixes<THREADS>(flags, idx + (size_t)m0 * slots, bnnz,
+                                      p_lo, up_pairs, tc, N);
   // the kept slots are in registers now, not loaded again at their use
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -259,66 +224,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (q >= c0) col0[q] = -1;
   }
   __syncthreads();
-  // the bitmap (bit b of word w: column 32 w + b) from the byte map's 0/1
-  // bytes, a thread a run of words; with `split` each rank's own, ORed
-  // over the ranks through distributed shared memory after a barrier
-  const int per = (nwd + THREADS - 1) / THREADS;
-  const int w_lo = min(tid * per, nwd), w_hi = min(w_lo + per, nwd);
-  uint32_t* fold = split ? lbits : bits;
-  for (int w = w_lo; w < w_hi; ++w) {
-    uint32_t b = 0;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint32_t f = flags32[8 * w + q];  // columns 32 w + 4 q + 0..3
-      b |= ((f & 1u) | ((f >> 7) & 2u) | ((f >> 14) & 4u) | ((f >> 21) & 8u))
-           << (4 * q);
-    }
-    fold[w] = b;
-  }
-  if (split) {
-    cluster.sync();  // every rank's bitmap
-    for (int w = w_lo; w < w_hi; ++w) {
-      uint32_t v[MAX_KS];  // unconditional loads, all in flight
-#pragma unroll
-      for (int rk = 0; rk < MAX_KS; ++rk)
-        v[rk] = cluster.map_shared_rank(lbits, rk < ks ? rk : 0)[w];
-      uint32_t b = 0;
-#pragma unroll
-      for (int rk = 0; rk < MAX_KS; ++rk) b |= v[rk];
-      bits[w] = b;
-    }
-  }
-  // the runs' exclusive prefix popcount: a scan in each warp, then the
-  // warps' totals
-  {
-    int cnt = 0;
-    for (int w = w_lo; w < w_hi; ++w) cnt += __popc(bits[w]);
-    int inc = cnt;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += t;
-    }
-    if (lane == 31) tot[warp] = inc;
-    __syncthreads();
-    int run = inc - cnt;
-    for (int v = 0; v < warp; ++v) run += tot[v];
-    for (int w = w_lo; w < w_hi; ++w) {
-      pre[w] = run;
-      run += __popc(bits[w]);
-    }
-    if (tid == THREADS - 1) *u_s = run;
-  }
-  __syncthreads();
-  const int U = *u_s;
-  for (int w = tid; w < nwd; w += THREADS) {
-    uint32_t b = bits[w];
-    int p = pre[w];
-    while (b) {
-      cols[p++] = (uint16_t)(32 * w + __ffs(b) - 1);
-      b &= b - 1;
-    }
-  }
+  // the bitmap, with `split` ORed over the ranks, its prefix popcount and
+  // the union's columns
+  TWELL_UNION_BUILD(U, THREADS, cluster, ks, split, flags32, bits, lbits, pre,
+                    cols, u_s, tot, nwd, tid, warp, lane)
 
   const int nch = (U + UC - 1) / UC;
   const int per_c = ns + 2 * nsl;  // ring stages a chunk: up, then down
@@ -371,9 +280,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       if ((unsigned)col[q] >= (unsigned)N) continue;
-      const int w = col[q] >> 5;
-      const int pc =
-          pre[w] + __popc(bits[w] & ((1u << (col[q] & 31)) - 1u)) - c * UC;
+      const int pc = twell_union::position(pre, bits, col[q]) - c * UC;
       if ((unsigned)pc >= (unsigned)UC) continue;
       *reinterpret_cast<bf16*>(htile + (pc / 64) * NW * PANEL_ROW +
                                r * PANEL_ROW +

@@ -30,7 +30,14 @@ C.2), where the up projection itself produced the TwELL pattern:
 ``twell_down_proj_cuda`` launches ``csrc/twell_down_proj.cu``, the Hopper
 counterpart of ``twell_down_proj_pallas``; ``twell_down_proj_plain`` is the
 same function in plain PyTorch (``repro/kernels/ref.py:twell_down_proj``,
-float32 out).
+float32 out). It is K2's down half without the up product, one launch a
+call: a block of a row block's rows builds the union of their valid
+columns with K2's code (``csrc/twell_union.cuh``), scatters the packed
+values into an h tile by union position, gathers the union's W_d rows for
+its own 64-column stages of y by cp.async and multiplies them on swap-AB
+wgmma. ``down_proj_plan`` is its launch plan, a plain function of shapes
+like ``fused_ffn_plan``; from 32 rows a block the column blocks of a row
+block form clusters that share the union's build (``split``).
 
 K2 takes ``W_u`` transposed, ``wu_t`` of shape (N, K): the kernel gathers
 W_u by column, and a column of the (K, N) row-major matrix is a strided
@@ -103,11 +110,13 @@ def fused_ffn_staging(n: int) -> int:
     return 32 * tp.cdiv(n, 32)
 
 
-def _fused_ffn_check(m: int, k: int, n: int, tile: int, c: int) -> None:
+def _twell_check(what: str, m: int, k: int, n: int, tile: int, c: int
+                 ) -> None:
+    """The shapes K2 and K6 are built for (u16 union positions)."""
     if tile not in tp.GATE_TILES or min(m, k, n, c) < 1 or n % tile or \
             tile % c or k % 8 or n > FUSED_FFN_MAX_N:
         raise ValueError(
-            f"twell_fused_ffn: unsupported M {m}, K {k}, N {n}, tile {tile}, "
+            f"{what}: unsupported M {m}, K {k}, N {n}, tile {tile}, "
             f"C {c} (needs tile in {tp.GATE_TILES}, N % tile == 0, "
             f"tile % C == 0, K % 8 == 0, N <= {FUSED_FFN_MAX_N})")
 
@@ -162,7 +171,7 @@ def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
     union's rows from FUSED_FFN_SPLIT_WIDTH rows a block up. Cached: the
     serving path calls it every launch with a few shapes."""
     tp.check_ints(m, k, n, tile, c, sms)
-    _fused_ffn_check(m, k, n, tile, c)
+    _twell_check("twell_fused_ffn", m, k, n, tile, c)
     if sms < 1:
         raise ValueError(f"fused_ffn_plan: {sms} SMs")
     k_stages = tp.cdiv(k, tp.GATE_BK)
@@ -219,7 +228,7 @@ def twell_fused_ffn_cuda(x: torch.Tensor, tw: twell.TwellActs,
             wd.dtype) != _FUSED_FFN_TYPES:
         raise TypeError("twell_fused_ffn_cuda takes bfloat16 x/values/"
                         "weights and int32 indices/nnz")
-    _fused_ffn_check(m, k, n, tw.tile, tw.compression)
+    _twell_check("twell_fused_ffn", m, k, n, tw.tile, tw.compression)
     slots, nt = n // tw.compression, n // tw.tile
     if (*wu_t.shape, *wd.shape, *vals.shape, *idx.shape, *nnz.shape) != \
             (n, k, n, k, m, slots, m, slots, m, nt) or n != tw.n or not (
@@ -269,42 +278,183 @@ def twell_down_proj_plain(vals: torch.Tensor, idx: torch.Tensor,
     return torch.matmul(twell.unpack(tw).float(), wd.float())
 
 
+DOWN_PROJ_SLICES = (1, 2, 4)      # 128-column slices of y a block
+DOWN_PROJ_H_CHUNKS = (2, 1)       # union chunks the h tile holds, most first
+DOWN_PROJ_STAGES = (3, 8)         # ring depth, least and most
+
+
+def down_proj_smem(width: int, h_chunks: int, stages: int, n: int) -> int:
+    """Dynamic shared memory of a K6 block (``Layout`` in the kernel): 1 KB
+    of alignment slack, the ring, the h tile (``h_chunks`` chunks of two
+    64-position panels of ``width`` rows), the union's bitmap, the rank's
+    own bitmap, the prefix and the u16 columns, and U with the warps'
+    totals."""
+    words = tp.cdiv(n, 32)
+    return (1024 + stages * FUSED_FFN_UNIT + h_chunks * 2 * width * 128 +
+            12 * words + (2 * n + 15) // 16 * 16 + 48)
+
+
+@dataclasses.dataclass(frozen=True)
+class DownProjPlan:
+    width: int               # wgmma N: rows a block
+    row_blocks: int          # blocks along M
+    col_blocks: int          # blocks a row block, each 2 x slices stages
+    ks: int                  # blocks a cluster (dividing col_blocks)
+    k_stages: int            # GATE_BK-column stages of y
+    slices: int              # 128-column slices of y a block's accumulators
+    h_chunks: int            # union chunks the h tile holds
+    stages: int              # depth of the cp.async ring
+    smem: int                # dynamic shared memory a block
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.col_blocks, self.row_blocks
+
+    @property
+    def split(self) -> bool:
+        """The ranks of a cluster split the union's rows (and OR their
+        bitmaps through DSMEM) and the scatter of h (sharing its rows)."""
+        return self.ks > 1
+
+    @property
+    def blocks(self) -> int:
+        return self.col_blocks * self.row_blocks
+
+    @property
+    def k_per_block(self) -> int:
+        """The most y stages a block takes: two a 128-column slice."""
+        return 2 * self.slices
+
+    def k_ranges(self) -> List[Tuple[int, int]]:
+        """[lo, hi) of the y stages each column block takes."""
+        per = self.k_per_block
+        return [(b * per, min((b + 1) * per, self.k_stages))
+                for b in range(self.col_blocks)]
+
+    def union_rows(self, valid: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of a block's ``valid`` rows each rank of a cluster
+        marks in the union: its share with ``split``, else all of them."""
+        return tp.splits(valid, self.ks) if self.split else \
+            [(0, valid)] * self.ks
+
+    def groups(self, union: int) -> List[List[Tuple[int, int]]]:
+        """The union's chunks (``FusedFfnPlan.chunks``) in groups of
+        ``h_chunks``: the chunks of h scattered at once."""
+        chunks = FusedFfnPlan.chunks(union)
+        return [chunks[i:i + self.h_chunks]
+                for i in range(0, len(chunks), self.h_chunks)]
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def down_proj_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
+                   ) -> DownProjPlan:
+    """K6's launch plan from shapes and the card's SM count; it never reads
+    the pattern. Rows a block: M rounded up to one of FUSED_FFN_WIDTHS.
+    Slices of y a block: the fewest of DOWN_PROJ_SLICES that keep the grid
+    (row blocks x column blocks) to the SMs, so a decode call spreads its
+    W_d gathers over as many SMs as the 128-column slices of y; all of
+    them fit the accumulators (slices x width / 2 <= FUSED_FFN_ACC). From
+    FUSED_FFN_SPLIT_WIDTH rows a block the column blocks of a row block
+    form clusters, the widest (<= 8, dividing the column blocks) that keeps
+    every cluster resident at once at one block an SM (K1's residency
+    model, ``twell_pack.one_wave``), whose ranks split the union's rows;
+    below it a block builds its union alone (a cluster would share
+    nothing). The h tile as many chunks as DOWN_PROJ_H_CHUNKS and the
+    shared memory allow with the least ring, then the ring as deep as
+    fits, at least a chunk's stages (2 x slices) and holding the byte map
+    of N. Cached: the serving path calls it every launch with a few
+    shapes."""
+    tp.check_ints(m, k, n, tile, c, sms)
+    _twell_check("twell_down_proj", m, k, n, tile, c)
+    if sms < 1:
+        raise ValueError(f"down_proj_plan: {sms} SMs")
+    k_stages = tp.cdiv(k, tp.GATE_BK)
+    width = next(w for w in FUSED_FFN_WIDTHS
+                 if w >= min(m, FUSED_FFN_WIDTHS[-1]))
+    row_blocks = tp.cdiv(m, width)
+    slices = next((s for s in DOWN_PROJ_SLICES
+                   if row_blocks * tp.cdiv(k_stages, 2 * s) <= sms),
+                  DOWN_PROJ_SLICES[-1])
+    col_blocks = tp.cdiv(k_stages, 2 * slices)
+    ks = 1
+    if width >= FUSED_FFN_SPLIT_WIDTH:
+        ks = max([1] + [q for q in range(2, tp.MAX_KS + 1)
+                        if col_blocks % q == 0 and tp.one_wave(
+                            row_blocks * col_blocks // q, q, 1, sms)])
+    lo_st, hi_st = DOWN_PROJ_STAGES
+    lo_st = max(lo_st, 2 * slices)
+    for hc in DOWN_PROJ_H_CHUNKS:
+        fit = [st for st in range(lo_st, hi_st + 1)
+               if down_proj_smem(width, hc, st, n) <= tp.SMEM_BYTES
+               and fused_ffn_staging(n) <= st * FUSED_FFN_UNIT]
+        if fit:
+            st = fit[-1]
+            return DownProjPlan(width, row_blocks, col_blocks, ks, k_stages,
+                                slices, hc, st,
+                                down_proj_smem(width, hc, st, n))
+    raise ValueError(f"down_proj_plan: M {m}, K {k}, N {n}, tile {tile} does "
+                     "not fit a block's shared memory")
+
+
+def down_proj_resident_clusters(k: int, n: int, tile: int,
+                                plan: DownProjPlan) -> Tuple[int, int]:
+    """The CUDA runtime's count of the plan's clusters the current card
+    holds at once, and a block's shared memory as the kernel computes it.
+    For measuring plans; the kernel path never calls it."""
+    fn = build.bind("twell_down_proj", "twell_down_proj_resident_clusters",
+                    [build.I] * 8 + [build.P] * 2)
+    held, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(fn(k, n, tile, plan.width, plan.slices, plan.ks, plan.stages,
+                   plan.h_chunks, ctypes.addressof(held),
+                   ctypes.addressof(smem)),
+                "twell_down_proj_resident_clusters")
+    return held.value, smem.value
+
+
 def twell_down_proj_cuda(vals: torch.Tensor, idx: torch.Tensor,
                          nnz: torch.Tensor, wd: torch.Tensor, tile: int
                          ) -> torch.Tensor:
     """vals (M, N/C) bf16, idx (M, N/C) int32, nnz (M, N/T) int32 (clipped
     to T/C; the kernel reads no slot at or past it), wd (N, K) bf16 on the
-    card -> y (M, K) float32."""
+    card, wd 16-byte aligned -> y (M, K) float32. One launch under
+    ``down_proj_plan``, or raises."""
     global _DP_FN
     m, slots = vals.shape
     n, k = wd.shape
     ts = (vals, idx, nnz, wd)
-    if not all(t.is_cuda and t.device == wd.device for t in ts):
-        raise ValueError("twell_down_proj_cuda: every operand must be on "
-                         "wd's CUDA device")
     if vals.dtype != torch.bfloat16 or wd.dtype != torch.bfloat16 or \
             idx.dtype != torch.int32 or nnz.dtype != torch.int32:
         raise TypeError("twell_down_proj_cuda takes bfloat16 values and "
                         "W_d and int32 indices/nnz")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("twell_down_proj_cuda: operands must be contiguous")
-    if m < 1 or tile < 1 or n % tile or k % 8 or slots % (n // tile) or \
-            idx.shape != (m, slots) or nnz.shape != (m, n // tile) or \
-            wd.data_ptr() % 16:
+    nt = n // tile if tile > 0 else 0
+    if m < 1 or nt < 1 or n % tile or slots % nt or \
+            idx.shape != (m, slots) or nnz.shape != (m, nt):
         raise ValueError(
             f"twell_down_proj_cuda: inconsistent shapes values "
             f"{tuple(vals.shape)} idx {tuple(idx.shape)} nnz "
-            f"{tuple(nnz.shape)} wd {tuple(wd.shape)} tile {tile} (needs "
-            "N % tile == 0, K % 8 == 0 and a 16-byte aligned wd)")
+            f"{tuple(nnz.shape)} wd {tuple(wd.shape)} tile {tile}")
+    tc = slots // nt
+    _twell_check("twell_down_proj", m, k, n, tile,
+                 tile // tc if tc and tile % tc == 0 else 0)
+    if wd.data_ptr() % 16:
+        raise ValueError("twell_down_proj_cuda: wd must be 16-byte aligned "
+                         "(cp.async)")
+    if not all(t.is_cuda and t.device == wd.device for t in ts):
+        raise ValueError("twell_down_proj_cuda: every operand must be on "
+                         "wd's CUDA device")
+    plan = down_proj_plan(m, k, n, tile, tile // tc, tp.sm_count(wd.device))
     y = torch.empty((m, k), dtype=torch.float32, device=wd.device)
     if _DP_FN is None:
         P, I = build.P, build.I
         _DP_FN = build.bind("twell_down_proj", "twell_down_proj_bf16",
-                            [P, P, P, P, P, I, I, I, I, P])
+                            [P] * 5 + [I] * 11 + [P])
     with torch.cuda.device(wd.device):
         err = _DP_FN(vals.data_ptr(), idx.data_ptr(), nnz.data_ptr(),
-                     wd.data_ptr(), y.data_ptr(), m, k, n // tile,
-                     slots // (n // tile), build.stream_ptr(wd))
+                     wd.data_ptr(), y.data_ptr(), m, k, n, tile, tile // tc,
+                     plan.width, plan.slices, plan.ks, plan.stages,
+                     plan.h_chunks, int(plan.split), build.stream_ptr(wd))
     build.check(err, "twell_down_proj")
     build.count_launch("twell_down_proj")
     return y

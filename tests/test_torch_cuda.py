@@ -4,8 +4,10 @@ K1 at its launch plan's row-block boundaries and at olmo-1b's N 8192, K1's
 plan against the runtime's resident clusters and its refusal of pointers
 TMA cannot take, K2 at its plan's boundaries, on an all-empty gate and on
 unions wider than one chunk, as one launch, with its plan's clusters
-resident, the non-gated down projection past one column slice and
-on empty rows, head dims 16..128, GQA groups up to 16, block sizes up to
+resident, the non-gated down projection past one column slice, at
+every row-block width of its plan, on empty rows and row blocks and on
+unions wider than one chunk, as one launch, with its plan's clusters
+resident, head dims 16..128, GQA groups up to 16, block sizes up to
 64, boundary and padded rows, tile-skip thresholds and dead tiles at every
 row-block width of K5's plan (and its resident clusters), causal
 attention over ragged sequence lengths and padded head dims, paged chunk
@@ -323,6 +325,15 @@ DOWN_SHAPES = [  # (M, K, N, T, C, keep)
     (37, 520, 512, 128, 4, 0.1),                 # K past one slice, ragged
     (9, 256, 1024, 256, 1, 1.0),                 # C = 1: every column a slot
     (16, 96, 512, 64, 8, 1.0),                   # overflowing pack, clipped
+] + [  # K6's plan: rows a block 8 | 16, 32 (clusters split the union) | 64,
+    # one | two row blocks
+    (m, 2048, 8192, 256, 8, 0.02) for m in (8, 9, 32, 33, 64, 65)
+] + [
+    (70, 512, 1024, 128, 4, 0.0),                # every row block empty
+    (256, 2048, 8192, 256, 8, 1.0),              # unions near N, clipped
+    (40, 200, 768, 64, 1, 1.0),                  # union wider than a chunk
+    (1024, 2048, 8192, 256, 8, 0.02),            # 2 slices of y a block
+    (4096, 2048, 8192, 256, 8, 0.02),            # 4 slices, more than a wave
 ]
 
 
@@ -347,6 +358,78 @@ def test_down_proj_matches_plain(card, shape):
     torch.testing.assert_close(y, py, **TOL)
     assert float(y[0].abs().max()) == 0.0
     assert torch.equal(y, twell_down_proj_cuda(v, i, z, wd, t))
+
+
+def _down_case(m, k, n, t, c, keep, seed, dev, dead_rows=0):
+    """K1-plain-packed relu(x @ W_u) (counts clipped to T/C as ops clips
+    them) and W_d on the card; the last ``dead_rows`` rows of x zero."""
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
+    x, wu, _, wd = _gate(m, k, n, keep, seed, dev)
+    if dead_rows:
+        x[m - dead_rows:] = 0
+    v, i, z = twell_gate_matmul_plain(x, wu, t, c, "relu")
+    return v, i, torch.clamp(z, max=t // c), wd, t
+
+
+def test_down_proj_empty_row_block_beside_a_live_one(card):
+    """K6 with its second row block's rows all empty (an empty union:
+    those rows of y zero) and its first live, in one launch, against the
+    plain version, the same bits on a second call."""
+    from repro_torch.kernels import sparse_ffn as sf
+    args = _down_case(70, 2048, 8192, 256, 8, 0.02, 7, card, dead_rows=6)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert sf.down_proj_plan(70, 2048, 8192, 256, 8, sms).row_blocks == 2
+    assert int(args[2][64:].sum()) == 0 and int(args[2][:64].sum()) > 0
+    y = sf.twell_down_proj_cuda(*args)
+    assert not bool(y[64:].abs().max())
+    torch.testing.assert_close(y, sf.twell_down_proj_plain(*args), **TOL)
+    assert torch.equal(y, sf.twell_down_proj_cuda(*args))
+
+
+def test_down_proj_is_one_launch(card):
+    """One K6 call is one kernel on the card (the union, the scatter and the
+    products in one launch): it adds one to its launch count, and captured
+    into a CUDA graph it is one kernel node and nothing else. It allocates
+    only y."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sparse_ffn import twell_down_proj_cuda
+    args = _down_case(256, 2048, 8192, 256, 8, 0.02, 5, card)
+    twell_down_proj_cuda(*args)                        # build and warm
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["twell_down_proj"]
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    y = twell_down_proj_cuda(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["twell_down_proj"] == launches + 1
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= -(-y.numel() * 4 // 512) * 512
+    assert y.dtype == torch.float32 and y.shape == (256, 2048)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        twell_down_proj_cuda(*args)
+    assert _graph_node_types(g) == [0]
+
+
+@pytest.mark.parametrize("shape", [  # (M, K, N, T, C): olmo-1b decode,
+    (4, 2048, 8192, 256, 8), (20, 2048, 8192, 256, 8),  # 32 rows a block,
+    (64, 2048, 8192, 256, 8), (256, 2048, 8192, 256, 8),  # prefill, wider
+    (300, 2048, 8192, 256, 8), (37, 520, 512, 128, 4),
+    (1024, 2048, 8192, 256, 8)], ids=str)
+def test_down_proj_plan_clusters_resident(card, shape):
+    """K6's plan counts on its clusters being resident at once (one block
+    an SM): the CUDA runtime's count (cudaOccupancyMaxActiveClusters) holds
+    them all where the plan keeps the grid to one wave, and a block's
+    shared memory is the plan's."""
+    from repro_torch.kernels import sparse_ffn as sf
+    from repro_torch.kernels import twell_pack as tp
+    m, k, n, t, c = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = sf.down_proj_plan(m, k, n, t, c, sms)
+    held, smem = sf.down_proj_resident_clusters(k, n, t, plan)
+    assert smem == plan.smem
+    if tp.one_wave(plan.blocks // plan.ks, plan.ks, 1, sms):
+        assert plan.blocks // plan.ks <= held
 
 
 def _paged(rng, b, hkv, hd, bs, width, dev):
