@@ -38,7 +38,9 @@ JAX package) and runs these phases, each printing one JSON line:
                  an f32 W, with a digest of its output's bits)
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
-                 cache): 6 greedy requests; the launch count of every kernel
+                 cache; every step entry a CUDA graph, captured at the first
+                 use of its bucket key, inside the timed run): 6 greedy
+                 requests; the launch count of every kernel
                  of this path (K1-K4) over exactly this run must be above 0;
                  then a profiled rerun (phase "profile"), with the kernel
                  launches of 4 decode-only steps, each traced alone
@@ -48,6 +50,20 @@ JAX package) and runs these phases, each printing one JSON line:
                  over the greedy run above 0, tokens equal to the
                  non-speculative run's up to its first near-tie, the pool
                  clean, and a seeded stochastic run twice with equal tokens
+  5b. pipeline -- the serve phase's settings and prompts on engines made
+                 with ``warmup=True`` (every program of the bucket grid
+                 captured up front), synchronous then pipelined
+                 (``pipeline=True``): no program made after the warmup,
+                 K1-K4 launched (counted through the graphs' replays) over
+                 exactly the pipelined run, no overflow, the prefix cache
+                 hit, the pool clean after ``flush()``, tokens equal to the
+                 serve phase's up to each request's first near-tie;
+                 tokens/s, TTFT, decode step, sync and overlap times and a
+                 profiled rerun of each; then a greedy speculative run
+                 pipelined after warmup (tokens equal to the spec phase's up
+                 to the first near-tie, its acceptance), and one replay of
+                 each entry (decode, prefill, draft, verify) bitwise equal
+                 to its eager model call from the same copy of the pools
   6. serve_olmo -- olmo-1b (non-gated FFN, non-parametric LayerNorm, head
                  dim 128) at full width and depth through the same engine
                  settings and prompts, 98% of every layer's W_u columns
@@ -72,7 +88,7 @@ JAX package) and runs these phases, each printing one JSON line:
                  (2 layers, 1 x 256 tokens, hybrid): loss and every gradient
                  leaf
   9. the kernel table ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, olmo serve and hybrid train runs), then the last line
+     spec, pipelined, olmo serve and hybrid train runs), then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no last line. It
@@ -192,13 +208,14 @@ def main(argv=None) -> int:
     kernels = phase_kernels(torch)
     serve = phase_serve(torch)
     spec = phase_spec(torch, serve)
+    pipe = phase_pipeline(torch, serve, spec)
     olmo = phase_serve_olmo(torch, serve)
     train = phase_train(torch)
     phase_check(torch, serve, olmo)
     k5_splits(torch)
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in
-                            (serve, spec, olmo, train))
+                            (serve, spec, pipe, olmo, train))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1432,17 +1449,9 @@ def phase_spec(torch, serve):
     spec_steps = [s for s in engine.stats if s.spec_batch]
     ref = serving_engine(cfg, params, new_tokens, record_logits=True
                          ).generate(prompts, max_tokens=new_tokens)
-    compared = []
-    for o, r in zip(outs, ref):
-        n = 0
-        for pos, row in enumerate(r.logits):
-            top2 = torch.topk(torch.from_numpy(row), 2).values
-            if float(top2[0] - top2[1]) <= LOGIT_TOL:
-                break
-            assert o.token_ids[pos] == r.token_ids[pos], \
-                f"request {o.rid}: speculative token {pos} differs"
-            n += 1
-        compared.append(n)
+    ties = first_near_ties(torch, ref)
+    compared = equal_before(outs, [r.token_ids for r in ref], ties,
+                            "speculative")
     ttft = sorted(o.ttft for o in outs)
     prof = profile_run(torch, serving_engine(
         cfg, params, new_tokens, spec=engine.spec), prompts, new_tokens)
@@ -1496,6 +1505,242 @@ def phase_spec(torch, serve):
                           max(1, sum(o.spec_drafted for o in runs[0])),
                           "first_tokens": [o.token_ids[0] for o in runs[0]]},
            "threshold_sweep": sweep, "launches": launches}
+    emit(res)
+    res.update(outs=outs, near_ties=ties, spec_config=engine.spec)
+    return res
+
+
+def first_near_ties(torch, ref):
+    """Each request's first output position where the recorded logits'
+    top-2 margin is at most LOGIT_TOL (its length if none): past it, bf16
+    rounding that differs between two runs may pick either token."""
+    ties = []
+    for r in ref:
+        pos = 0
+        for row in r.logits:
+            top2 = torch.topk(torch.from_numpy(row), 2).values
+            if float(top2[0] - top2[1]) <= LOGIT_TOL:
+                break
+            pos += 1
+        ties.append(pos)
+    return ties
+
+
+def equal_before(outs, want, ties, what):
+    """Asserts each request's tokens equal ``want``'s before its near-tie;
+    returns the number of tokens compared a request."""
+    for o, w, n in zip(outs, want, ties):
+        assert o.token_ids[:n] == w[:n], \
+            f"request {o.rid}: {what} tokens differ before the first " \
+            f"near-tie ({n}): {o.token_ids[:n]} against {w[:n]}"
+    return list(ties)
+
+
+# --------------------------------------------------------------------------- #
+# 5b. the pipelined engine after warmup(), and each program against eager
+# --------------------------------------------------------------------------- #
+
+def warm_run(torch, cfg, params, prompts, new_tokens, **kw):
+    """A fresh engine with ``warmup=True``, then the greedy workload timed:
+    no program made after the warmup, no TwELL overflow, every request at
+    max_tokens, nothing in flight and a clean pool after ``flush()``.
+    Returns (engine, outputs, wall seconds, launches over the run)."""
+    from repro_torch.kernels import ops
+    engine = serving_engine(cfg, params, new_tokens, warmup=True, **kw)
+    made = dict(engine.programs.made)
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert dict(engine.programs.made) == made, \
+        f"a program was made after warmup: {made} -> {engine.programs.made}"
+    assert not ops.OverflowLog.seen(), "a TwELL tile overflowed"
+    assert all(len(o.token_ids) == new_tokens for o in outs), \
+        [len(o.token_ids) for o in outs]
+    assert engine.flush() == [] and engine._inflight is None
+    engine.kv.check_invariants()
+    assert engine.kv.num_available == engine.kv.num_blocks - 1, \
+        "KV blocks leaked"
+    assert engine._reserved == 0, "a reservation leaked"
+    return engine, outs, wall, launches
+
+
+def run_numbers(engine, outs, wall, prof):
+    """The timing columns of one warmed run and its profiled rerun."""
+    ttft = sorted(o.ttft for o in outs)
+    decode = [s for s in engine.stats if s.decode_batch and
+              not s.prefill_tokens]
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+    return {"warmup_seconds": engine.warmup_seconds,
+            "programs": dict(engine.programs.made),
+            "tokens_per_s": sum(len(o.token_ids) for o in outs) / wall,
+            "wall_s": wall, "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
+            "ttft_ms_max": 1e3 * ttft[-1],
+            "decode_step_ms_mean": mean([s.wall_ms for s in decode]),
+            "sync_ms_mean": mean([s.sync_ms for s in engine.stats]),
+            "overlap_ms_mean": mean([s.overlap_ms for s in engine.stats]),
+            "steps": len(engine.stats),
+            "device_busy_share": prof["device_busy_share"],
+            "profile_wall_ms": prof["wall_ms"],
+            "device_kernel_ms": prof["device_kernel_ms"]}
+
+
+def graph_against_eager(torch, engine, prog, args, eager):
+    """One replay of ``prog`` on ``args`` against ``eager`` (the model
+    function called directly) on the same inputs, each from the same copy
+    of the pools: outputs and written K/V bitwise equal. The null block
+    (0) is left out: every padded position writes there, and which of
+    several writes to one slot lands is not defined."""
+    import numpy as np
+    pools = engine.kv.pools
+    snap = {n: p.clone() for n, p in pools.items()}
+    got = prog(*args)
+    got = [t.clone() for t in (got if isinstance(got, tuple) else (got,))]
+    written = {n: p.clone() for n, p in pools.items()}
+    for n, p in pools.items():
+        p.copy_(snap[n])
+    want = eager(*[torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                   else a for a in args])
+    torch.cuda.synchronize()
+    res = {"outputs_equal": all(torch.equal(g, w)
+                                for g, w in zip(got, want)),
+           "kv_equal": all(torch.equal(written[n][:, 1:], pools[n][:, 1:])
+                           for n in pools),
+           "kv_written": any(not torch.equal(written[n][:, 1:],
+                                             snap[n][:, 1:]) for n in pools)}
+    for n, p in pools.items():
+        p.copy_(snap[n])
+    return res
+
+
+def check_graphs(torch, engine):
+    """decode (4, 32, greedy), prefill (4, 64, greedy), draft (4, greedy)
+    and verify (4,) of ``engine`` (speculating, table width 34), each
+    replayed once against its eager model call, bitwise."""
+    import numpy as np
+    from repro_torch.models import lm
+    rng = np.random.RandomState(SEED + 7)
+    p, e, w = engine.params, engine, engine.table_width
+    bt = (1 + np.arange(4)[:, None] * w + np.arange(w)[None]).astype(
+        np.int32)                                   # 4 rows, distinct blocks
+
+    def ints(*shape, hi=None):
+        return rng.randint(0, hi or e.cfg.vocab_size, shape).astype(np.int32)
+    sl = np.array([500, 257, 33, 100], np.int32)
+    start = np.array([0, 100, 250, 448], np.int32)
+    num_new = np.array([64, 17, 64, 1], np.int32)
+    sl0 = np.array([100, 37, 300, 5], np.int32)
+    dlen = np.array([4, 4, 2, 0], np.int32)
+    drafts = torch.from_numpy(ints(4, SPEC_K).astype(np.int64)).cuda()
+    cases = {
+        "decode": (e._jit_decode(4, 32, True), [bt[:, :32], sl, ints(4, 1)],
+                   lambda b, s, t: (lambda lg: (lg[:, -1].argmax(-1),
+                                                lg[:, -1]))(
+                       lm.paged_decode_step(p, e.kv.pools, b, s, t,
+                                            e.cfg_decode)[0])),
+        "prefill": (e._jit_prefill(4, 64, True),
+                    [bt, ints(4, 64), start, num_new],
+                    lambda b, t, s, n: (lambda lg: (lg[:, 0].argmax(-1),
+                                                    lg[:, 0]))(
+                        lm.paged_prefill(p, e.kv.pools, b, t, n,
+                                         e.cfg_prefill, start_lens=s,
+                                         last_only=True)[0])),
+        "draft": (e._jit_draft(4, True), [bt, sl0, ints(4, 1), dlen],
+                  lambda b, s, t, d: e.drafter.draft(
+                      p, e.kv.pools, b, s, t, d, None, None, None, None,
+                      greedy=True)[:2]),
+        "verify": (e._jit_verify(4),
+                   [bt, sl0, (dlen + (dlen > 0)).astype(np.int32),
+                    ints(4, 1), drafts],
+                   lambda b, s, n, t, d: (e.verifier.verify(
+                       p, e.kv.pools, b, s, n,
+                       torch.cat([t, d.to(t.dtype)], dim=1))[0],)),
+    }
+    out = {}
+    for name, (prog, args, eager) in cases.items():
+        out[name] = graph_against_eager(torch, engine, prog, args, eager)
+        assert out[name]["outputs_equal"] and out[name]["kv_equal"], \
+            f"{name}: the replay differs from the eager call: {out[name]}"
+        assert out[name]["kv_written"], f"{name} wrote no K/V"
+    return out
+
+
+def phase_pipeline(torch, serve, spec):
+    """The serve phase's settings and prompts on engines made with
+    ``warmup=True``: synchronous, then pipelined (``pipeline=True``). No
+    program made after the warmup; K1-K4 launched (counted through the
+    graphs' replays) over exactly the pipelined run; no overflow; the
+    prefix cache hit; the pool clean after ``flush()``; the pipelined
+    tokens equal to the serve phase's (synchronous) up to each request's
+    first near-tie (spec phase's reference logits). Both runs' timing and a
+    profiled rerun of each on a fresh warmed engine. Then a greedy
+    speculative run (spec phase's settings) pipelined after warmup, its
+    tokens equal to the synchronous spec run's up to the first near-tie,
+    and one replay of each entry (decode, prefill, draft, verify) held
+    bitwise against its eager model call."""
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    n = serve["new_tokens"]
+    ties = spec["near_ties"]
+    res = {"phase": "pipeline", "arch": cfg.name, "backend": "gather",
+           "requests": len(prompts), "new_tokens": n, "near_ties": ties}
+    steps = {}
+    for mode in ("sync", "pipeline"):
+        kw = {"pipeline": mode == "pipeline"}
+        engine, outs, wall, launches = warm_run(torch, cfg, params, prompts,
+                                                n, **kw)
+        steps[mode] = [(s.decode_batch, s.padded_batch, s.prefill_tokens)
+                       for s in engine.stats]
+        prof_engine = serving_engine(cfg, params, n, warmup=True, **kw)
+        prof = profile_fn(torch, lambda: prof_engine.generate(
+            prompts, max_tokens=n))
+        res[mode] = {**run_numbers(engine, outs, wall, prof),
+                     "launches": launches,
+                     # the warmed engine once more: every traced step
+                     # replays graphs only (none captured)
+                     "decode_step_launches": decode_step_launches(
+                         torch, prof_engine, prompts, n),
+                     "tokens_equal_serve": [
+                         o.token_ids == w.token_ids
+                         for o, w in zip(outs, serve["outs"])]}
+        if mode == "pipeline":
+            assert all(launches[k] > 0 for k in SERVE_KERNELS), \
+                f"a kernel of the pipelined path never launched: {launches}"
+            assert engine.cached_tokens_total > 0, "the prefix cache never hit"
+            res["launches"] = launches
+        equal_before(outs, [o.token_ids for o in serve["outs"]], ties,
+                     f"{mode} graphed")
+    if not all(res["pipeline"]["tokens_equal_serve"]):
+        res["why_unequal"] = (
+            "past a near-tie: the (decode batch, padded batch, prefill "
+            "tokens) of each step differ between the runs, and the batch "
+            "shape picks which cuBLAS algorithm (and summation order) runs")
+        res["step_shapes"] = steps
+    engine, souts, swall, slaunches = warm_run(
+        torch, cfg, params, prompts, n, pipeline=True, spec=spec[
+            "spec_config"])
+    assert all(slaunches[k] > 0 for k in SPEC_KERNELS), \
+        f"a kernel of the pipelined speculative path never launched: " \
+        f"{slaunches}"
+    equal_before(souts, [o.token_ids for o in spec["outs"]], ties,
+                 "pipelined speculative")
+    drafted = sum(o.spec_drafted for o in souts)
+    res["spec"] = {
+        "k": SPEC_K, "draft_threshold": DRAFT_THRESHOLD,
+        "warmup_seconds": engine.warmup_seconds,
+        "programs": dict(engine.programs.made),
+        "tokens_per_s": sum(len(o.token_ids) for o in souts) / swall,
+        "sync_spec_tokens_per_s": spec["tokens_per_s"],
+        "acceptance_rate": sum(o.spec_accepted for o in souts) / drafted,
+        "tokens_equal_sync_spec": [o.token_ids == w.token_ids for o, w in
+                                   zip(souts, spec["outs"])],
+        "launches": slaunches}
+    res["graph_vs_eager"] = check_graphs(torch, engine)
     emit(res)
     return res
 

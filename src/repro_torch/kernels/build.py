@@ -14,10 +14,12 @@ no compiler.
 
 Launch counts live here too: each kernel wrapper calls ``count_launch``
 right after its kernel launched, and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. A CUDA graph's replays add the
+counts its capture recorded (``captured_launches``, ``add_launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -25,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -60,6 +62,28 @@ def count_launch(name: str) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: the wrappers count on the host, so a
+    capture counts launches that have not run. The counts made inside the
+    block are taken back out of ``LAUNCHES`` and left in the yielded dict;
+    ``add_launches`` adds them once per replay of the graph."""
+    before = dict(LAUNCHES)
+    taken: Dict[str, int] = {}
+    try:
+        yield taken
+    finally:
+        for k, n in before.items():
+            if LAUNCHES[k] != n:
+                taken[k] = LAUNCHES[k] - n
+                LAUNCHES[k] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def _nvcc() -> str:

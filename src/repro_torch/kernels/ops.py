@@ -23,7 +23,7 @@ with its gradient (K7 forward).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -50,57 +50,70 @@ from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
 
 class OverflowLog:
     """Whether any TwELL gate tile overflowed its T/C slots since the last
-    ``reset()``. The flag stays on the device: recording costs no sync."""
+    ``reset()``. The flag stays on the device: recording costs no sync.
 
-    _flag: Optional[torch.Tensor] = None
+    One flag a device, made at its first ``record`` and then only updated
+    in place: a CUDA graph keeps writing into the tensor it captured, so
+    ``reset()`` zeroes the flags and never replaces them. A program's
+    eager run before its capture makes the flag (``serving/graphs.py``)."""
+
+    _flags: Dict[torch.device, torch.Tensor] = {}
+
+    @classmethod
+    def _flag(cls, device: torch.device) -> torch.Tensor:
+        flag = cls._flags.get(device)
+        if flag is None:
+            flag = cls._flags[device] = torch.zeros((), dtype=torch.bool,
+                                                    device=device)
+        return flag
 
     @classmethod
     def record(cls, overflow: torch.Tensor) -> None:
-        if cls._flag is None or cls._flag.device != overflow.device:
-            cls._flag = overflow.clone()
-        else:
-            cls._flag |= overflow
+        cls._flag(overflow.device).logical_or_(overflow)
 
     @classmethod
     def seen(cls) -> bool:
-        return bool(cls._flag) if cls._flag is not None else False
+        return any(bool(f) for f in cls._flags.values())
 
     @classmethod
     def reset(cls) -> None:
-        cls._flag = None
+        for f in cls._flags.values():
+            f.zero_()
 
 
 class HybridOverflowLog(OverflowLog):
     """Whether any hybrid pack ran out of dense-backup rows (its overflowing
     rows were dropped, App. B.2.1) since the last ``reset()``, and how many
     rows the packs put on each side of the format. Counts and flag stay on
-    the device until read."""
+    the device until read, updated in place as ``OverflowLog``'s."""
 
-    _flag: Optional[torch.Tensor] = None
-    _rows: Optional[torch.Tensor] = None     # (ELL rows, backup rows)
+    _flags: Dict[torch.device, torch.Tensor] = {}
+    _rows: Dict[torch.device, torch.Tensor] = {}   # (ELL rows, backup rows)
 
     @classmethod
     def record(cls, overflow: torch.Tensor, is_dense: torch.Tensor) -> None:
         super().record(overflow)
-        rows = torch.stack([(~is_dense).sum(), is_dense.sum()])
-        if cls._rows is None or cls._rows.device != rows.device:
-            cls._rows = rows
-        else:
-            cls._rows += rows
+        rows = cls._rows.get(is_dense.device)
+        if rows is None:
+            rows = cls._rows[is_dense.device] = torch.zeros(
+                2, dtype=torch.int64, device=is_dense.device)
+        rows.add_(torch.stack([(~is_dense).sum(), is_dense.sum()]))
 
     @classmethod
     def rows(cls) -> Tuple[int, int]:
         """(ELL rows, dense-backup rows) summed over the packs since the
         last ``reset()``; rows dropped by an overflow count as backup."""
-        if cls._rows is None:
-            return 0, 0
-        ell, dense = cls._rows.tolist()
+        ell = dense = 0
+        for r in cls._rows.values():
+            e, d = r.tolist()
+            ell, dense = ell + e, dense + d
         return ell, dense
 
     @classmethod
     def reset(cls) -> None:
-        cls._flag = None
-        cls._rows = None
+        super().reset()
+        for r in cls._rows.values():
+            r.zero_()
 
 
 def launch_counts() -> Dict[str, int]:

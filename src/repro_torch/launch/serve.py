@@ -11,10 +11,15 @@ Usage:
   # seeded stochastic sampling
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --spec-k 2 --draft-threshold 0.3 --temperature 0.8 --top-k 50
+  # the pipelined step (plan/launch/collect), every program made up front
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --pipeline --warmup
 
 Weights are random (``lm.init``, ``--seed``) and so are the 4 prompts of
 32 token ids; 16 tokens each are generated. The run shows the path working
-and prints tokens/s and TTFT, and the acceptance rate when speculating.
+and prints tokens/s and TTFT, and the acceptance rate when speculating;
+with ``--warmup``, the warmup's time and the programs it made (one CUDA
+graph per step entry and bucket key on the card).
 On the card the model runs in bfloat16 (the kernels' type), also with
 ``--reduced``, whose config is float32.
 """
@@ -61,6 +66,18 @@ def main(argv=None):
     ap.add_argument("--draft-threshold", type=float, default=0.0,
                     help="tile-skip gate threshold for the draft pass "
                          "(higher = sparser/cheaper draft, lower acceptance)")
+    ap.add_argument("--pipeline", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="overlapped plan/launch/collect step pipeline: "
+                         "host scheduling for step N+1 runs while the card "
+                         "executes step N (token-identical to the "
+                         "synchronous step)")
+    ap.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="make every step program of the bucket grid at "
+                         "startup (on the card: capture its CUDA graphs) so "
+                         "serving never makes one; else each is made at "
+                         "the first use of its shape")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="weights, prompts and the engine's sampling key")
     args = ap.parse_args(argv)
@@ -82,12 +99,17 @@ def main(argv=None):
                           draft_threshold=args.draft_threshold)
     engine = ServingEngine(params, cfg, backend=args.backend, max_batch=BATCH,
                            max_seq_len=PROMPT_LEN + GEN, seed=args.seed,
-                           spec=spec, device=dev)
+                           spec=spec, pipeline=args.pipeline, device=dev)
     # no per-request seed: each request derives its key from the engine's
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p)
     if dev.type == "cuda":     # compile the kernels before the clock starts
         print(f"[serve/torch] kernels built in {build.build_all():.1f}s")
+    if args.warmup:
+        engine.warmup()
+        print(f"[serve/torch] warmup: {len(engine.warmup_report)} programs "
+              f"in {engine.warmup_seconds:.2f}s "
+              f"({dict(engine.programs.made)})")
     t0 = time.perf_counter()
     outs = engine.generate(prompts, sampling=sp, max_tokens=GEN)
     if dev.type == "cuda":
@@ -97,7 +119,9 @@ def main(argv=None):
     ttft = [o.ttft for o in outs]
     print(f"[serve/torch] {len(outs)} requests x {GEN} tokens in "
           f"{dt:.2f}s ({total_new / dt:.1f} tok/s, backend={args.backend}, "
-          f"device={dev}, ttft mean {np.mean(ttft) * 1e3:.1f}ms)")
+          f"device={dev}, pipeline={args.pipeline}, "
+          f"ttft mean {np.mean(ttft) * 1e3:.1f}ms, "
+          f"programs {sum(engine.programs.made.values())})")
     if spec is not None:
         drafted = sum(o.spec_drafted for o in outs)
         accepted = sum(o.spec_accepted for o in outs)

@@ -2,7 +2,13 @@
 
   engine.py    — ``ServingEngine``: handle-and-event front door, prefix-
                  cache-aware admission under a ``Scheduler`` (with
-                 preemption), chunked batched prefill, synchronous steps.
+                 preemption), chunked batched prefill, synchronous or
+                 pipelined (plan/launch/collect) steps, ``warmup()``.
+  pipeline.py  — bucketing (``bucket``, ``bucket_grid``), the launch
+                 dataclasses and ``InFlightStep`` of the pipelined step,
+                 ``start_host_copy`` into pinned memory.
+  graphs.py    — ``Program``: one step entry at one bucket key, a CUDA
+                 graph replayed every step on the card.
   scheduler.py — ``FCFSScheduler`` / ``PriorityScheduler`` policies.
   kv_cache.py  — ``PagedKVCache``: block pool on the device, host free-list
                  allocator, block tables, prefix cache with copy-on-write.

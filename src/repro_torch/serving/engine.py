@@ -1,10 +1,10 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Ports the synchronous step of ``repro/serving/engine.py``. The front door is
-handle-and-event shaped: ``submit()`` returns a ``RequestHandle``
-immediately and each ``step()`` returns that iteration's ``StepEvent``s
-(TOKEN / FINISH / PREEMPT / CANCEL); ``generate()`` is the
-batch-synchronous shim over the same path.
+Ports ``repro/serving/engine.py``. The front door is handle-and-event
+shaped: ``submit()`` returns a ``RequestHandle`` immediately and each
+``step()`` returns that iteration's ``StepEvent``s (TOKEN / FINISH /
+PREEMPT / CANCEL); ``generate()`` is the batch-synchronous shim over the
+same path.
 
 One ``step()``:
 
@@ -29,13 +29,25 @@ One ``step()``:
      a request whose prefill completes samples its first token from the
      same call and joins the next decode batch.
 
+Each step entry (decode, prefill, the draft loop, the verify) runs as one
+program per bucket key, the port's form of the JAX engine's per-bucket
+``jax.jit``: on the card a captured CUDA graph, replayed every step
+(``serving/graphs.py``); on the CPU the eager entry under the same key.
+``warmup()`` makes every program of the bucket grid up front.
+
+With ``pipeline=True`` each step is plan -> collect -> launch
+(``serving/pipeline.py``): host planning runs while the previously
+launched step still executes on the card, its tokens commit one step
+later, and this step's work is dispatched without blocking (resolved by
+the next step, or by ``flush()``). Per-request token streams equal the
+synchronous step's.
+
 The FFN path per phase (dense | gather/TwELL | tile_skip) comes from the
 ``ServingBackend``. Stochastic sampling keys each token
 ``fold_in(base_key, len(output_tokens))`` as the JAX engine does, so a
 seeded request gives the same tokens whatever its batch, its arrival order
-or its preemptions. Not in this slice of the port: the pipelined step,
-telemetry, tensor parallelism, disaggregation and ``warmup()`` (eager
-PyTorch compiles nothing).
+or its preemptions. Not in this slice of the port: telemetry, tensor
+parallelism and disaggregation.
 """
 from __future__ import annotations
 
@@ -53,7 +65,12 @@ from repro_torch.models import lm
 from repro_torch.serving import sampling as sampling_mod
 from repro_torch.serving.backends import (DECODE, PREFILL, get_backend,
                                           make_draft_pair)
+from repro_torch.serving.graphs import Program, ProgramCache
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.pipeline import (DecodeLaunch, HostCopy,
+                                          InFlightStep, PrefillLaunch,
+                                          SpecLaunch, bucket, bucket_grid,
+                                          start_host_copy)
 from repro_torch.serving.request import (CANCELLED, EVENT_CANCEL,
                                          EVENT_FINISH, EVENT_PREEMPT,
                                          EVENT_TOKEN, FINISH_CANCELLED,
@@ -65,6 +82,8 @@ from repro_torch.serving.scheduler import (Scheduler, get_scheduler,
                                            plan_victims)
 from repro_torch.serving.spec import (Drafter, SpecConfig, Verifier,
                                       rollback_after_verify)
+
+__all__ = ["ServingEngine", "StepStats", "bucket"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,21 +106,28 @@ class StepStats:
     cancelled: int = 0       # CANCEL events processed this step
     preempted: int = 0       # PREEMPT events this step
     wall_ms: float = 0.0     # host wall-clock for the whole step
-    sync_ms: float = 0.0     # ... of which spent waiting on the device
+    sync_ms: float = 0.0     # ... of which spent waiting on the device.
+    #                          Pipelined mode: the RESIDUAL wait only, the
+    #                          tail of the previous launch's host copies that
+    #                          this step's plan work did not hide
+    overlap_ms: float = 0.0  # pipelined mode only: wall time the previously
+    #                          launched step ran concurrently with host work
+    #                          (its launch -> collect span); 0.0 in
+    #                          synchronous mode / nothing in flight
     spec_batch: int = 0      # rows that ran draft->verify this step
     spec_drafted: int = 0    # draft tokens proposed this step
     spec_accepted: int = 0   # ... of which the verifier accepted
-    draft_ms: float = 0.0    # wall time of the draft loop, to its tokens
-    verify_ms: float = 0.0   # wall time of the verify pass, to its logits
+    draft_ms: float = 0.0    # synchronous mode: wall time of the draft, to
+    #                          its tokens on the host
+    verify_ms: float = 0.0   # ... and of the verify pass, to its logits
 
 
-def bucket(n: int, lo: int, hi: int) -> int:
-    """Round ``n`` up to a power-of-two multiple of ``lo``, capped at ``hi``
-    (``repro/serving/pipeline.py:bucket``)."""
-    b = lo
-    while b < n:
-        b *= 2
-    return min(b, hi)
+def _pick(last: torch.Tensor, greedy: bool, samp) -> torch.Tensor:
+    """Next token per row on the device: argmax for an all-greedy batch,
+    else the per-row threefry sampler."""
+    if greedy:
+        return torch.argmax(last, dim=-1)
+    return sampling_mod.sample_tokens(last, *samp)
 
 
 class ServingEngine:
@@ -115,7 +141,8 @@ class ServingEngine:
                  spec: Optional[SpecConfig] = None,
                  prefix_cache: bool = True, prefill_chunk: int = 64,
                  scheduler: Union[str, Scheduler] = "fcfs",
-                 max_stats: Optional[int] = 4096, device=None):
+                 max_stats: Optional[int] = 4096,
+                 pipeline: bool = False, warmup: bool = False, device=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_seq_len < 1:
@@ -168,15 +195,26 @@ class ServingEngine:
         self._lock = threading.RLock()
         self._requests: Dict[int, Request] = {}    # every non-terminal rid
         self._handles: Dict[int, RequestHandle] = {}
+        # one program per (entry, bucket key); programs.made counts them
+        self.programs = ProgramCache(self.device)
+        # pipelined step loop (plan/launch/collect; see pipeline.py):
+        # pipeline=False keeps the synchronous step as the numerics/latency
+        # reference -- token streams are identical either way
+        self.pipeline = bool(pipeline)
+        self._inflight: Optional[InFlightStep] = None
+        self._preempt_pending: List[Request] = []  # victims planned while a
+        #                                            step was in flight; they
+        #                                            preempt at collect
+        self.warmup_seconds = 0.0
+        self.warmup_report: List[Dict] = []        # per-program make timings
+        if warmup:
+            self.warmup()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """Copy a device result to the host, attributing the wait to this
+    def _wait(self, copy: HostCopy) -> torch.Tensor:
+        """A launched output on the host, attributing the wait to this
         step's ``sync_ms``."""
         t0 = time.perf_counter()
-        out = t.cpu().numpy()
+        out = copy.wait()
         self._sync_s += time.perf_counter() - t0
         return out
 
@@ -243,36 +281,144 @@ class ServingEngine:
         return True
 
     def has_unfinished(self) -> bool:
-        return bool(len(self.scheduler) or self.prefilling or self.running)
+        return bool(len(self.scheduler) or self.prefilling or self.running
+                    or self._inflight is not None)
 
     def step(self) -> List[StepEvent]:
         """One engine iteration (cancel, decode or draft->verify, admit,
         prefill); returns this iteration's StepEvents in commit order, also
-        dispatched to each request's handle."""
+        dispatched to each request's handle.
+
+        With ``pipeline=True`` the same work is re-ordered into
+        plan -> collect -> launch: host planning runs while the previously
+        launched step is still executing, its tokens commit at collect, and
+        this step's device work is dispatched without blocking (resolved by
+        the NEXT step, or by ``flush()``). Per-request token streams are
+        identical in both modes."""
         with self._lock, torch.no_grad():
-            t_step = time.perf_counter()
+            if self.pipeline:
+                return self._step_pipelined()
+            return self._step_sync()
+
+    def _step_sync(self) -> List[StepEvent]:
+        """The fully synchronous step: each phase launches AND collects
+        before the next phase plans (the numerics/latency reference for the
+        pipelined loop)."""
+        t_step = time.perf_counter()
+        self._sync_s = 0.0
+        events: List[StepEvent] = self._process_cancels()
+        decode_batch = padded = 0
+        spec = {}
+        if self.running:
+            spec_rows = [r for r in self.running if self._can_spec(r)]
+            normal_rows = [r for r in self.running if not self._can_spec(r)]
+            if normal_rows:
+                dl = self._launch_decode(normal_rows)
+                decode_batch, padded = dl.batch, dl.padded
+                events.extend(self._collect_decode(dl))
+            if spec_rows:
+                spec, evs = self._collect_spec(
+                    self._launch_spec(spec_rows, timed=True), timed=True)
+                events.extend(evs)
+        admitted, cached_toks, evs = self._admit()
+        events.extend(evs)
+        pf_tokens = 0
+        pl = self._launch_prefill()
+        if pl is not None:
+            pf_tokens = sum(pl.chunk_lens)
+            events.extend(self._collect_prefill(pl))
+        return self._finalize_step(
+            events, t_step=t_step, decode_batch=decode_batch, padded=padded,
+            admitted=admitted, cached_toks=cached_toks, pf_tokens=pf_tokens,
+            **spec)
+
+    def _step_pipelined(self) -> List[StepEvent]:
+        """plan(N+1) concurrent with device(N): host planning first, then
+        resolve the previously launched step, then dispatch new device work
+        without blocking on it.
+
+        The external contract (per-request event/token streams) matches the
+        synchronous path. StepStats attribution shifts by construction:
+        decode/prefill columns describe THIS call's launch, the spec
+        columns describe the collected (previous) launch, and terminal /
+        preempt counts describe events committed by this call.
+
+        Safety invariant: while a launched step is in flight, every
+        prefilling/running row is part of it, and plan-phase work only
+        claims free or refcount-zero blocks -- so cancels and preemptions of
+        launched rows are DEFERRED and settle at collect, right after their
+        in-flight tokens commit, and nothing the device is reading or
+        writing is ever freed, COW-copied, or reallocated under it."""
+        t_step = time.perf_counter()
+        self._sync_s = 0.0
+        inflight = self._inflight
+        # ---- plan: pure host work against committed state
+        events = self._process_cancels(defer_inflight=inflight is not None)
+        admitted, cached_toks, evs = self._admit(
+            defer_preempt=inflight is not None)
+        events.extend(evs)
+        # ---- collect: resolve the previous launch, commit its tokens
+        overlap_ms = 0.0
+        spec = {}
+        if inflight is not None:
+            self._inflight = None
+            overlap_ms = (time.perf_counter() - inflight.t_launched) * 1e3
+            spec, evs = self._collect_inflight(inflight)
+            events.extend(evs)
+        # ---- launch: dispatch on post-collect state; nothing blocks
+        decode_batch = padded = pf_tokens = 0
+        dl = sl = None
+        if self.running:
+            spec_rows = [r for r in self.running if self._can_spec(r)]
+            normal_rows = [r for r in self.running if not self._can_spec(r)]
+            if normal_rows:
+                dl = self._launch_decode(normal_rows)
+                decode_batch, padded = dl.batch, dl.padded
+            if spec_rows:
+                sl = self._launch_spec(spec_rows, timed=False)
+        pl = self._launch_prefill()
+        if pl is not None:
+            pf_tokens = sum(pl.chunk_lens)
+        if dl is not None or sl is not None or pl is not None:
+            self._inflight = InFlightStep(decode=dl, spec=sl, prefill=pl,
+                                          t_launched=time.perf_counter())
+        return self._finalize_step(
+            events, t_step=t_step, decode_batch=decode_batch, padded=padded,
+            admitted=admitted, cached_toks=cached_toks, pf_tokens=pf_tokens,
+            overlap_ms=overlap_ms, **spec)
+
+    def _collect_inflight(self, inflight: InFlightStep):
+        """Commit everything ``inflight`` launched, then the preemptions
+        planned while it ran. Returns (StepStats spec columns, events)."""
+        events: List[StepEvent] = []
+        spec = {}
+        if inflight.decode is not None:
+            events.extend(self._collect_decode(inflight.decode))
+        if inflight.spec is not None:
+            spec, evs = self._collect_spec(inflight.spec, timed=False)
+            events.extend(evs)
+        if inflight.prefill is not None:
+            events.extend(self._collect_prefill(inflight.prefill))
+        events.extend(self._flush_pending_preempts())
+        return spec, events
+
+    def flush(self) -> List[StepEvent]:
+        """Drain the pipelined tail: resolve the in-flight launched step (if
+        any) WITHOUT launching new work, commit its tokens, dispatch its
+        events to the handles, and return them. A no-op (empty list) in
+        synchronous mode or when nothing is in flight. ``generate()`` drains
+        via ``has_unfinished()`` + ``step()``, which subsumes this; a
+        long-lived caller calls it on shutdown so a launched step never
+        outlives the process's clean exit."""
+        with self._lock:
+            inflight = self._inflight
+            if inflight is None:
+                return []
+            self._inflight = None
             self._sync_s = 0.0
-            events: List[StepEvent] = self._process_cancels()
-            decode_batch = padded = 0
-            spec = {}
-            if self.running:
-                spec_rows = [r for r in self.running if self._can_spec(r)]
-                normal_rows = [r for r in self.running
-                               if not self._can_spec(r)]
-                if normal_rows:
-                    decode_batch, padded, evs = self._decode(normal_rows)
-                    events.extend(evs)
-                if spec_rows:
-                    spec, evs = self._speculate(spec_rows)
-                    events.extend(evs)
-            admitted, cached_toks, evs = self._admit()
-            events.extend(evs)
-            pf_tokens, evs = self._prefill()
-            events.extend(evs)
-            return self._finalize_step(
-                events, t_step=t_step, decode_batch=decode_batch,
-                padded=padded, admitted=admitted, cached_toks=cached_toks,
-                pf_tokens=pf_tokens, **spec)
+            _, events = self._collect_inflight(inflight)
+            self._dispatch_events(events)
+            return events
 
     def generate(self, prompts: Sequence[Sequence[int]], *,
                  sampling: Optional[SamplingParams] = None,
@@ -292,10 +438,13 @@ class ServingEngine:
 
     def _finalize_step(self, events: List[StepEvent], *, t_step: float,
                        decode_batch: int, padded: int, admitted: int,
-                       cached_toks: int, pf_tokens: int, spec_batch: int = 0,
+                       cached_toks: int, pf_tokens: int,
+                       overlap_ms: float = 0.0, spec_batch: int = 0,
                        spec_drafted: int = 0, spec_accepted: int = 0,
                        draft_ms: float = 0.0, verify_ms: float = 0.0
                        ) -> List[StepEvent]:
+        """Shared step epilogue: StepStats and handle dispatch, identical
+        between the synchronous and pipelined loops."""
         self._step_idx += 1
         self.stats.append(StepStats(
             step=self._step_idx, decode_batch=decode_batch,
@@ -311,18 +460,22 @@ class ServingEngine:
             cancelled=sum(1 for e in events if e.kind == EVENT_CANCEL),
             preempted=sum(1 for e in events if e.kind == EVENT_PREEMPT),
             wall_ms=(time.perf_counter() - t_step) * 1e3,
-            sync_ms=self._sync_s * 1e3, spec_batch=spec_batch,
-            spec_drafted=spec_drafted, spec_accepted=spec_accepted,
-            draft_ms=draft_ms, verify_ms=verify_ms))
+            sync_ms=self._sync_s * 1e3, overlap_ms=overlap_ms,
+            spec_batch=spec_batch, spec_drafted=spec_drafted,
+            spec_accepted=spec_accepted, draft_ms=draft_ms,
+            verify_ms=verify_ms))
         if self.max_stats is not None and len(self.stats) >= 2 * self.max_stats:
             del self.stats[:-self.max_stats]     # amortized O(1) trim
+        self._dispatch_events(events)
+        return events
+
+    def _dispatch_events(self, events: List[StepEvent]) -> None:
         for ev in events:
             h = self._handles.get(ev.rid)
             if h is not None:
                 h._on_event(ev)
                 if ev.terminal:
                     self._handles.pop(ev.rid, None)
-        return events
 
     def _finish(self, req: Request, reason: str) -> RequestOutput:
         """Terminal transition (EOS / length / cancel) from any live state."""
@@ -349,14 +502,49 @@ class ServingEngine:
         return StepEvent(kind=kind, rid=req.rid, step=self._step_idx,
                          output=out)
 
-    def _process_cancels(self) -> List[StepEvent]:
+    def _process_cancels(self, defer_inflight: bool = False
+                         ) -> List[StepEvent]:
+        """Abort every request flagged since the last step, wherever it is:
+        queued (no KV to release), or admitted (prefilling/running/spec --
+        blocks freed or parked, reservation returned).
+
+        defer_inflight: plan-phase mode with a launched step still
+        executing. Queued cancels process immediately (no KV, not part of
+        any launch); prefilling/running rows are ALL part of the in-flight
+        step -- freeing their blocks now would mutate tables the device is
+        still reading/writing -- so their flag stays set and collect
+        resolves it right after their launched tokens commit."""
         events: List[StepEvent] = []
         for req in [r for r in self.scheduler if r.cancel_requested]:
             self.scheduler.remove(req.rid)
             events.append(self._terminal_event(req, FINISH_CANCELLED))
+        if defer_inflight:
+            return events
         for req in [r for r in self.prefilling + self.running
                     if r.cancel_requested]:
             events.append(self._terminal_event(req, FINISH_CANCELLED))
+        return events
+
+    def _deferred_cancel(self, req: Request) -> Optional[StepEvent]:
+        """Pipelined collect: resolve a cancel flagged while this row's
+        step was in flight (its just-launched token has already committed --
+        cancellation never shortens the stream vs the synchronous path).
+        Always None in synchronous mode, whose cancel timing -- flags
+        processed at the NEXT step's cancel phase -- must stay untouched."""
+        if self.pipeline and req.cancel_requested:
+            return self._terminal_event(req, FINISH_CANCELLED)
+        return None
+
+    def _flush_pending_preempts(self) -> List[StepEvent]:
+        """Apply preemptions planned while a step was in flight. Runs at
+        collect, after the victims' launched tokens committed; a victim
+        that reached a terminal state in the meantime (finished naturally,
+        or cancelled) has nothing left to preempt."""
+        events: List[StepEvent] = []
+        pending, self._preempt_pending = self._preempt_pending, []
+        for req in pending:
+            if not req.done and any(r.rid == req.rid for r in self.running):
+                events.append(self._preempt(req))
         return events
 
     def _preempt(self, req: Request) -> StepEvent:
@@ -374,9 +562,22 @@ class ServingEngine:
         return StepEvent(kind=EVENT_PREEMPT, rid=req.rid,
                          step=self._step_idx)
 
-    def _sampling_rows(self, rows: List[Request], padded: int):
-        """(temperatures, top_ks, top_ps) of a padded batch on the device;
-        padded rows are greedy."""
+    def _can_spec(self, req: Request) -> bool:
+        """Speculate when >= 2 tokens of budget remain (accepting even one
+        draft must leave room for the verifier's correction/bonus token)."""
+        return (self.spec is not None and not req.no_spec
+                and req.max_tokens - len(req.output_tokens) >= 2)
+
+    # ----------------------------------------------------------- programs
+    # A program's entry closes over what it reads (weights, pools, config),
+    # never over the engine: the engine holds its programs, and a cycle
+    # through the entry would keep a dropped engine, its pools and its
+    # graphs' memory alive until the garbage collector runs.
+
+    def _samp_args(self, rows: List[Request], padded: int, keys: np.ndarray
+                   ) -> List[np.ndarray]:
+        """(keys, temperatures, top_ks, top_ps) of a padded batch; padded
+        rows are greedy."""
         temps = np.zeros((padded,), np.float32)
         topks = np.zeros((padded,), np.int32)
         topps = np.ones((padded,), np.float32)
@@ -384,48 +585,197 @@ class ServingEngine:
             temps[i] = r.sampling.temperature
             topks[i] = r.sampling.top_k
             topps[i] = r.sampling.top_p
-        return (self._to_device(temps), self._to_device(topks),
-                self._to_device(topps))
+        return [keys, temps, topks, topps]
 
     def _keys(self, rows: List[Request], padded: int, offset: int = 0,
-              stream: Optional[int] = None) -> torch.Tensor:
+              stream: Optional[int] = None) -> np.ndarray:
         """(padded, 2) threefry keys of each row's output position
         ``len(output_tokens) + offset``: the decode stream, or a spec
         stream; padded rows get zeros. Computed on the host (a few hundred
-        integer ops), then shipped."""
-        keys = torch.zeros((padded, 2), dtype=torch.int64)
+        integer ops); the program copies them in with its other inputs."""
+        keys = np.zeros((padded, 2), np.int64)
         base = torch.stack([r.base_key for r in rows])
         pos = torch.tensor([len(r.output_tokens) + offset for r in rows],
                            dtype=torch.int64)
-        keys[:len(rows)] = sampling_mod.batch_keys(base, pos) \
-            if stream is None else \
-            sampling_mod.spec_batch_keys(base, pos, stream)
-        return keys.to(self.device)
+        keys[:len(rows)] = (sampling_mod.batch_keys(base, pos)
+                            if stream is None else
+                            sampling_mod.spec_batch_keys(base, pos, stream)
+                            ).numpy()
+        return keys
 
-    def _sample(self, last: torch.Tensor, rows: List[Request], padded: int
-                ) -> torch.Tensor:
-        """Next token per row on the device: argmax for an all-greedy
-        batch, else the per-row threefry sampler."""
-        if all(r.sampling.greedy for r in rows):
-            return torch.argmax(last, dim=-1)
-        return sampling_mod.sample_tokens(
-            last, self._keys(rows, padded), *self._sampling_rows(rows, padded))
+    @staticmethod
+    def _null_samp(padded: int, keys_shape) -> List[np.ndarray]:
+        """Dummy sampling inputs: temps = top_p = 1 keep the sampling
+        variant's math well-defined over the null block's garbage."""
+        return [np.zeros(keys_shape, np.int64), np.ones((padded,), np.float32),
+                np.zeros((padded,), np.int32), np.ones((padded,), np.float32)]
 
-    def _can_spec(self, req: Request) -> bool:
-        """Speculate when >= 2 tokens of budget remain (accepting even one
-        draft must leave room for the verifier's correction/bonus token)."""
-        return (self.spec is not None and not req.no_spec
-                and req.max_tokens - len(req.output_tokens) >= 2)
+    def _jit_decode(self, padded: int, width: int, greedy: bool) -> Program:
+        """The decode program at (padded batch, table width, greedy).
+        ``width`` is the bucketed block-table width the step runs at, so a
+        short-context step reads only its live page span; it is part of the
+        key because the program's shapes are. Inputs (bt, sl, toks[, keys,
+        temps, topks, topps]); outputs (tok, last-position logits)."""
+        params, pools, cfg = self.params, self.kv.pools, self.cfg_decode
 
-    def _speculate(self, rows: List[Request]):
-        """Draft -> verify -> accept -> rollback for the speculating rows.
+        def fn(bt, sl, toks, *samp):
+            logits, _ = lm.paged_decode_step(params, pools, bt, sl, toks, cfg)
+            last = logits[:, -1]
+            return _pick(last, greedy, samp), last
+
+        def dummy():
+            args = [np.zeros((padded, width), np.int32),
+                    np.zeros((padded,), np.int32),
+                    np.zeros((padded, 1), np.int32)]
+            return args if greedy else args + self._null_samp(padded,
+                                                              (padded, 2))
+        return self.programs.get("decode", (padded, width, greedy), fn, dummy)
+
+    def _jit_prefill(self, padded_b: int, padded_c: int, greedy: bool
+                     ) -> Program:
+        """The prefill program at (padded batch, padded chunk, greedy).
+        Inputs (bt, toks, start, num_new[, keys, temps, topks, topps]);
+        outputs (tok, last valid position's logits)."""
+        params, pools, cfg = self.params, self.kv.pools, self.cfg_prefill
+
+        def fn(bt, toks, start, num_new, *samp):
+            # last_only: the head runs on each row's final valid hidden
+            # state only -- never (B, C, V) over the whole chunk
+            logits, _ = lm.paged_prefill(params, pools, bt, toks, num_new,
+                                         cfg, start_lens=start,
+                                         last_only=True)
+            last = logits[:, 0]
+            return _pick(last, greedy, samp), last
+
+        def dummy():
+            args = [np.zeros((padded_b, self.table_width), np.int32),
+                    np.zeros((padded_b, padded_c), np.int32),
+                    np.zeros((padded_b,), np.int32),
+                    np.zeros((padded_b,), np.int32)]
+            return args if greedy else args + self._null_samp(padded_b,
+                                                              (padded_b, 2))
+        return self.programs.get("prefill", (padded_b, padded_c, greedy), fn,
+                                 dummy)
+
+    def _jit_draft(self, padded: int, greedy: bool) -> Program:
+        """The whole k-step draft loop as one program at (padded batch,
+        greedy). Inputs (bt, sl0, tok0, draft_len[, keys (k, padded, 2),
+        temps, topks, topps]); outputs (draft tokens (padded, k), draft
+        logits (padded, k, V))."""
+        k = self.spec.k
+        params, pools, drafter = self.params, self.kv.pools, self.drafter
+
+        def fn(bt, sl0, tok0, dlen, *samp):
+            keys, rest = (samp[0], samp[1:]) if samp else (None, (None,) * 3)
+            toks, logits, _ = drafter.draft(params, pools, bt, sl0, tok0,
+                                            dlen, keys, *rest, greedy=greedy)
+            return toks, logits
+
+        def dummy():
+            args = [np.zeros((padded, self.table_width), np.int32),
+                    np.zeros((padded,), np.int32),
+                    np.zeros((padded, 1), np.int32),
+                    np.zeros((padded,), np.int32)]
+            return args if greedy else args + self._null_samp(padded,
+                                                              (k, padded, 2))
+        return self.programs.get("draft", (padded, greedy), fn, dummy)
+
+    def _jit_verify(self, padded: int) -> Program:
+        """The batched verify at (padded batch,). Inputs (bt, start,
+        num_new, tok0 (padded, 1), drafts (padded, k)): the token block
+        [tok0 | drafts] is built inside the program, from the draft
+        program's output copied in on the card. Output: float32 logits
+        (padded, k+1, V)."""
+        k = self.spec.k
+        params, pools, verifier = self.params, self.kv.pools, self.verifier
+
+        def fn(bt, start, num_new, tok0, drafts):
+            toks = torch.cat([tok0, drafts.to(tok0.dtype)], dim=1)
+            logits, _ = verifier.verify(params, pools, bt, start, num_new,
+                                        toks)
+            return logits
+
+        def dummy():
+            return [np.zeros((padded, self.table_width), np.int32),
+                    np.zeros((padded,), np.int32),
+                    np.zeros((padded,), np.int32),
+                    np.zeros((padded, 1), np.int32),
+                    np.zeros((padded, k), np.int64)]
+        return self.programs.get("verify", (padded,), fn, dummy)
+
+    # ----------------------------------------------------- launch / collect
+
+    def _grow(self, r: Request, need: int) -> None:
+        """Append blocks until the request's table holds ``need``, each
+        drawn from its admission reservation."""
+        while len(self.kv.block_table(r.rid)) < need:
+            self.kv.append_block(r.rid)
+            r.reserved_blocks -= 1
+            self._reserved -= 1
+
+    def _launch_decode(self, batch: List[Request]) -> DecodeLaunch:
+        """Replay one batched decode program; no blocking readback. The
+        device->host copy of the sampled row starts immediately so collect
+        pays only the residual transfer tail."""
+        b = len(batch)
+        padded = bucket(b, 1, self.max_batch)
+        # the last sampled token is this step's input, written at position
+        # seq_len - 1 (= cached token count)
+        for r in batch:
+            self._grow(r, (r.seq_len - 1) // self.kv.block_size + 1)
+        # clamp the table to the batch's live page span, bucketed: masked
+        # columns contribute exactly 0, and the read tracks max(seq_lens)
+        width = bucket(max(len(self.kv.block_table(r.rid)) for r in batch),
+                       1, self.table_width)
+        args = [self.kv.table_array([r.rid for r in batch], padded, width),
+                np.zeros((padded,), np.int32),
+                np.zeros((padded, 1), np.int32)]
+        for i, r in enumerate(batch):
+            args[1][i] = r.seq_len - 1
+            args[2][i, 0] = r.last_token
+        greedy = all(r.sampling.greedy for r in batch)
+        if not greedy:
+            args += self._samp_args(batch, padded, self._keys(batch, padded))
+        tok, last = self._jit_decode(padded, width, greedy)(*args)
+        return DecodeLaunch(
+            rows=list(batch), batch=b, padded=padded,
+            next_toks=start_host_copy(tok),
+            logits=start_host_copy(last) if self.record_logits else None)
+
+    def _collect_decode(self, dl: DecodeLaunch) -> List[StepEvent]:
+        """Resolve a launched decode: wait for the sampled row (counted as
+        sync), then commit one token per row and settle deferred cancels."""
+        next_toks = self._wait(dl.next_toks).numpy()
+        logits = None if dl.logits is None else \
+            self._wait(dl.logits).float().numpy()
+        events: List[StepEvent] = []
+        now = time.perf_counter()
+        for i, r in enumerate(dl.rows):
+            if r.logits_trace is not None:
+                r.logits_trace.append(logits[i])
+            reason = r.append(int(next_toks[i]), now)
+            events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
+                                    step=self._step_idx,
+                                    tokens=(int(next_toks[i]),)))
+            if reason:
+                events.append(self._terminal_event(r, reason))
+            else:
+                cancel_ev = self._deferred_cancel(r)
+                if cancel_ev is not None:
+                    events.append(cancel_ev)
+        return events
+
+    def _launch_spec(self, rows: List[Request], *, timed: bool) -> SpecLaunch:
+        """Replay draft -> verify for the speculating rows.
 
         Each row proposes ``k_eff = min(k, remaining - 1)`` tokens through
         the draft backend, then ONE batched trusted-backend pass scores
-        them. The verify chunk is concatenated on the device from the
-        draft's tokens; the draft tokens are fetched once, after the loop,
-        which also times the draft. Returns (StepStats spec columns,
-        events)."""
+        them. The verify token block is built ON THE CARD from the draft's
+        output, so both replays go out back-to-back with no host readback
+        between them -- in pipelined mode (``timed=False``) nothing here
+        blocks at all; the synchronous path (``timed=True``) keeps its
+        draft/verify timing by waiting for the draft's tokens before it
+        replays the verify."""
         b = len(rows)
         k = self.spec.k
         padded = bucket(b, 1, self.max_batch)
@@ -436,13 +786,9 @@ class ServingEngine:
         for r in rows:
             k_eff = min(k, r.max_tokens - len(r.output_tokens) - 1)
             k_effs.append(k_eff)
-            need = self.kv.blocks_for(r.seq_len + k_eff)
-            while len(self.kv.block_table(r.rid)) < need:
-                self.kv.append_block(r.rid)
-                r.reserved_blocks -= 1
-                self._reserved -= 1
-        bt = self._to_device(self.kv.table_array(
-            [r.rid for r in rows], padded, self.table_width))
+            self._grow(r, self.kv.blocks_for(r.seq_len + k_eff))
+        bt = self.kv.table_array([r.rid for r in rows], padded,
+                                 self.table_width)
         sl0 = np.zeros((padded,), np.int32)
         tok0 = np.zeros((padded, 1), np.int32)
         dlen = np.zeros((padded,), np.int32)
@@ -450,36 +796,47 @@ class ServingEngine:
             sl0[i] = r.seq_len - 1
             tok0[i, 0] = r.last_token
             dlen[i] = k_effs[i]
-        sl0_d, tok0_d = self._to_device(sl0), self._to_device(tok0)
-        all_greedy = all(r.sampling.greedy for r in rows)
-        if all_greedy:
-            keys, samp = None, (None, None, None)
-        else:
-            keys = torch.stack([
-                self._keys(rows, padded, j, sampling_mod.STREAM_DRAFT)
-                for j in range(k)])
-            samp = self._sampling_rows(rows, padded)
-        t0 = time.perf_counter()
-        d_toks, d_logits, _ = self.drafter.draft(
-            self.params, self.kv.pools, bt, sl0_d, tok0_d,
-            self._to_device(dlen), keys, *samp, greedy=all_greedy)
-        d_toks_np = self._fetch(d_toks)
-        t1 = time.perf_counter()
-        num_new = dlen + (dlen > 0)            # k_eff + 1; 0 for padded rows
-        t_logits, _ = self.verifier.verify(
-            self.params, self.kv.pools, bt, sl0_d, self._to_device(num_new),
-            torch.cat([tok0_d, d_toks.to(tok0_d.dtype)], dim=1))
-        t_logits_np = self._fetch(t_logits)
-        t2 = time.perf_counter()
-        d_logits_np = None if all_greedy else self._fetch(d_logits.float())
+        greedy = all(r.sampling.greedy for r in rows)
+        dargs = [bt, sl0, tok0, dlen]
+        if not greedy:
+            keys = np.stack([self._keys(rows, padded, j,
+                                        sampling_mod.STREAM_DRAFT)
+                             for j in range(k)])
+            dargs += self._samp_args(rows, padded, keys)
+        t_draft0 = time.perf_counter()
+        d_toks, d_logits = self._jit_draft(padded, greedy)(*dargs)
+        d_copy = start_host_copy(d_toks)
+        dl_copy = None if greedy else start_host_copy(d_logits)
+        if timed:
+            self._wait(d_copy)
+        num_new = (dlen + (dlen > 0)).astype(np.int32)  # k_eff + 1; 0 padded
+        t_verify0 = time.perf_counter()
+        t_logits = self._jit_verify(padded)(bt, sl0, num_new, tok0, d_toks)
+        return SpecLaunch(rows=list(rows), batch=b, padded=padded,
+                          k_effs=k_effs, all_greedy=greedy, d_toks=d_copy,
+                          d_logits=dl_copy,
+                          t_logits=start_host_copy(t_logits),
+                          t_verify0=t_verify0, t_draft0=t_draft0)
+
+    def _collect_spec(self, sl: SpecLaunch, *, timed: bool):
+        """Resolve a launched draft+verify pair: accept on the host, commit
+        the accepted prefix + correction/bonus token per row (>= 1 token
+        guaranteed), roll the block-table tail covering rejected scratch
+        positions back to the pool, and settle deferred cancels. Returns
+        (StepStats spec columns, events)."""
+        d_toks = self._wait(sl.d_toks).numpy()
+        t_logits = self._wait(sl.t_logits).numpy()
+        t_done = time.perf_counter()
+        d_logits = None if sl.all_greedy else \
+            self._wait(sl.d_logits).float().numpy()
         events: List[StepEvent] = []
         drafted_total = accepted_total = 0
-        for i, r in enumerate(rows):
-            k_eff = k_effs[i]
+        for i, r in enumerate(sl.rows):
+            k_eff = sl.k_effs[i]
             emitted, n_acc = self.verifier.accept(
-                r, k_eff, d_toks_np[i, :k_eff],
-                None if d_logits_np is None else d_logits_np[i, :k_eff],
-                t_logits_np[i, :k_eff + 1])
+                r, k_eff, d_toks[i, :k_eff],
+                None if d_logits is None else d_logits[i, :k_eff],
+                t_logits[i, :k_eff + 1])
             r.spec_drafted += k_eff
             r.spec_accepted += n_acc
             drafted_total += k_eff
@@ -488,7 +845,7 @@ class ServingEngine:
             committed = []
             for j, tok in enumerate(emitted):
                 if r.logits_trace is not None:
-                    r.logits_trace.append(t_logits_np[i, j])
+                    r.logits_trace.append(t_logits[i, j])
                 committed.append(int(tok))
                 reason = r.append(int(tok))
                 if reason:
@@ -498,65 +855,45 @@ class ServingEngine:
                                     tokens=tuple(committed)))
             if reason:
                 events.append(self._terminal_event(r, reason))
-            else:
-                # rollback: blocks past the committed length (seq_len - 1
-                # cached slots) return to the pool and the reservation
-                freed = rollback_after_verify(self.kv, r.rid, r.seq_len - 1)
-                r.reserved_blocks += freed
-                self._reserved += freed
-        return dict(spec_batch=b, spec_drafted=drafted_total,
-                    spec_accepted=accepted_total, draft_ms=(t1 - t0) * 1e3,
-                    verify_ms=(t2 - t1) * 1e3), events
+                continue
+            cancel_ev = self._deferred_cancel(r)
+            if cancel_ev is not None:
+                # _finish freed the whole table, scratch tail included
+                events.append(cancel_ev)
+                continue
+            # rollback: blocks past the committed length (seq_len - 1
+            # cached slots) return to the pool and the reservation
+            freed = rollback_after_verify(self.kv, r.rid, r.seq_len - 1)
+            r.reserved_blocks += freed
+            self._reserved += freed
+        stats = dict(spec_batch=sl.batch, spec_drafted=drafted_total,
+                     spec_accepted=accepted_total)
+        if timed:
+            stats.update(draft_ms=(sl.t_verify0 - sl.t_draft0) * 1e3,
+                         verify_ms=(t_done - sl.t_verify0) * 1e3)
+        return stats, events
 
-    def _decode(self, batch: List[Request]):
-        """One batched decode call; commits one token per row."""
-        b = len(batch)
-        padded = bucket(b, 1, self.max_batch)
-        # the last sampled token is this step's input, written at position
-        # seq_len - 1 (= cached token count)
-        for r in batch:
-            if (r.seq_len - 1) // self.kv.block_size >= \
-                    len(self.kv.block_table(r.rid)):
-                self.kv.append_block(r.rid)
-                r.reserved_blocks -= 1
-                self._reserved -= 1
-        # clamp the table to the batch's live page span, bucketed: masked
-        # columns contribute exactly 0, and the read tracks max(seq_lens)
-        width = bucket(max(len(self.kv.block_table(r.rid)) for r in batch),
-                       1, self.table_width)
-        bt = self.kv.table_array([r.rid for r in batch], padded, width)
-        sl = np.zeros((padded,), np.int32)
-        toks = np.zeros((padded, 1), np.int32)
-        for i, r in enumerate(batch):
-            sl[i] = r.seq_len - 1
-            toks[i, 0] = r.last_token
-        logits, _ = lm.paged_decode_step(
-            self.params, self.kv.pools, self._to_device(bt),
-            self._to_device(sl), self._to_device(toks), self.cfg_decode)
-        last = logits[:, -1]
-        next_toks = self._fetch(self._sample(last, batch, padded))
-        events: List[StepEvent] = []
-        now = time.perf_counter()
-        for i, r in enumerate(batch):
-            if r.logits_trace is not None:
-                r.logits_trace.append(last[i].float().cpu().numpy())
-            reason = r.append(int(next_toks[i]), now)
-            events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
-                                    step=self._step_idx,
-                                    tokens=(int(next_toks[i]),)))
-            if reason:
-                events.append(self._terminal_event(r, reason))
-        return b, padded, events
-
-    def _admit(self):
+    def _admit(self, defer_preempt: bool = False):
         """Admit queued requests under the scheduler policy while a batch
         slot and (prefix-cache-aware) worst-case block capacity exist; when
         the candidate does not fit, preempt the scheduler's victims if that
-        makes it fit."""
+        makes it fit.
+
+        defer_preempt: plan-phase mode with a launched step in flight.
+        Victims must keep running until their launched tokens commit, so
+        the planned set is parked in ``_preempt_pending`` (applied at
+        collect) and the candidate re-tries on a later plan against the
+        freed capacity. Block allocation itself is safe while in flight:
+        ``plan_allocation``/``commit_allocation`` only claim free-list or
+        refcount-zero LRU blocks, which no launched table references."""
         admitted = 0
         cached_tokens = 0
         events: List[StepEvent] = []
         while True:
+            if self._preempt_pending:
+                # a victim set is already planned but its blocks free only
+                # at collect; admission state is stale until then
+                break
             req = self.scheduler.peek()
             if req is None:
                 break
@@ -583,6 +920,9 @@ class ServingEngine:
                     max_batch=self.max_batch)
                 if plan is None:
                     break              # defer: preemption cannot help
+                if defer_preempt:
+                    self._preempt_pending.extend(plan)
+                    break              # victims free at collect; re-plan then
                 for victim in plan:
                     events.append(self._preempt(victim))
                 continue               # capacity changed: re-plan admission
@@ -611,13 +951,14 @@ class ServingEngine:
             admitted += 1
         return admitted, cached_tokens, events
 
-    def _prefill(self):
-        """Advance every in-flight prefill by one chunk in ONE batched call;
-        rows whose target completes commit their first token and join the
-        decode batch. Returns (tokens computed, events)."""
+    def _launch_prefill(self) -> Optional[PrefillLaunch]:
+        """Advance every in-flight prefill by one chunk in ONE batched
+        replay; rows whose target completes sample their first token from
+        the same call. Returns None when nothing is prefilling; otherwise
+        the launched (unresolved) call -- ``_collect_prefill`` commits it."""
         rows = list(self.prefilling)
         if not rows:
-            return 0, []
+            return None
         b = len(rows)
         padded_b = bucket(b, 1, self.max_batch)
         chunk_lens = [min(self.prefill_chunk,
@@ -646,27 +987,42 @@ class ServingEngine:
             start[i] = s0
             num_new[i] = c
         # table_array AFTER ensure_writable: COW swaps table entries
-        bt = self.kv.table_array([r.rid for r in rows], padded_b,
-                                 self.table_width)
-        logits, _ = lm.paged_prefill(
-            self.params, self.kv.pools, self._to_device(bt),
-            self._to_device(toks), self._to_device(num_new), self.cfg_prefill,
-            start_lens=self._to_device(start), last_only=True)
-        last = logits[:, 0]
-        # the token sampled at prefill completion is output position
-        # len(output_tokens): 0 for a fresh request, the next committed
-        # slot for a resumed one, so resume replays the same draw
-        tok = self._fetch(self._sample(last, rows, padded_b))
+        args = [self.kv.table_array([r.rid for r in rows], padded_b,
+                                    self.table_width), toks, start, num_new]
+        greedy = all(r.sampling.greedy for r in rows)
+        if not greedy:
+            # the token sampled at prefill completion is output position
+            # len(output_tokens): 0 for a fresh request, the next committed
+            # slot for a resumed one, so resume replays the same draw
+            args += self._samp_args(rows, padded_b, self._keys(rows,
+                                                               padded_b))
+        tok, last = self._jit_prefill(padded_b, padded_c, greedy)(*args)
         self.prefill_tokens_total += sum(chunk_lens)
+        return PrefillLaunch(
+            rows=rows, chunk_lens=chunk_lens, tok=start_host_copy(tok),
+            logits=start_host_copy(last) if self.record_logits else None)
+
+    def _collect_prefill(self, pl: PrefillLaunch) -> List[StepEvent]:
+        """Resolve a launched prefill chunk: advance each row's position,
+        settle deferred cancels, and for rows whose target completed commit
+        the sampled token and move them to the decode batch (in pipelined
+        mode that is THIS step's launch -- join-on-arrival keeps its
+        one-step cadence, just phase-shifted with everything else)."""
+        tok = self._wait(pl.tok).numpy()
+        logits = None if pl.logits is None else \
+            self._wait(pl.logits).float().numpy()
         events: List[StepEvent] = []
-        for i, r in enumerate(rows):
-            r.prefill_pos += chunk_lens[i]
+        for i, r in enumerate(pl.rows):
+            r.prefill_pos += pl.chunk_lens[i]
             if r.prefill_pos < len(r.prefill_target):
+                cancel_ev = self._deferred_cancel(r)
+                if cancel_ev is not None:
+                    events.append(cancel_ev)
                 continue                              # more chunks to go
             if self.prefix_cache:
                 self.kv.register_prefix(r.rid, r.prompt)
             if r.logits_trace is not None:
-                r.logits_trace.append(last[i].float().cpu().numpy())
+                r.logits_trace.append(logits[i])
             self.prefilling = [x for x in self.prefilling if x.rid != r.rid]
             r.status = RUNNING
             self.running.append(r)
@@ -676,4 +1032,59 @@ class ServingEngine:
                                     tokens=(int(tok[i]),)))
             if reason:
                 events.append(self._terminal_event(r, reason))
-        return sum(chunk_lens), events
+            else:
+                cancel_ev = self._deferred_cancel(r)
+                if cancel_ev is not None:
+                    events.append(cancel_ev)
+        return events
+
+    # ---------------------------------------------------------------- warmup
+
+    def warmup(self) -> List[Dict]:
+        """Make every program of the bucketed shape grid so steady-state
+        serving never makes one: every decode (batch, table width) bucket,
+        every (batch, chunk) prefill bucket pair, and -- with speculation
+        on -- the draft/verify programs for the configured k, each in both
+        the all-greedy and the sampling variant, in the JAX engine's order.
+        Each program runs once more on its dummy arguments (all-null block
+        tables, zero valid lengths: the writes all land in the discarded
+        null block, and no allocator or request state is touched). Records
+        each program's seconds in ``warmup_report``, the total in
+        ``warmup_seconds``, and returns the report."""
+        with self._lock, torch.no_grad():
+            t_start = time.perf_counter()
+            report: List[Dict] = []
+            batches = bucket_grid(1, self.max_batch)
+            lo = min(self.min_prefill_bucket, self.prefill_chunk)
+            chunks = bucket_grid(lo, self.prefill_chunk)
+
+            def timed(entry, shape, make):
+                t0 = time.perf_counter()
+                prog = make()
+                prog(*prog.dummy)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                report.append({"entry": entry, "shape": shape,
+                               "seconds": time.perf_counter() - t0})
+
+            for padded in batches:
+                for w in bucket_grid(1, self.table_width):
+                    for greedy in (True, False):
+                        timed("decode", (padded, w, greedy),
+                              lambda: self._jit_decode(padded, w, greedy))
+            for padded in batches:
+                for chunk in chunks:
+                    for greedy in (True, False):
+                        timed("prefill", (padded, chunk, greedy),
+                              lambda: self._jit_prefill(padded, chunk,
+                                                        greedy))
+            if self.spec is not None:
+                for padded in batches:
+                    for greedy in (True, False):
+                        timed("draft", (padded, greedy),
+                              lambda: self._jit_draft(padded, greedy))
+                    timed("verify", (padded,),
+                          lambda: self._jit_verify(padded))
+            self.warmup_seconds = time.perf_counter() - t_start
+            self.warmup_report = report
+            return report

@@ -131,11 +131,14 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    """``jax.random.uniform`` in float32. The bounds stay Python scalars
+    (float32 values, their difference rounded in float32) and never become
+    tensors: a tensor made from a host number is a pageable copy, which a
+    CUDA graph capture refuses (the sampling entries are captured)."""
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
     f = _bits_to_unit(random_bits(key, shape))
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    return torch.clamp_min(f * span + lo, lo)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:

@@ -881,3 +881,167 @@ def test_ops_dispatch_counts_launches(card):
     assert counts["tile_skip_ffn"] == 1 and counts["flash_attention"] == 1
     assert counts["hybrid_to_dense"] == 1 and counts["dense_to_hybrid"] == 1
     assert counts["paged_decode_attention"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the serving engine's step programs: one CUDA graph per entry and bucket key
+# --------------------------------------------------------------------------- #
+
+def _graph_engine(dev):
+    """A speculating, graph-replaying engine on a small bf16 paper-0.5b
+    (2 layers, d_model 512, 8 heads of 64, d_ff 1024, T 256, C 8), 98% of
+    the gate columns zeroed as in chip_smoke, the pools filled with noise so
+    every read sees data."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, SpecConfig
+    cfg = get_config("paper-0.5b").reduced(
+        d_model=512, d_ff=1024, num_heads=8, num_kv_heads=8, head_dim=64,
+        vocab_size=1024, dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init(cfg, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    alive = torch.rand((cfg.num_layers, 1, cfg.d_ff), generator=gen,
+                       device=dev) < 0.02
+    params["blocks"]["ffn"]["wg"] *= alive.to(params["blocks"]["ffn"]["wg"])
+    engine = ServingEngine(params, cfg, backend="gather", block_size=16,
+                           max_batch=4, max_seq_len=128,
+                           spec=SpecConfig(k=3, draft_backend="tile_skip",
+                                           draft_threshold=0.5), device=dev)
+    for p in engine.kv.pools.values():
+        p.normal_(generator=gen)
+    return engine
+
+
+@pytest.mark.parametrize("entry", ["decode", "prefill", "draft", "verify"])
+def test_program_replay_equals_eager_bitwise(card, entry):
+    """One replay of each entry's program against the model function called
+    directly, on the same inputs from the same copy of the pools: outputs
+    and the written K/V (the null block left out) bitwise equal."""
+    from repro_torch.models import lm
+    e = _graph_engine(card)
+    p, w = e.params, e.table_width
+    rng = np.random.RandomState(3)
+    bt = (1 + np.arange(4)[:, None] * w + np.arange(w)[None]).astype(np.int32)
+
+    def ints(*shape):
+        return rng.randint(0, e.cfg.vocab_size, shape).astype(np.int32)
+    sl0 = np.array([100, 37, 70, 5], np.int32)
+    dlen = np.array([3, 3, 1, 0], np.int32)
+    if entry == "decode":
+        prog, args = e._jit_decode(4, 8, True), [bt[:, :8],
+                                                 np.array([120, 60, 7, 0],
+                                                          np.int32),
+                                                 ints(4, 1)]
+
+        def eager(b, s, t):
+            last = lm.paged_decode_step(p, e.kv.pools, b, s, t,
+                                        e.cfg_decode)[0][:, -1]
+            return last.argmax(-1), last
+    elif entry == "prefill":
+        prog, args = e._jit_prefill(4, 32, True), [
+            bt, ints(4, 32), np.array([0, 16, 90, 3], np.int32),
+            np.array([32, 9, 32, 1], np.int32)]
+
+        def eager(b, t, s, n):
+            last = lm.paged_prefill(p, e.kv.pools, b, t, n, e.cfg_prefill,
+                                    start_lens=s, last_only=True)[0][:, 0]
+            return last.argmax(-1), last
+    elif entry == "draft":
+        prog, args = e._jit_draft(4, True), [bt, sl0, ints(4, 1), dlen]
+
+        def eager(b, s, t, d):
+            return e.drafter.draft(p, e.kv.pools, b, s, t, d, None, None,
+                                   None, None, greedy=True)[:2]
+    else:
+        drafts = torch.from_numpy(ints(4, 3).astype(np.int64)).to(card)
+        prog, args = e._jit_verify(4), [
+            bt, sl0, (dlen + (dlen > 0)).astype(np.int32), ints(4, 1),
+            drafts]
+
+        def eager(b, s, n, t, d):
+            return (e.verifier.verify(p, e.kv.pools, b, s, n, torch.cat(
+                [t, d.to(t.dtype)], dim=1))[0],)
+    pools = e.kv.pools
+    snap = {n: t.clone() for n, t in pools.items()}
+    got = prog(*args)
+    got = [t.clone() for t in (got if isinstance(got, tuple) else (got,))]
+    written = {n: t.clone() for n, t in pools.items()}
+    for n, t in pools.items():
+        t.copy_(snap[n])
+    want = eager(*[torch.from_numpy(a).to(card) if isinstance(a, np.ndarray)
+                   else a for a in args])
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    # block 0 left out: the null block takes every padded position's
+    # write, and which of several writes to one slot lands is not defined
+    for n in pools:
+        assert torch.equal(written[n][:, 1:], pools[n][:, 1:])
+    assert any(not torch.equal(written[n][:, 1:], snap[n][:, 1:])
+               for n in pools)
+    assert e.programs.made[entry] == 1
+
+
+def _gate_program(card, m=16, k=96, n=512, t=64, c=8, keep=1.0):
+    """A program around K1 alone, at a gate that overflows T/C when
+    ``keep`` is 1 (as GATE_SHAPES' overflowing case); its input is x in
+    float32 on the host."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.graphs import Program
+    x, wg, _, _ = _gate(m, k, n, keep, 0, card)
+    prog = Program(lambda xf: ops.twell_gate_matmul(
+        xf.to(torch.bfloat16), wg, t, c).values,
+        [x.float().cpu().numpy()], card)
+    return prog, x.float().cpu().numpy()
+
+
+def test_overflow_seen_through_replay_after_reset(card):
+    """The captured graph ORs into the flag the log reads, also after a
+    ``reset()`` (which zeroes the flag in place), and a replay on a gate
+    that does not overflow leaves it clear."""
+    from repro_torch.kernels import ops
+    prog, x = _gate_program(card)
+    for _ in range(2):
+        ops.OverflowLog.reset()
+        assert not ops.OverflowLog.seen()
+        prog(x)
+        torch.cuda.synchronize()
+        assert ops.OverflowLog.seen()
+    ops.OverflowLog.reset()
+    prog(np.zeros_like(x))
+    torch.cuda.synchronize()
+    assert not ops.OverflowLog.seen()
+
+
+def test_replay_adds_captured_launch_counts(card):
+    """A program's capture counts no launch; each replay adds what the
+    capture recorded."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    prog, x = _gate_program(card, keep=0.1)
+    # the eager run before capture launched K1 once; the capture, nothing
+    assert ops.launch_counts()["twell_gate_matmul"] == 1
+    assert prog.launches == {"twell_gate_matmul": 1}
+    for i in range(1, 4):
+        prog(x)
+        assert ops.launch_counts()["twell_gate_matmul"] == 1 + i
+    eager = ops.twell_gate_matmul(torch.from_numpy(x).to(card).bfloat16(),
+                                  _gate(16, 96, 512, 0.1, 0, card)[1], 64, 8)
+    assert torch.equal(prog(x), eager.values)
+
+
+def test_failed_capture_raises_and_keeps_no_program(card):
+    """No fallback: an entry that cannot be captured (a host sync) raises,
+    every time it is asked for, and no program is kept or counted."""
+    from repro_torch.serving.graphs import ProgramCache
+    cache = ProgramCache(card)
+    w = torch.ones(8, device=card)
+
+    def fn(x):
+        return x * float((x @ w).sum())          # a host sync: not capturable
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            cache.get("decode", (1,), fn,
+                      lambda: [np.ones((4, 8), np.float32)])
+    assert cache.made["decode"] == 0 and not cache._programs

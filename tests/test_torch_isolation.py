@@ -46,7 +46,7 @@ def test_no_jax_or_jax_package_import(path):
 def test_walk_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "lm.py", "ops.py", "bridge.py", "build.py",
-            "chip_smoke.py"} <= names
+            "pipeline.py", "graphs.py", "chip_smoke.py"} <= names
 
 
 @pytest.fixture
