@@ -35,7 +35,10 @@ JAX package) and runs these phases, each printing one JSON line:
                  backward on the train phase's pattern and forward on a
                  pattern scattered over all N, with their host time a call
                  and the mean column union of a 128-row block (K8 also on
-                 an f32 W, with a digest of its output's bits)
+                 an f32 W, with a digest of its output's bits), K8 forward
+                 and backward and K9 backward at olmo-1b's N 8192; K7 at
+                 the train phase's batch with 32 heads of 64, one 4096-token
+                 row, and olmo-1b's 16 heads of 128
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache; every step entry a CUDA graph, captured at the first
@@ -80,16 +83,36 @@ JAX package) and runs these phases, each printing one JSON line:
                  busy share of a profiled step, beside the same steps with
                  the dense FFN; then a float32 gradient check of one hybrid
                  FFN layer against autograd of the dense formula
+  7b. remat   -- the same model, hybrid FFN and batch: one loss and
+                 gradient under each ``remat`` mode (none, dots, full,
+                 2level) from the same weights, each bitwise equal to
+                 none's, then REMAT_STEPS steps a mode (equal losses); the
+                 peak of the gradient and of the steps, none > dots > full
+                 asserted, and the step times
+  7c. train_1p5b -- paper-1.5b at full width and all 28 layers, hybrid and
+                 dense, each at remat none and full, P15_STEPS steps each
+                 (TRAIN_BATCH rows unless dense at none does not fit:
+                 then the largest batch it fits, for all four): peaks,
+                 step times, tokens/s, the hybrid/dense peak ratio; hybrid
+                 below dense at none asserted
+  7d. train_olmo -- olmo-1b at full width and depth under its own remat
+                 (full), hybrid (non-gated) then dense, OLMO_TRAIN_STEPS
+                 steps each: K7 at head dim 128, K8 and K9 launched, rows on
+                 both sides of the format, no overflow, a falling loss
   8. check    -- the same weights in float32 on the CPU (plain versions)
                  against the card: prefill plus 4 decode steps of two prompts
                  through the gather path and one through tile_skip, logits
                  within a stated tolerance; the same for two prompts through
                  olmo-1b's first 2 layers (K1 + K6); and one training step
-                 (2 layers, 1 x 256 tokens, hybrid): loss and every gradient
+                 (2 layers, 1 x 256 tokens, hybrid) of paper-0.5b and of
+                 olmo-1b (under its remat, full): loss and every gradient
                  leaf
-  9. the kernel table ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, olmo serve and hybrid train runs), then the last line
-     ``{"ok": true, "device": {...}}``.
+  9. each phase's wall seconds and the script's total (``{"phase":
+     "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
+     ``{"kernels": [...]}`` (launches summed over the serve,
+     spec, pipelined, olmo serve, hybrid train, remat, paper-1.5b and olmo
+     train runs; a recomputed layer's kernels count again), then the last
+     line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no last line. It
 exits non-zero without a card and when the repo's ``src/`` is absent.
@@ -101,9 +124,10 @@ twell_down_proj, paged_decode_attention, paged_chunk_attention,
 flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
-the last line. ``--src DIR --train-only`` runs phases 1, 2 and 7 (the
-training step's times and peak memory) on that port, without the last
-line.
+the last line. ``--train-phases train`` (or any of train, remat,
+train_1p5b, train_olmo and check_train, comma-separated) runs phases 1-2
+and those training phases (step times, peak memory), on the port under
+``--src`` if given, without the last line.
 ``--k1-plans`` runs phases 1-2 and then K1 at each of its timed shapes under
 the launch plans around ``gate_plan``'s (cluster size, rows a block, ring
 depth), each checked against the plain version and timed beside the
@@ -113,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import statistics
@@ -161,10 +186,12 @@ def parse_args(argv):
                     help="comma-separated kernel names: run only the device, "
                          "build and kernels phases, for those kernels, and "
                          "print their table (no last line); for A/B timing")
-    ap.add_argument("--train-only", action="store_true",
-                    help="run only the device, build and train phases on "
-                         "the port under --src (no last line); for A/B "
-                         "timing of the training step")
+    ap.add_argument("--train-phases", default=None,
+                    help="comma-separated training phases (train, remat, "
+                         "train_1p5b, train_olmo, check_train): run only the "
+                         "device and build phases and those, on the port "
+                         "under --src (no last line); for A/B timing of "
+                         "the training step")
     ap.add_argument("--k1-plans", action="store_true",
                     help="run only the device and build phases and K1 at "
                          "each of K1_SHAPES under the launch plans around "
@@ -172,6 +199,9 @@ def parse_args(argv):
                          "depth), each checked and timed (no last line); "
                          "for tuning the plan")
     return ap.parse_args(argv)
+
+
+START = time.perf_counter()
 
 
 def main(argv=None) -> int:
@@ -195,8 +225,15 @@ def main(argv=None) -> int:
         phase_k1_plans(torch)
         print(smi, flush=True)
         return 0
-    if args.train_only:
-        phase_train(torch)
+    if args.train_phases:
+        names = args.train_phases.split(",")
+        unknown = [n for n in names if n not in TRAIN_PHASES]
+        if unknown:
+            print(f"chip_smoke: unknown training phases {unknown}; "
+                  f"choose from {sorted(TRAIN_PHASES)}", file=sys.stderr)
+            return 2
+        for name in names:
+            TRAIN_PHASES[name](torch)
         print(smi, flush=True)
         return 0
     if args.kernels is not None:
@@ -205,17 +242,30 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         emit({"kernels": kernels, "src": str(src)})
         return 0
-    kernels = phase_kernels(torch)
-    serve = phase_serve(torch)
-    spec = phase_spec(torch, serve)
-    pipe = phase_pipeline(torch, serve, spec)
-    olmo = phase_serve_olmo(torch, serve)
-    train = phase_train(torch)
-    phase_check(torch, serve, olmo)
-    k5_splits(torch)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+    kernels = timed("kernels", phase_kernels)
+    serve = timed("serve", phase_serve)
+    spec = timed("spec", phase_spec, serve)
+    pipe = timed("pipeline", phase_pipeline, serve, spec)
+    olmo = timed("serve_olmo", phase_serve_olmo, serve)
+    train = timed("train", phase_train)
+    remat = timed("remat", phase_remat)
+    p15 = timed("train_1p5b", phase_train_1p5b)
+    olmo_train = timed("train_olmo", phase_train_olmo)
+    timed("check", phase_check, serve, olmo)
+    timed("k5_splits", k5_splits)
+    emit({"phase": "seconds", "seconds": seconds,
+          "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
-        k["launches"] = sum(run["launches"][k["name"]] for run in
-                            (serve, spec, pipe, olmo, train))
+        k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
+                            (serve, spec, pipe, olmo, train, remat, p15,
+                             olmo_train))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -862,13 +912,23 @@ def check_k7(torch, timer, b, s, h, hd, gen):
             "B": b, "S": s, "H": h, "hd": hd}
 
 
-def hybrid_inputs(torch, gen):
+def k7_cases(torch, timer, gen):
+    """K7 at the train phase's batch (paper-0.5b: 32 heads of 64), one
+    4096-token row, and olmo-1b's training shape (16 heads of 128)."""
+    return [check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 64, gen),
+            check_k7(torch, timer, 1, 4096, 32, 64, gen),
+            check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 16, 128, gen)]
+
+
+def hybrid_inputs(torch, gen, n=5632, scattered=True):
     """The train phase's FFN at full width (M = 8192 tokens, K 2048, N
     5632, ELL width 128, backup M/8) with TRAIN_ALIVE gate columns alive:
     x, the packed gate hg (its pattern), W_u, W_d, a gradient gy, and a
-    pattern hs scattered over all N columns."""
+    pattern hs scattered over all N columns (None without ``scattered``).
+    With N 8192 the same for olmo-1b's non-gated FFN, hg then the packed
+    relu(x @ W_u) with TRAIN_ALIVE columns of W_u alive."""
     from repro_torch.core import hybrid as hyb
-    m, k, n = TRAIN_BATCH * TRAIN_SEQ, 2048, 5632
+    m, k = TRAIN_BATCH * TRAIN_SEQ, 2048
     x = (torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
     wg = (torch.randn((k, n), generator=gen, device="cuda") * 0.02
           * alive_columns(torch, gen, n)).bfloat16()
@@ -878,6 +938,8 @@ def hybrid_inputs(torch, gen):
     g = torch.relu(x @ wg)
     hg = hyb.pack(g, 128, m // 8, mask=g > 0)
     assert not bool(hg.overflow), "the K8/K9 inputs overflow the backup"
+    if not scattered:
+        return x, hg, wu, wd, gy, None
     # K9's worst case: each row's columns drawn independently over all N,
     # ~108 a row (as many as hg's), so a 128-row block's union is near N
     scat = torch.rand((m, n), generator=gen, device="cuda") < 108 / n
@@ -1167,9 +1229,7 @@ def phase_kernels(torch, only=None):
                 check_k4(torch, timer, 32, 32, gen),
                 check_k4(torch, timer, 32, 8, gen),
                 check_k4(torch, timer, 16, 16, gen, hd=128)],
-            "flash_attention": lambda: [
-                check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 64, gen),
-                check_k7(torch, timer, 1, 4096, 32, 64, gen)],
+            "flash_attention": lambda: k7_cases(torch, timer, gen),
             "tile_skip_ffn": lambda: k5_cases(torch, timer, gen),
             "paged_decode_attention": lambda: [
                 check_k3(torch, timer, 32, 32, gen),
@@ -1198,13 +1258,20 @@ def phase_kernels(torch, only=None):
                                   check_k4(torch, timer, 16, 16, gen,
                                            hd=128)],
         "tile_skip_ffn": k5_cases(torch, timer, gen),
-        "flash_attention": [check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ,
-                                     32, 64, gen),
-                            check_k7(torch, timer, 1, 4096, 32, 64, gen)],
+        "flash_attention": k7_cases(torch, timer, gen),
     }
     hybrid = hybrid_inputs(torch, gen)
     cases["hybrid_to_dense"] = k8_cases(torch, timer, hybrid)
     cases["dense_to_hybrid"] = k9_cases(torch, timer, hybrid)
+    # olmo-1b's non-gated hybrid FFN (phase train_olmo): K8 forward and
+    # backward, K9 backward (its forward packs relu(x @ W_u) directly)
+    hybrid = hybrid_inputs(torch, gen, n=8192, scattered=False)
+    olmo = {"arch": "olmo-1b"}
+    cases["hybrid_to_dense"] += [
+        {**check_k8(torch, timer, hybrid, orient), **olmo}
+        for orient in ("forward", "backward")]
+    cases["dense_to_hybrid"].append(
+        {**check_k9(torch, timer, hybrid, "backward"), **olmo})
     del hybrid
     return kernel_table(torch, cases)
 
@@ -1790,20 +1857,27 @@ TRAIN_KERNELS = ("flash_attention", "hybrid_to_dense", "dense_to_hybrid")
 
 def train_setup(torch, cfg):
     """Seeded random weights of ``cfg`` on the card with TRAIN_ALIVE of
-    every layer's gate columns alive, as the trainable tree."""
+    every layer's pattern columns alive (W_g's, or W_u's in a non-gated
+    FFN), as the trainable tree."""
     from repro_torch.models import lm
     params = lm.init(cfg, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for wg in params["blocks"]["ffn"]["wg"]:
-        wg *= alive_columns(torch, gen, cfg.d_ff).to(wg)
+    ffn = params["blocks"]["ffn"]
+    for w in ffn["wg"] if cfg.gated else ffn["wu"]:
+        w *= alive_columns(torch, gen, cfg.d_ff).to(w)
     return lm.trainable(params)
 
 
-def train_config(impl, layers=None):
+def train_config(impl, layers=None, arch="paper-0.5b", remat="none"):
+    """``arch`` with the FFN trained as ``impl``, under ``remat`` (the
+    train phase and the check keep every activation, as they always
+    have; None keeps the config's own mode)."""
     from repro_torch.configs import get_config
-    cfg = get_config("paper-0.5b")
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
         cfg.sparsity, ffn_impl=impl))
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     return cfg
@@ -1937,6 +2011,251 @@ def grad_check(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 7b-7d. training at the paper's scale: recomputation, paper-1.5b, olmo-1b
+# --------------------------------------------------------------------------- #
+
+REMAT_MODES = ("none", "dots", "full", "2level")
+REMAT_STEPS = 2
+P15_STEPS = 3
+P15_BATCHES = (8, 6, 4, 2, 1)      # tried in turn until dense at remat
+#                                    "none" fits TRAIN_SEQ tokens a row
+OLMO_TRAIN_STEPS = 5
+
+
+def peak_of(torch, fn):
+    """(fn(), max_memory_allocated over it, after reset_peak_memory_stats:
+    whatever was allocated before counts too)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def train_steps(torch, cfg, batches, params=None):
+    """AdamW steps of ``cfg`` through the port's make_train_step, one a
+    batch, from ``params`` (default: ``train_setup``'s; the update makes
+    new tensors, so a caller's tree is left as it was). First one loss and
+    gradient on the first batch with the optimizer state allocated: its
+    peak (``grad_peak_mem_bytes``) is the forward and backward's, which
+    the step's can hide under AdamW's (the update allocates the new
+    parameters, m and v, and float32 temporaries, before the old ones go).
+    Launch counts, the hybrid log and the step peak (``peak_mem_bytes``,
+    the parameters and optimizer state included) cover exactly the
+    steps."""
+    from repro_torch import training
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.observability import accounting
+    from repro_torch.optim import adamw
+    params = train_setup(torch, cfg) if params is None else params
+    n_params = accounting.param_count(params)
+    opt = adamw.init(params)
+    _, grad_peak = peak_of(torch, lambda: loss_and_grads(
+        torch, params, batches[0], cfg)[0])
+    step = training.make_train_step(cfg, TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=len(batches) + 1))
+    ops.HybridOverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, b)
+        losses.append(float(metrics["loss"]))     # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ell_rows, backup_rows = ops.HybridOverflowLog.rows()
+    median = statistics.median(step_ms[1:] or step_ms)
+    tokens = batches[0]["tokens"].numel()
+    return {"arch": cfg.name, "impl": cfg.sparsity.ffn_impl,
+            "remat": cfg.remat, "layers": cfg.num_layers,
+            "batch": list(batches[0]["tokens"].shape),
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_median_after_first": median,
+            "tokens_per_s": tokens / median * 1e3,
+            # dense-equivalent 6 N D over the median step against the
+            # card's bf16 peak (observability/accounting.py)
+            "mfu": accounting.mfu(accounting.model_flops(
+                cfg, n_params, tokens, train=True), median / 1e3),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "grad_peak_mem_bytes": grad_peak,
+            "launches": ops.launch_counts(),
+            "hybrid_overflow": ops.HybridOverflowLog.seen(),
+            "ell_rows": ell_rows, "backup_rows": backup_rows}
+
+
+def summed_launches(runs):
+    out = {}
+    for run in runs:
+        for k, n in run["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def assert_trained(run, kernels):
+    """Each of ``kernels`` launched, finite losses that fall; for the
+    hybrid FFN rows on both sides of the format and no overflow."""
+    what = f"{run['arch']} {run['impl']} remat={run['remat']}"
+    missing = [k for k in kernels if run["launches"].get(k, 0) == 0]
+    assert not missing, f"{what}: {missing} never launched"
+    losses = run["losses"]
+    assert all(x == x and abs(x) != float("inf") for x in losses), \
+        f"{what}: non-finite loss {losses}"
+    assert losses[-1] < losses[0], f"{what}: the loss did not fall {losses}"
+    if run["impl"] == "hybrid":
+        assert not run["hybrid_overflow"], f"{what}: the backup overflowed"
+        assert run["ell_rows"] > 0 and run["backup_rows"] > 0, \
+            f"{what}: a side of the hybrid format is empty " \
+            f"({run['ell_rows']} ELL, {run['backup_rows']} backup rows)"
+
+
+def phase_remat(torch):
+    """paper-0.5b at full width and depth, hybrid FFN with TRAIN_ALIVE
+    columns, TRAIN_BATCH x TRAIN_SEQ tokens: one loss and gradient under
+    each of ``remat`` none, dots, full and 2level from the same parameters
+    and batch, each bitwise equal to none's (recomputation reruns the same
+    kernels, which use no atomics, on the same inputs), then REMAT_STEPS
+    AdamW steps a mode (the same losses bit for bit). Peak memory and step
+    time of each; peak(none) > peak(dots) > peak(full) asserted, 2level
+    reported beside full. Recomputed kernels count again: the launches of
+    a mode's gradient show it."""
+    from repro_torch.kernels import ops
+    cfg0 = train_config("hybrid")
+    params = train_setup(torch, cfg0)
+    batches = train_batches(torch, cfg0, TRAIN_BATCH, TRAIN_SEQ,
+                            1 + REMAT_STEPS)
+    ref, modes, runs = None, {}, []
+    for mode in REMAT_MODES:
+        cfg = dataclasses.replace(cfg0, remat=mode)
+        ops.reset_launch_counts()
+        (loss, grads), grad_peak = peak_of(torch, lambda: loss_and_grads(
+            torch, params, batches[0], cfg))
+        grad_launches = {k: n for k, n in ops.launch_counts().items()
+                         if k in TRAIN_KERNELS}
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if ref is None:
+            ref = (loss, grads)
+        unequal = {k: float((g.float() - ref[1][k].float()).abs().max())
+                   for k, g in grads.items() if not torch.equal(g, ref[1][k])}
+        del grads
+        run = train_steps(torch, cfg, batches[1:], params=params)
+        runs.append(run)
+        modes[mode] = {"loss": loss, "loss_equal": loss == ref[0],
+                       "unequal_grads": unequal,
+                       "grad_peak_mem_bytes": grad_peak,
+                       "grad_launches": grad_launches,
+                       **{k: run[k] for k in (
+                           "losses", "step_ms",
+                           "step_ms_median_after_first", "peak_mem_bytes",
+                           "launches")}}
+        torch.cuda.empty_cache()
+    res = {"phase": "remat", "arch": cfg0.name, "impl": "hybrid",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": REMAT_STEPS,
+           "modes": modes}
+    emit(res)
+    for mode, m in modes.items():
+        assert m["loss_equal"] and not m["unequal_grads"], \
+            f"remat={mode}: loss or gradients differ from none's: " \
+            f"{m['loss']} vs {modes['none']['loss']}, {m['unequal_grads']}"
+        assert m["losses"] == modes["none"]["losses"], \
+            f"remat={mode}: step losses differ from none's"
+    for key in ("peak_mem_bytes", "grad_peak_mem_bytes"):
+        peaks = [modes[m][key] for m in ("none", "dots", "full")]
+        assert peaks[0] > peaks[1] > peaks[2], \
+            f"{key} not none > dots > full: {peaks}"
+    for run in runs:
+        missing = [k for k in TRAIN_KERNELS if run["launches"][k] == 0]
+        assert not missing, f"remat={run['remat']}: {missing} never launched"
+        assert not run["hybrid_overflow"]
+    return {"launches": summed_launches(runs)}
+
+
+def p15_run(torch, impl, remat, batch):
+    """P15_STEPS steps of paper-1.5b at full width and all 28 layers, or
+    None where they do not fit the card."""
+    cfg = train_config(impl, arch="paper-1.5b", remat=remat)
+    try:
+        return train_steps(torch, cfg, train_batches(
+            torch, cfg, batch, TRAIN_SEQ, P15_STEPS))
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_train_1p5b(torch):
+    """paper-1.5b (28 layers, d_model 2048, d_ff 5632) at full width and
+    depth in bf16, the train phase's TRAIN_ALIVE columns a layer, hybrid
+    and dense, each at remat none (the paper's Table 1 comparison) and full
+    (the config's own), P15_STEPS steps each. The batch is TRAIN_BATCH x
+    TRAIN_SEQ unless dense at none does not fit: then all four take the
+    largest of P15_BATCHES rows that dense at none fits. Peak memory,
+    step time and tokens/s of each, the hybrid/dense peak ratio at each
+    mode; hybrid's peak below dense's at none asserted."""
+    free, total = torch.cuda.mem_get_info()
+    tried = []
+    for batch in P15_BATCHES:
+        dense_none = p15_run(torch, "dense", "none", batch)
+        if dense_none is not None:
+            break
+        tried.append(batch)
+    assert dense_none is not None, "paper-1.5b does not train on the card"
+    runs = {("dense", "none"): dense_none}
+    for impl, remat in (("dense", "full"), ("hybrid", "none"),
+                        ("hybrid", "full")):
+        run = p15_run(torch, impl, remat, batch)
+        assert run is not None, f"paper-1.5b {impl} remat={remat} at " \
+            f"batch {batch} ran out of memory"
+        runs[(impl, remat)] = run
+    res = {"phase": "train_1p5b", "arch": "paper-1.5b",
+           "batch": [batch, TRAIN_SEQ], "batches_not_fitting": tried,
+           "card_free_bytes_before": free, "card_total_bytes": total,
+           "runs": [r for r in runs.values()],
+           "hybrid_over_dense_peak": {
+               key: {m: runs[("hybrid", m)][key] / runs[("dense", m)][key]
+                     for m in ("none", "full")}
+               for key in ("peak_mem_bytes", "grad_peak_mem_bytes")}}
+    emit(res)
+    for (impl, _), run in runs.items():
+        assert_trained(run, TRAIN_KERNELS if impl == "hybrid"
+                       else ("flash_attention",))
+    for key, ratio in res["hybrid_over_dense_peak"].items():
+        assert ratio["none"] < 1, \
+            f"paper-1.5b: the hybrid {key} is not below dense's at none"
+    return {"launches": summed_launches(runs.values())}
+
+
+def phase_train_olmo(torch):
+    """olmo-1b (16 layers, 16 heads of 128, non-gated d_ff 8192, non-
+    parametric LayerNorm) at full width and depth in bf16 under its own
+    remat ("full"), TRAIN_ALIVE of every layer's W_u columns alive (as many
+    as the train phase keeps of W_g: rows on both sides of the hybrid
+    format and no backup overflow), TRAIN_BATCH x TRAIN_SEQ tokens: the
+    hybrid (non-gated) FFN then the dense one, OLMO_TRAIN_STEPS steps each.
+    K7 at hd 128, K8 and K9 launched, finite and falling loss."""
+    from repro_torch.configs import get_config
+    remat = get_config("olmo-1b").remat
+    runs = []
+    for impl in ("hybrid", "dense"):
+        cfg = train_config(impl, arch="olmo-1b", remat=remat)
+        runs.append(train_steps(torch, cfg, train_batches(
+            torch, cfg, TRAIN_BATCH, TRAIN_SEQ, OLMO_TRAIN_STEPS)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    hybrid, dense = runs
+    emit({"phase": "train_olmo", "arch": "olmo-1b", "remat": remat,
+          "alive_columns": TRAIN_ALIVE, "runs": runs,
+          "hybrid_over_dense_peak": {
+              key: hybrid[key] / dense[key]
+              for key in ("peak_mem_bytes", "grad_peak_mem_bytes")}})
+    assert_trained(hybrid, TRAIN_KERNELS)
+    assert_trained(dense, ("flash_attention",))
+    return {"launches": summed_launches(runs)}
+
+
+# --------------------------------------------------------------------------- #
 # 8. the same weights in float32 on the CPU
 # --------------------------------------------------------------------------- #
 
@@ -2037,7 +2356,8 @@ def phase_check(torch, serve, olmo):
                        "engine_first_token": engine_first,
                        "cpu_first_token": int(ref[0].argmax())})
     emit({"phase": "check", "tolerance": LOGIT_TOL, "prompts": report,
-          "train_step": check_train(torch)})
+          "train_step": check_train(torch),
+          "train_step_olmo": check_train(torch, "olmo-1b", remat=None)})
 
 
 def loss_and_grads(torch, params, batch, cfg):
@@ -2050,10 +2370,12 @@ def loss_and_grads(torch, params, batch, cfg):
     return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
 
 
-def check_train(torch):
-    """One training step's loss and gradients at full width, 2 layers,
-    batch 1 x 256, hybrid FFN: the card (bf16, kernels K7-K9) against the
-    CPU (float32, the plain versions) on the same weights. Tolerance: loss
+def check_train(torch, arch="paper-0.5b", remat="none"):
+    """One training step's loss and gradients of ``arch`` at full width, 2
+    layers, batch 1 x 256, hybrid FFN, under ``remat`` (None: the
+    config's; olmo-1b recomputes, ``full``): the card (bf16, kernels
+    K7-K9) against the CPU (float32, the plain versions) on the same
+    weights. Tolerance: loss
     within TRAIN_LOSS_TOL relative; each gradient leaf within
     TRAIN_GRAD_TOL relative (Frobenius norm of the difference over the
     CPU's). A bf16 value carries 8 significant bits (2^-9 relative per
@@ -2067,7 +2389,7 @@ def check_train(torch):
     import numpy as np
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
-    cfg = train_config("hybrid", layers=2)
+    cfg = train_config("hybrid", layers=2, arch=arch, remat=remat)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     batch = train_batches(torch, cfg, 1, 256, 1)[0]
     params = train_setup(torch, cfg)
@@ -2084,10 +2406,21 @@ def check_train(torch):
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     assert np.isfinite(card_loss) and loss_rel <= TRAIN_LOSS_TOL, \
         f"loss: card {card_loss} vs CPU {cpu_loss}"
-    return {"layers": 2, "batch": 1, "seq": 256, "card_loss": card_loss,
+    return {"arch": arch, "remat": cfg.remat, "layers": 2, "batch": 1,
+            "seq": 256, "card_loss": card_loss,
             "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
             "loss_tolerance": TRAIN_LOSS_TOL,
             "grad_tolerance": TRAIN_GRAD_TOL, "grad_rel_err": rel}
+
+
+TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
+                "train_1p5b": phase_train_1p5b,
+                "train_olmo": phase_train_olmo,
+                "check_train": lambda torch: emit({
+                    "phase": "check_train",
+                    "train_step": check_train(torch),
+                    "train_step_olmo": check_train(torch, "olmo-1b",
+                                                   remat=None)})}
 
 
 if __name__ == "__main__":

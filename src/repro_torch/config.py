@@ -86,7 +86,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     opt_state_dtype: str = "float32"   # bf16 for the very large archs
-    remat: str = "full"             # none | full | dots
+    remat: str = "full"             # none | full | dots | 2level
     # ---- technique -----------------------------------------------------------
     sparsity: SparsityConfig = field(default_factory=SparsityConfig)
     # ---- provenance ----------------------------------------------------------

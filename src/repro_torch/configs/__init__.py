@@ -14,6 +14,7 @@ from repro_torch.config import ModelConfig
 # public id -> module name
 _REGISTRY: Dict[str, str] = {
     "paper-0.5b": "paper_0p5b",
+    "paper-1.5b": "paper_1p5b",
     "olmo-1b": "olmo_1b",
 }
 

@@ -116,3 +116,13 @@ def fused_ffn_reference(x: torch.Tensor, tw: TwellActs, w_u: torch.Tensor,
     hu = torch.einsum("mk,mck->mc", x, wu_cols)          # sparse h_u elements
     contrib = (vals * hu)[..., None] * w_d[idx]          # (M, N/C, K)
     return contrib.sum(dim=1).to(x.dtype)
+
+
+def tile_activity(tw: TwellActs, row_block: int) -> torch.Tensor:
+    """Per-(row-block, tile) activity: max nnz within the block. A tile is
+    dead for a whole row block iff every row's count is zero (what the
+    tile-skip kernel K5 skips)."""
+    m, nt = tw.nnz.shape
+    if m % row_block:
+        raise ValueError(f"{m} rows do not split into blocks of {row_block}")
+    return tw.nnz.reshape(m // row_block, row_block, nt).amax(dim=1)

@@ -17,17 +17,27 @@ every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
 onto the other leaf for leaf. The layer stack is a Python loop (the JAX
 package scans); the training forward unbinds the stacked leaves once, so
 autograd sums each layer's gradient into one slice, not into a zero tensor
-the size of the whole stack per layer. ``remat`` (the JAX package's
-recomputation of layer activations in the backward) is not ported: the
-training forward keeps every layer's activations. The KV pools are
-updated in place; the paged entry points return them anyway, in the JAX
+the size of the whole stack per layer. The training forward runs its layers
+through ``stacked_layers``, which applies ``cfg.remat`` as the JAX
+package's ``stacked_scan`` does (``none``, ``full``, ``dots``, ``2level``);
+the paged serving entry points run no backward and ignore it. The KV pools
+are updated in place; the paged entry points return them anyway, in the JAX
 package's ``(logits, pools)`` shape.
+
+Recomputation runs a layer's forward again in the backward, kernels
+included, so they count again in ``ops.launch_counts()`` and every hybrid
+pack again in ``ops.HybridOverflowLog.rows()``: once more a layer under
+``full`` and ``dots``; under ``2level`` once more for the last layer of
+each group and twice more for the others (a group's recomputation stops
+once it has rebuilt the inputs its inner checkpoints saved).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
@@ -182,23 +192,103 @@ def _unstack(tree, n: int):
     return list(torch.unbind(tree))
 
 
+REMAT_MODES = ("none", "full", "dots", "2level")
+
+# the matrix products without batch dimensions, which ``dots`` keeps (JAX's
+# dots_with_no_batch_dims_saveable); bmm and the hand-written kernels
+# (K7-K9, launched outside the dispatcher) are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, context_fn=None):
+    """fn recomputed in the backward from its inputs (non-reentrant, with
+    the default determinism check: a recomputed saved tensor whose shape,
+    dtype or device differs raises)."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return _checkpointed(fn, functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    return _checkpointed(fn)
+
+
+def _split_depth(l: int) -> Tuple[int, int]:
+    """Pick (g_out, g_in) with g_out*g_in == l minimizing stored+transient."""
+    best = (l, 1)
+    for g_in in range(1, l + 1):
+        if l % g_in == 0:
+            g_out = l // g_in
+            if g_out + g_in < best[0] + best[1]:
+                best = (g_out, g_in)
+    return best
+
+
+def stacked_layers(body, x, layers, cfg: ModelConfig):
+    """Run ``body(x, p) -> (x, aux)`` over the per-layer trees ``layers``
+    under ``cfg.remat``, as the JAX package's ``stacked_scan``: ``none``
+    keeps every activation, ``full`` keeps each layer's input and
+    recomputes the layer in the backward, ``dots`` keeps the outputs of
+    the matrix products without batch dimensions as well, ``2level``
+    checkpoints ``_split_depth(L)`` groups and each layer inside them (the
+    ``full`` path below 4 layers). Returns (x, aux stacked per layer)."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT_MODES}")
+    auxs = []
+    if cfg.remat != "2level" or len(layers) < 4:
+        step = _maybe_remat(body, cfg)
+        for p in layers:
+            x, aux = step(x, p)
+            auxs.append(aux)
+    else:
+        g_out, g_in = _split_depth(len(layers))
+        inner = _checkpointed(body)
+
+        def group(xc, ps):
+            out = []
+            for p in ps:
+                xc, aux = inner(xc, p)
+                out.append(aux)
+            return xc, out
+        outer = _checkpointed(group)
+        for g in range(g_out):
+            x, out = outer(x, layers[g * g_in:(g + 1) * g_in])
+            auxs += out
+    return x, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig):
     """Training forward of the dense family: tokens (B, S) -> (logits
     (B, S, V), aux), aux stacked per layer as the JAX package stacks it
     (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``, ``tile_frac``,
-    ``ffn_present`` = 1, ``moe_balance`` = 0)."""
+    ``ffn_present`` = 1, ``moe_balance`` = 0); the layers run under
+    ``cfg.remat`` (``stacked_layers``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     kind = _attn_kind(cfg)
-    auxs = []
-    for p in _unstack(params["blocks"], cfg.num_layers):
-        x, aux = _block_apply(p, x, cfg, positions, None, True, kind=kind)
-        aux["ffn_present"] = torch.ones((), device=x.device)
-        aux["moe_balance"] = torch.zeros((), device=x.device)
-        auxs.append(aux)
-    aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+
+    def body(xc, p):
+        xc, aux = _block_apply(p, xc, cfg, positions, None, True, kind=kind)
+        aux["ffn_present"] = torch.ones((), device=xc.device)
+        aux["moe_balance"] = torch.zeros((), device=xc.device)
+        return xc, aux
+    x, aux = stacked_layers(body, x, _unstack(params["blocks"],
+                                              cfg.num_layers), cfg)
     x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     return lm_logits(x, head), aux

@@ -18,7 +18,9 @@ launch with its plan's clusters resident, and the hybrid products over both
 sides of the format, bf16 and float32 (K8 and K9 at the train phase's
 batch with 216 columns alive, on a pattern scattered over all N, on a row
 block with no ELL row, each as one launch; K8 with f32 values on a bf16 W
-and, on an f32 W, in the per-row kernel's f32 FMA order). Marked ``cuda``: each
+and, on an f32 W, in the per-row kernel's f32 FMA order), and one
+training step of a 4-layer paper-0.5b under ``remat="full"`` against
+``"none"``: the same gradients bit for bit, a lower peak. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -575,6 +577,7 @@ FLASH_SHAPES = [  # (B, S, H, hd)
     (1, 130, 2, 16),          # head dim padded to 32
     (1, 200, 2, 40),          # head dim padded to 64
     (2, 1024, 4, 64),
+    (2, 1024, 4, 128),        # olmo-1b's training shape: hd 128, S 1024
 ]
 
 
@@ -1045,3 +1048,44 @@ def test_failed_capture_raises_and_keeps_no_program(card):
             cache.get("decode", (1,), fn,
                       lambda: [np.ones((4, 8), np.float32)])
     assert cache.made["decode"] == 0 and not cache._programs
+
+
+def test_remat_full_equals_none_with_a_lower_peak(card):
+    """One loss and gradient of paper-0.5b at full width, 4 layers, hybrid
+    FFN with 216 gate columns alive, 4 x 1024 tokens, under remat "none"
+    and "full" from the same weights and batch: the loss and every
+    gradient equal bit for bit (recomputation reruns the same kernels,
+    which use no atomics), and full's peak memory below none's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_path, tree_map
+    base = get_config("paper-0.5b")
+    base = dataclasses.replace(base, num_layers=4, sparsity=dataclasses
+                               .replace(base.sparsity, ffn_impl="hybrid"))
+    params = lm.trainable(lm.init(base, device=card, seed=0))
+    gen = torch.Generator(device=card).manual_seed(1)
+    for wg in params["blocks"]["ffn"]["wg"]:
+        alive = torch.zeros(base.d_ff, device=card)
+        alive[torch.randperm(base.d_ff, generator=gen, device=card)[:216]] = 1
+        wg *= alive.to(wg)
+    tokens = torch.randint(0, base.vocab_size, (4, 1025), generator=gen,
+                           device=card, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {}
+    for mode in ("none", "full"):
+        cfg = dataclasses.replace(base, remat=mode)
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        named = list(leaves_with_path(live))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = lm.loss_fn(live, batch, cfg)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        torch.cuda.synchronize()
+        out[mode] = (loss.detach(), grads, torch.cuda.max_memory_allocated())
+        del live, named, loss
+    (l0, g0, p0), (l1, g1, p1) = out["none"], out["full"]
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    assert p1 < p0, (p1, p0)

@@ -46,7 +46,8 @@ def test_no_jax_or_jax_package_import(path):
 def test_walk_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "lm.py", "ops.py", "bridge.py", "build.py",
-            "pipeline.py", "graphs.py", "chip_smoke.py"} <= names
+            "pipeline.py", "graphs.py", "chip_smoke.py", "random.py",
+            "accounting.py", "runlog.py", "paper_1p5b.py"} <= names
 
 
 @pytest.fixture
