@@ -67,6 +67,32 @@ JAX package) and runs these phases, each printing one JSON line:
                  to the first near-tie, its acceptance), and one replay of
                  each entry (decode, prefill, draft, verify) bitwise equal
                  to its eager model call from the same copy of the pools
+  5c. http    -- the serve phase's weights, prompts and engine settings
+                 built through ``EngineSpec`` (pipelined, telemetry with
+                 tracing on) behind ``ServingServer`` on 127.0.0.1, warmed
+                 up by its engine thread: /healthz 200 after the warmup
+                 and no program made after it; the 6 prompts sent at once
+                 (3 plain, 3 over SSE), tokens equal to the pipeline
+                 phase's up to each request's first near-tie; a 7th stream
+                 dropped after 2 chunks ends cancelled; /metrics (tokens,
+                 TTFT count, the plan/launch/collect/overlap phases) and
+                 /v1/stats (FFN sparsity above 0.97, FLOPs reduction, MFU)
+                 read back; the Chrome trace under ``build/`` with each
+                 request's QUEUED, PREFILL, DECODE, FINISH or CANCEL; K1-K4
+                 launched over exactly the HTTP traffic; the pool clean,
+                 the server shut down; then tokens/s over HTTP, over a
+                 window of seconds: HTTP_ROUNDS rounds of the wave each
+                 way, interleaved (over HTTP; in process to the engine
+                 thread with 6 waiting threads; with 1), each round's
+                 tokens/s, decode step, sync and busy share, with their
+                 spread; the same prompts in process on warmed engines
+                 with telemetry on and off, pipelined and synchronous,
+                 INPROCESS_ROUNDS rounds each (decode step, sync,
+                 tokens/s, spread), each telemetry hook's host time, the
+                 kernels of a graphed decode step with and without the
+                 sparsity probe, and the static reference loop
+                 (``launch/serve.py:generate``, K1 + K2, plain attention)
+                 against the engine up to each request's first near-tie
   6. serve_olmo -- olmo-1b (non-gated FFN, non-parametric LayerNorm, head
                  dim 128) at full width and depth through the same engine
                  settings and prompts, 98% of every layer's W_u columns
@@ -110,8 +136,9 @@ JAX package) and runs these phases, each printing one JSON line:
   9. each phase's wall seconds and the script's total (``{"phase":
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, olmo serve, hybrid train, remat, paper-1.5b and olmo
-     train runs; a recomputed layer's kernels count again), then the last
+     spec, pipelined, HTTP, olmo serve, hybrid train, remat, paper-1.5b and
+     olmo train runs; a recomputed layer's kernels count again), then the
+     last
      line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no last line. It
@@ -144,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -253,6 +281,7 @@ def main(argv=None) -> int:
     serve = timed("serve", phase_serve)
     spec = timed("spec", phase_spec, serve)
     pipe = timed("pipeline", phase_pipeline, serve, spec)
+    http = timed("http", phase_http, serve, spec, pipe)
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
@@ -264,8 +293,8 @@ def main(argv=None) -> int:
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
-                            (serve, spec, pipe, olmo, train, remat, p15,
-                             olmo_train))
+                            (serve, spec, pipe, http, olmo, train, remat,
+                             p15, olmo_train))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1756,13 +1785,14 @@ def phase_pipeline(torch, serve, spec):
     ties = spec["near_ties"]
     res = {"phase": "pipeline", "arch": cfg.name, "backend": "gather",
            "requests": len(prompts), "new_tokens": n, "near_ties": ties}
-    steps = {}
+    steps, mode_outs = {}, {}
     for mode in ("sync", "pipeline"):
         kw = {"pipeline": mode == "pipeline"}
         engine, outs, wall, launches = warm_run(torch, cfg, params, prompts,
                                                 n, **kw)
         steps[mode] = [(s.decode_batch, s.padded_batch, s.prefill_tokens)
                        for s in engine.stats]
+        mode_outs[mode] = outs
         prof_engine = serving_engine(cfg, params, n, warmup=True, **kw)
         prof = profile_fn(torch, lambda: prof_engine.generate(
             prompts, max_tokens=n))
@@ -1809,7 +1839,408 @@ def phase_pipeline(torch, serve, spec):
         "launches": slaunches}
     res["graph_vs_eager"] = check_graphs(torch, engine)
     emit(res)
+    res["outs"] = mode_outs["pipeline"]
     return res
+
+
+# --------------------------------------------------------------------------- #
+# 5c. the HTTP front end: EngineSpec + telemetry + ServingServer
+# --------------------------------------------------------------------------- #
+
+HTTP_TIMEOUT = 300           # seconds: the limit of every HTTP call
+HTTP_CANCEL_TOKENS = 400     # the dropped stream's max_tokens (never reached)
+HTTP_ROUNDS = 30             # timed rounds of each way of sending the wave
+INPROCESS_ROUNDS = 31        # in-process rounds an engine; the first unread
+
+
+class Http:
+    """JSON and SSE calls to one ``ServingServer``, each with a timeout."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.base = f"http://{srv.host}:{srv.port}"
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.base + path,
+                                    timeout=HTTP_TIMEOUT) as r:
+            body = r.read()
+            return r.status, (json.loads(body) if path != "/metrics"
+                              else body.decode())
+
+    def complete(self, prompt, max_tokens):
+        """A non-streamed completion: its token ids."""
+        import urllib.request
+        req = urllib.request.Request(
+            self.base + "/v1/completions",
+            data=json.dumps({"prompt": prompt,
+                             "max_tokens": max_tokens}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            out = json.load(r)
+        assert out["choices"][0]["finish_reason"] == "length", out
+        return out["choices"][0]["token_ids"]
+
+    def stream(self, prompt, max_tokens, drop_after=None):
+        """A streamed completion: its token ids, read to ``[DONE]``, or its
+        first ``drop_after`` chunks' before the connection is dropped."""
+        import http.client
+        conn = http.client.HTTPConnection(self.srv.host, self.srv.port,
+                                          timeout=HTTP_TIMEOUT)
+        try:
+            conn.request("POST", "/v1/completions",
+                         body=json.dumps({"prompt": prompt,
+                                          "max_tokens": max_tokens,
+                                          "stream": True}),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            assert resp.status == 200, resp.status
+            toks, chunks = [], 0
+            while True:
+                line = resp.fp.readline()
+                assert line, "the stream ended without [DONE]"
+                if not line.startswith(b"data: "):
+                    continue
+                payload = line.strip()[len(b"data: "):]
+                if payload == b"[DONE]":
+                    return toks
+                chunk = json.loads(payload)["choices"][0]
+                toks.extend(chunk["token_ids"])
+                chunks += 1
+                if drop_after is not None and chunks == drop_after:
+                    resp.close()
+                    return toks
+        finally:
+            conn.close()
+
+
+def http_wave(api, prompts, n):
+    """The prompts sent at once, even ones as plain requests and odd ones
+    over SSE, in prompt order 1 ms apart: their token ids and the wave's
+    wall seconds."""
+    import concurrent.futures as cf
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(prompts)) as pool:
+        futs = []
+        for i, p in enumerate(prompts):
+            call = api.complete if i % 2 == 0 else api.stream
+            futs.append(pool.submit(call, p, n))
+            time.sleep(0.001)
+        got = [f.result(timeout=HTTP_TIMEOUT) for f in futs]
+    return got, time.perf_counter() - t0
+
+
+def server_wave(srv, prompts, n, waiters):
+    """The prompts submitted in process to the server's engine thread, no
+    HTTP: ``waiters`` threads wait for them as a plain request's handler
+    does (``wait_finished``, woken by every step's ``notify_all``), each
+    for its share in turn. Their token ids and the wall seconds."""
+    import concurrent.futures as cf
+    t0 = time.perf_counter()
+    handles = [srv.engine.submit(p, max_tokens=n) for p in prompts]
+
+    def wait(group):
+        for h in group:
+            srv.wait_finished(h)
+    with cf.ThreadPoolExecutor(waiters) as pool:
+        list(pool.map(wait, [handles[i::waiters] for i in range(waiters)],
+                      timeout=HTTP_TIMEOUT))
+    wall = time.perf_counter() - t0
+    srv.check()
+    assert all(h.finished for h in handles)
+    return [h.result().token_ids for h in handles], wall
+
+
+def spread(xs):
+    """Median, min and max of a list of numbers."""
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def steps_of(stats):
+    """Means of a run's decode-only steps (wall, sync), its step count and
+    the wall seconds of its steps summed (against the run's wall: the
+    share of it the engine spent inside a step)."""
+    decode = [s for s in stats if s.decode_batch and not s.prefill_tokens]
+    return {"steps": len(stats),
+            "steps_wall_s": sum(s.wall_ms for s in stats) / 1e3,
+            "decode_step_ms_mean": sum(s.wall_ms for s in decode) /
+            len(decode),
+            "sync_ms_mean": sum(s.sync_ms for s in stats) / len(stats)}
+
+
+def server_window(srv, api, prompts, n, rounds=HTTP_ROUNDS):
+    """Tokens/s of the 6-prompt wave on the warmed server, ``rounds``
+    times each way, the ways interleaved a round: over HTTP (3 plain, 3
+    SSE), in process to the engine thread with 6 waiting threads, and
+    with one. Each way's tokens/s a round with their spread, its window
+    (the rounds' summed wall) and its decode step and sync means a round:
+    what separates HTTP's own cost from that of waking the waiters."""
+    engine = srv.engine
+    ways = {"http": lambda: http_wave(api, prompts, n),
+            "server_6_waiters": lambda: server_wave(srv, prompts, n, 6),
+            "server_1_waiter": lambda: server_wave(srv, prompts, n, 1)}
+    rows = {name: [] for name in ways}
+    for _ in range(rounds):
+        for name, wave in ways.items():
+            first = len(engine.stats)
+            got, wall = wave()
+            srv.check()
+            assert all(len(t) == n for t in got), [len(t) for t in got]
+            rows[name].append({"tokens_per_s": len(prompts) * n / wall,
+                               "wall_s": wall,
+                               **steps_of(engine.stats[first:])})
+    return {name: {"rounds": rs,
+                   "window_s": sum(r["wall_s"] for r in rs),
+                   "tokens_per_s": spread([r["tokens_per_s"] for r in rs]),
+                   "decode_step_ms_mean": spread(
+                       [r["decode_step_ms_mean"] for r in rs]),
+                   "sync_ms_mean": spread([r["sync_ms_mean"] for r in rs])}
+            for name, rs in rows.items()}
+
+
+def metric(text, name):
+    """The value of the sample line ``name`` (labels included) in a
+    Prometheus text; None when absent."""
+    for line in text.splitlines():
+        if line.rsplit(" ", 1)[0] == name:
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def request_tracks(doc):
+    """rid -> the span and instant names of its Chrome-trace track."""
+    tracks = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] != "M" and ev["tid"] > 0:
+            tracks.setdefault(ev["tid"] - 1, []).append(ev["name"])
+    return tracks
+
+
+def inprocess_run(torch, engine, prompts, n):
+    """``generate()`` of the prompts on a warmed engine: tokens/s and the
+    means of its decode-only steps (wall, sync) over exactly this run."""
+    first = len(engine.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_tokens=n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return outs, {"tokens_per_s": sum(len(o.token_ids) for o in outs) / wall,
+                  "wall_s": wall, **steps_of(engine.stats[first:])}
+
+
+def static_against_engine(torch, cfg, params, prompts, n, want, ties):
+    """The static reference loop (monolithic cache, plain attention, K1 +
+    K2) on each prompt alone: tokens equal to ``want`` up to the earlier
+    of the request's near-tie and the loop's own first near-tie."""
+    from repro_torch.launch import serve as serve_cli
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="gather"))
+    toks, own, wall = [], [], 0.0
+    for p in prompts:
+        logits = []
+        prompt = torch.tensor([p], dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_cli.generate(params, cfg, prompt, n, len(p) + n + 1,
+                                 logits_out=logits)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        toks.append(out[0, len(p):].tolist())
+        own.extend(first_near_ties(torch, [types.SimpleNamespace(
+            logits=[lg[0].cpu().numpy() for lg in logits])]))
+    compared = [min(a, b) for a, b in zip(ties, own)]
+    for i, (t, w, m) in enumerate(zip(toks, want, compared)):
+        assert t[:m] == w[:m], \
+            f"request {i}: the static loop differs from the engine before " \
+            f"the first near-tie ({m}): {t[:m]} against {w[:m]}"
+    return {"tokens_per_s": len(prompts) * n / wall, "wall_s": wall,
+            "tokens_compared": compared, "own_near_ties": own,
+            "tokens_equal": [t == w for t, w in zip(toks, want)]}
+
+
+def hook_host_us(torch, engine):
+    """Host microseconds of each telemetry hook a pipelined decode step of
+    4 rows calls (``on_ffn`` once, ``on_tokens`` a row, ``phase`` six
+    times, ``on_step`` once), on a scratch ``Telemetry`` with the engine's
+    cost model and pool, and their sum for such a step."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.observability import accounting
+    from repro_torch.serving import Telemetry
+    tm = Telemetry(trace=True)
+    tm.attach_compute(engine.cfg, accounting.param_count(
+        lm.trainable(engine.params)))
+    layers = engine.cfg.num_layers
+    probe = np.stack([np.full(layers, 60.0), np.full(layers, 0.2),
+                      np.ones(layers)])
+    req = types.SimpleNamespace(rid=0, priority=0, spans=[], span_open=None,
+                                arrival_time=time.perf_counter())
+    us = {"on_ffn": host_us(torch, lambda: tm.on_ffn(
+              4, probe[0], tile_frac_per_layer=probe[1],
+              ffn_present=probe[2], impl="gather")),
+          "on_tokens": host_us(torch, lambda: tm.on_tokens(req, 1)),
+          "phase": host_us(torch, lambda: tm.phase("collect", 0.0, 1e-3,
+                                                   0)),
+          "on_step": host_us(torch, lambda: tm.on_step(
+              kv=engine.kv, reserved=0, wall_s=2e-3, sync_s=1e-3))}
+    us["decode_step"] = us["on_ffn"] + 4 * us["on_tokens"] + \
+        6 * us["phase"] + us["on_step"]
+    return us
+
+
+def phase_http(torch, serve, spec, pipe):
+    """The serve phase's weights, prompts and engine settings behind the
+    HTTP server, the engine built through ``EngineSpec`` with
+    ``pipeline=True`` and ``Telemetry(trace=True)``: see the module
+    docstring, 5c. Every HTTP call has a timeout; the server's engine
+    thread is checked after each part (``check()`` raises its error)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineSpec, Telemetry
+    from repro_torch.serving.server import ServingServer
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    n = serve["new_tokens"]
+    ties = spec["near_ties"]
+    espec = EngineSpec(backend="gather", block_size=16, max_batch=4,
+                       max_seq_len=512 + n, prefill_chunk=64, pipeline=True,
+                       telemetry=Telemetry(trace=True), device="cuda")
+    engine = espec.build(params, cfg)
+    tm = engine.telemetry
+    srv = ServingServer(engine, host="127.0.0.1", port=0, warmup=True)
+    srv.start()
+    api = Http(srv)
+    res = {"phase": "http", "arch": cfg.name, "backend": "gather",
+           "pipeline": True, "requests": len(prompts), "new_tokens": n}
+    try:
+        t0 = time.perf_counter()
+        ready = srv.wait_ready(timeout=HTTP_TIMEOUT)
+        srv.check()
+        assert ready, "the warmup did not end in time"
+        res["warmup_s"] = time.perf_counter() - t0
+        status, health = api.get("/healthz")
+        assert status == 200 and health["ok"], health
+        made = dict(engine.programs.made)
+        compiles = tm.summary()["jit_compiles"]
+        ops.OverflowLog.reset()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        got, wall = http_wave(api, prompts, n)
+        srv.check()
+        assert all(len(t) == n for t in got), [len(t) for t in got]
+        res["tokens_per_s"] = len(prompts) * n / wall
+        res["wall_s"] = wall
+        res["tokens_compared"] = equal_before(
+            [types.SimpleNamespace(rid=i, token_ids=t)
+             for i, t in enumerate(got)],
+            [o.token_ids for o in pipe["outs"]], ties, "HTTP")
+        res["tokens_equal_pipeline"] = [
+            t == o.token_ids for t, o in zip(got, pipe["outs"])]
+        _, text = api.get("/metrics")
+        tokens = metric(text, "serving_tokens_generated_total")
+        ttft = metric(text, 'serving_ttft_seconds_count{priority="0",'
+                            'role="unified"}')
+        assert tokens == len(prompts) * n, (tokens, len(prompts) * n)
+        assert ttft == len(prompts), ttft
+        for phase in ("plan", "launch", "collect", "overlap"):
+            assert metric(text, 'serving_step_phase_seconds_count{phase="%s"}'
+                          % phase), f"no {phase} phase in /metrics"
+        _, stats = api.get("/v1/stats")
+        sp = stats["sparsity"]
+        assert sp["mean_ffn_sparsity"] > 0.97, sp
+        assert sp["flops_reduction"] is not None and sp["mfu"] is not None
+        res["stats"] = {**sp, "phases_ms_mean":
+                        stats["telemetry"]["phases_ms_mean"],
+                        "prefix_cache_hit_rate":
+                        stats["telemetry"]["prefix_cache_hit_rate"],
+                        "ttft_s": stats["telemetry"]["ttft_s"]}
+        # a 7th stream, dropped after 2 chunks: the server cancels it
+        before = engine.cancelled_total
+        dropped = api.stream(prompts[2], HTTP_CANCEL_TOKENS, drop_after=2)
+        deadline = time.time() + HTTP_TIMEOUT
+        while engine.cancelled_total == before or engine.has_unfinished():
+            srv.check()
+            assert time.time() < deadline, "the dropped stream never ended"
+            time.sleep(0.01)
+        assert tm.metrics.requests_total.value(
+            outcome="cancelled", role="unified") == 1
+        res["dropped_stream_tokens"] = len(dropped)
+        launches = ops.launch_counts()
+        assert all(launches[k] > 0 for k in SERVE_KERNELS), \
+            f"a kernel of the HTTP path never launched: {launches}"
+        assert not ops.OverflowLog.seen(), "a TwELL tile overflowed"
+        # timing over a window of seconds (not in the launch counts): the
+        # prompts' prefixes are cached from here on, as in the in-process
+        # rounds below
+        res["window"] = server_window(srv, api, prompts, n)
+        assert not ops.OverflowLog.seen(), "a TwELL tile overflowed"
+        assert dict(engine.programs.made) == made, \
+            f"a program was made after warmup: {made} -> " \
+            f"{engine.programs.made}"
+        assert tm.summary()["jit_compiles"] == compiles
+        engine.kv.check_invariants()
+        assert engine.kv.num_available == engine.kv.num_blocks - 1, \
+            "KV blocks leaked"
+        assert engine._reserved == 0, "a reservation leaked"
+        res["launches"] = launches
+        res["jit_compiles"] = compiles
+    finally:
+        srv.shutdown()
+    srv.check()
+    assert not any(t.is_alive() for t in srv._threads), "a thread survived"
+    trace_path = ROOT / "build" / "http_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    engine.export_trace(str(trace_path))
+    tracks = request_tracks(json.loads(trace_path.read_text()))
+    # the checked wave, the dropped stream, then 3 ways x HTTP_ROUNDS waves
+    assert len(tracks) == (1 + 3 * HTTP_ROUNDS) * len(prompts) + 1, \
+        sorted(tracks)
+    for rid, names in tracks.items():
+        assert names[:3] == ["QUEUED", "PREFILL", "DECODE"] and \
+            names[3] in ("FINISH", "CANCEL") and len(names) == 4, \
+            f"request {rid}: track {names}"
+    res["trace"] = {"path": str(trace_path.relative_to(ROOT)),
+                    "bytes": trace_path.stat().st_size,
+                    "tracks": len(tracks),
+                    "cancelled_tracks": sum(t[-1] == "CANCEL"
+                                            for t in tracks.values())}
+    assert res["trace"]["cancelled_tracks"] == 1, res["trace"]
+    # in process on warmed engines, telemetry on / off, pipelined and
+    # synchronous, interleaved a round; the first round pays one-time
+    # costs (a thread's first run, the prefix cache's first fill) and is
+    # left out of the spread
+    off = serving_engine(cfg, params, n, pipeline=True, warmup=True)
+    engines = {"on": engine, "off": off,
+               "sync_on": espec.replace(pipeline=False, warmup=True,
+                                        telemetry=True).build(params, cfg),
+               "sync_off": serving_engine(cfg, params, n, warmup=True)}
+    runs = {name: [] for name in engines}
+    for _ in range(INPROCESS_ROUNDS):
+        for name, eng in engines.items():
+            runs[name].append(inprocess_run(torch, eng, prompts, n)[1])
+    for name, rows in runs.items():
+        read = rows[1:]
+        res[f"inprocess_telemetry_{name}"] = {
+            "first": rows[0], "rounds": read,
+            "window_s": sum(r["wall_s"] for r in read),
+            **{k: spread([r[k] for r in read])
+               for k in ("tokens_per_s", "decode_step_ms_mean",
+                         "sync_ms_mean")}}
+    res["pipeline_phase_telemetry_off"] = {
+        k: pipe["pipeline"][k] for k in ("tokens_per_s",
+                                         "decode_step_ms_mean",
+                                         "sync_ms_mean")}
+    res["static_loop"] = static_against_engine(torch, cfg, params, prompts,
+                                               n, got, ties)
+    res["engine_tokens_per_s"] = \
+        res["inprocess_telemetry_on"]["tokens_per_s"]["median"]
+    res["hook_host_us"] = hook_host_us(torch, engine)
+    # last: torch.profiler slows later launches
+    res["decode_step_launches"] = {
+        "telemetry_on": decode_step_launches(torch, engine, prompts, n),
+        "telemetry_off": decode_step_launches(torch, off, prompts, n)}
+    emit(res)
+    return res
+
 
 
 # --------------------------------------------------------------------------- #

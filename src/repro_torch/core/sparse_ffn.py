@@ -23,15 +23,17 @@ Ports ``repro/core/sparse_ffn.py`` for serving (``SparsityConfig.ffn_impl``):
 
 ``apply`` returns ``(y, aux)``. JAX always builds the aux statistics and
 lets XLA drop what ``jit`` does not use; eager PyTorch would compute them
-all, and the ``gather`` aux gathers an (M, N/C, K) slice of ``W_u`` (about
-740 MB per layer for a 256-row chunk at paper-0.5b width). So the aux dict
-(``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``, ``tile_frac``) is
-built only when the caller passes ``collect_aux=True``; otherwise ``aux``
-is None.
+all, and the gated ``gather`` aux gathers an (M, N/C, K) slice of ``W_u``
+for its L1 (about 740 MB per layer for a 256-row chunk at paper-0.5b
+width). So the caller asks for what it reads: ``collect_aux=True`` builds
+the whole aux dict (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``,
+``tile_frac``; training), ``collect_aux="probe"`` only ``nnz_mean`` and
+``tile_frac`` (the serving engine's sparsity probe: a few reductions over
+the pattern, no weight read), and ``False`` nothing (``aux`` is None).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -64,9 +66,18 @@ def _tile_frac(mask_n: torch.Tensor, tile: int) -> torch.Tensor:
     return mask_n.reshape(*lead, nt, tile).any(-1).float().mean()
 
 
-def _aux_from_h(h: torch.Tensor, tile: int) -> Dict[str, torch.Tensor]:
+PROBE = "probe"                 # collect_aux: nnz_mean and tile_frac only
+
+
+def _aux_from_h(h: torch.Tensor, tile: int, collect_aux
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    if not collect_aux:
+        return None
     mask = h != 0
     nnz = mask.sum(dim=-1)
+    if collect_aux == PROBE:
+        return {"nnz_mean": nnz.float().mean(),
+                "tile_frac": _tile_frac(mask, tile)}
     return {
         "l1": l1_loss(h),
         "nnz_mean": nnz.float().mean(),
@@ -84,7 +95,7 @@ def _dense_apply(params, x, scfg: SparsityConfig, gated: bool,
     else:
         h = act(x @ params["wu"])
     y = h @ params["wd"]
-    return y, (_aux_from_h(h, scfg.twell_tile) if collect_aux else None)
+    return y, _aux_from_h(h, scfg.twell_tile, collect_aux)
 
 
 def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
@@ -102,6 +113,10 @@ def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
         y = ops.twell_down_proj(tw, params["wd"])
     if not collect_aux:
         return y, None
+    nnz_rows = tw.nnz.sum(-1)
+    if collect_aux == PROBE:
+        return y, {"nnz_mean": nnz_rows.float().mean(),
+                   "tile_frac": (tw.nnz > 0).float().mean()}
     if gated:
         # Eq. 2's L1 is over h = h_u * h_g: recover |h| on the pattern
         # through the same gathered h_u elements the fused kernel computes
@@ -112,7 +127,6 @@ def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
                             torch.zeros_like(hu_p)).float().abs()
     else:
         h_abs = tw.values.float().abs()
-    nnz_rows = tw.nnz.sum(-1)
     active = torch.zeros((tw.n,), dtype=torch.int32, device=x.device)
     active = active.scatter_reduce(
         0, tw.indices.reshape(-1).long(),
@@ -135,7 +149,7 @@ def _tile_skip_apply(params, x, scfg: SparsityConfig, gated: bool,
     y, h = ops.tile_skip_ffn(x, params["wg"], params["wu"], params["wd"],
                              scfg.twell_tile, scfg.activation,
                              threshold=scfg.tile_skip_threshold)
-    return y, (_aux_from_h(h, scfg.twell_tile) if collect_aux else None)
+    return y, _aux_from_h(h, scfg.twell_tile, collect_aux)
 
 
 # --------------------------------------------------------------------------- #
@@ -353,9 +367,12 @@ _IMPLS = {
 
 
 def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-          scfg: SparsityConfig, gated: bool, collect_aux: bool = False
+          scfg: SparsityConfig, gated: bool,
+          collect_aux: Union[bool, str] = False
           ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """x: (..., d_model) -> (..., d_model), plus sparsity aux (or None)."""
+    """x: (..., d_model) -> (..., d_model), plus sparsity aux: the whole
+    dict (``collect_aux=True``), ``nnz_mean`` and ``tile_frac`` only
+    (``collect_aux="probe"``), or None."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     impl = scfg.ffn_impl if scfg.enabled else "dense"

@@ -11,6 +11,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_decode_attention import masked_sdpa
 
 INIT_STD = 0.02
 
@@ -161,13 +162,29 @@ def _paged_attention(q, k, v, cache) -> torch.Tensor:
     return ops.paged_attention_extend(q, kpool, vpool, bt, sl, num_new)
 
 
+def _cache_attention(q, k, v, cache, n_heads: int) -> torch.Tensor:
+    """Decode against the monolithic cache of ONE layer, updated in place:
+    cache = {"k", "v": (B, S_cache, Hkv, hd), "pos": tokens cached}; the
+    new K/V go to position ``pos``, the read covers kpos <= pos. Plain
+    masked attention (``repro/models/layers.py:339-356``, which computes it
+    in jnp outside any Pallas kernel)."""
+    ck, cv, pos = cache["k"], cache["v"], int(cache["pos"])
+    ck[:, pos:pos + 1] = k
+    cv[:, pos:pos + 1] = v
+    kpos = torch.arange(ck.shape[1], device=q.device)
+    mask = (kpos <= pos)[None, None, None, :]
+    return masked_sdpa(q, repeat_kv(ck, n_heads), repeat_kv(cv, n_heads),
+                       mask, 1.0 / (q.shape[-1] ** 0.5))
+
+
 def attention(params: Dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor, kind: str = "causal",
               cache: Optional[Dict] = None) -> torch.Tensor:
     """Causal self-attention: paged (the serving engine) when ``cache``
-    holds pools, else over the sequence itself (the training forward,
-    kernel K7 on the card). The windowed and chunked kinds are not ported
-    yet."""
+    holds pools; one decode token against the monolithic cache (the static
+    reference loop) when it holds ``k``/``v``/``pos``; else over the
+    sequence itself (the training forward, kernel K7 on the card). The
+    windowed and chunked kinds are not ported yet."""
     b, s, _ = x.shape
     if kind != "causal":
         raise NotImplementedError(
@@ -180,8 +197,10 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
         out = ops.flash_attention(q, repeat_kv(k, h), repeat_kv(v, h))
-    else:
+    elif "kpool" in cache:
         out = _paged_attention(q, k, v, cache)
+    else:
+        out = _cache_attention(q, k, v, cache, h)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 

@@ -11,6 +11,8 @@ Public API:
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
   paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
   paged_verify(params, pools, block_tables, start_lens, num_new, tokens, cfg)
+  init_cache(cfg, batch, cache_len, device=None) -> cache  [static loop]
+  decode_step(params, cache, tokens, cfg)    -> (logits, cache)
 
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
 every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
@@ -22,7 +24,13 @@ through ``stacked_layers``, which applies ``cfg.remat`` as the JAX
 package's ``stacked_scan`` does (``none``, ``full``, ``dots``, ``2level``);
 the paged serving entry points run no backward and ignore it. The KV pools
 are updated in place; the paged entry points return them anyway, in the JAX
-package's ``(logits, pools)`` shape.
+package's ``(logits, pools)`` shape. ``collect_aux`` on a paged entry
+point asks the FFN for the serving probe only (``nnz_mean``, ``tile_frac``;
+``sparse_ffn.PROBE``), never for training's L1 statistics.
+
+``init_cache`` / ``decode_step`` are the monolithic-cache decode of the
+static reference loop (``launch/serve.py:generate``): one (L, B, S, Hkv,
+hd) cache per K and V, one token a call appended at ``pos``.
 
 Recomputation runs a layer's forward again in the backward, kernels
 included, so they count again in ``ops.launch_counts()`` and every hybrid
@@ -157,7 +165,8 @@ def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
         if write_valid is not None:
             cache["write_valid"] = write_valid
         x, aux = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
-                              cache, collect_aux)
+                              cache,
+                              sparse_ffn.PROBE if collect_aux else False)
         if collect_aux:
             probes.append(aux)
     if last_rows is not None:
@@ -371,3 +380,46 @@ def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
     ``paged_prefill`` and the two cannot drift apart."""
     return paged_prefill(params, pools, block_tables, tokens, num_new, cfg,
                          start_lens=start_lens)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
+               ) -> Dict[str, Any]:
+    """Zero monolithic KV cache of the dense family: ``k`` and ``v`` of
+    shape (L, batch, cache_len, Hkv, hd) and ``pos``, the tokens written so
+    far (a Python int; JAX's is an int32 scalar). ``cache_len`` is the
+    capacity. Windowed and chunked attention raise, as in ``attention``."""
+    _check_family(cfg)
+    if cfg.window or cfg.attn_chunk:
+        raise NotImplementedError(
+            "the static cache does not support windowed/chunked attention "
+            "yet")
+    dev = device_mod.resolve(device)
+    dtype = device_mod.torch_dtype(cfg.param_dtype)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One new token per sequence through the monolithic cache: tokens
+    (B, 1) -> (logits (B, 1, V), cache). The K/V are written in place at
+    ``cache["pos"]``, which advances by one; attention is plain masked
+    attention over the cache (``layers.attention``), the FFN
+    ``sparse_ffn.apply`` under ``cfg.sparsity`` (K1 + K2 on the card for
+    ``gather``)."""
+    _check_family(cfg)
+    pos = int(cache["pos"])
+    if pos >= cache["k"].shape[2]:
+        raise ValueError(f"cache full: pos {pos} of {cache['k'].shape[2]}")
+    x = embed_lookup(params["embed"], tokens)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    for l in range(cfg.num_layers):
+        layer_cache = {"k": cache["k"][l], "v": cache["v"][l], "pos": pos}
+        x, _ = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
+                            layer_cache, False, kind=_attn_kind(cfg))
+    cache["pos"] = pos + 1
+    x = norm_apply(cfg.norm, params["final_ln"], x)
+    head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+    return lm_logits(x, head), cache

@@ -20,10 +20,24 @@
                  per phase; ``make_draft_pair`` for speculation.
   spec/        — self-speculative decoding: ``SpecConfig``, the draft loop,
                  the batched verify pass, acceptance and KV rollback.
+  telemetry.py — zero-dependency metrics registry (counters / gauges /
+                 fixed-bucket histograms, thread-safe, no-op when disabled),
+                 the serving metric catalog of docs/observability.md and the
+                 ``Telemetry`` facade of lifecycle hooks the engine calls.
+  trace.py     — per-request lifecycle spans, the engine phase timeline,
+                 Chrome-trace export; the ``torch_profiler`` hook.
+  engine_spec.py — ``EngineSpec``: ``ServingEngine`` construction kwargs as
+                 a frozen dataclass (the CLI builds its engine from one).
+  server.py    — ``ServingServer``: OpenAI-style HTTP front end
+                 (``/v1/completions`` with SSE streaming; client disconnect
+                 cancels the request; ``/metrics``, ``/v1/stats``,
+                 ``/healthz``) over one engine thread (imported from its
+                 module, as in the JAX package).
 """
 from repro_torch.serving.backends import (DraftPair, ServingBackend,
                                           get_backend, make_draft_pair)
 from repro_torch.serving.engine import ServingEngine, StepStats
+from repro_torch.serving.engine_spec import EngineSpec
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.request import (EVENT_CANCEL, EVENT_FINISH,
                                          EVENT_PREEMPT, EVENT_TOKEN, Request,
@@ -33,6 +47,11 @@ from repro_torch.serving.sampling import GREEDY, SamplingParams
 from repro_torch.serving.scheduler import (FCFSScheduler, PriorityScheduler,
                                            Scheduler, get_scheduler)
 from repro_torch.serving.spec import SpecConfig
+from repro_torch.serving.telemetry import (Counter, Gauge, Histogram,
+                                           MetricsRegistry, ServingMetrics,
+                                           Telemetry)
+from repro_torch.serving.trace import (SpanEvent, TraceRecorder, span_names,
+                                       torch_profiler)
 
 __all__ = [
     "ServingEngine", "StepStats", "PagedKVCache", "Request", "RequestOutput",
@@ -41,4 +60,7 @@ __all__ = [
     "Scheduler", "FCFSScheduler", "PriorityScheduler", "get_scheduler",
     "SamplingParams", "GREEDY", "ServingBackend", "get_backend",
     "SpecConfig", "DraftPair", "make_draft_pair",
+    "Telemetry", "MetricsRegistry", "ServingMetrics", "Counter", "Gauge",
+    "Histogram", "SpanEvent", "TraceRecorder", "span_names",
+    "torch_profiler", "EngineSpec",
 ]

@@ -46,8 +46,21 @@ The FFN path per phase (dense | gather/TwELL | tile_skip) comes from the
 ``ServingBackend``. Stochastic sampling keys each token
 ``fold_in(base_key, len(output_tokens))`` as the JAX engine does, so a
 seeded request gives the same tokens whatever its batch, its arrival order
-or its preemptions. Not in this slice of the port: telemetry, tensor
-parallelism and disaggregation.
+or its preemptions.
+
+Observability: ``ServingEngine(..., telemetry=True)`` (or a ``Telemetry``)
+publishes per-phase step timings, lifecycle counters, KV-pool gauges,
+TTFT/ITL histograms and per-request spans into a ``MetricsRegistry``
+(Prometheus text via ``GET /metrics`` on the HTTP server), plus a
+whole-engine step timeline exportable as Chrome-trace JSON
+(``export_trace``). A graphed entry cannot time anything inside its
+replay, so phase spans are host wall time around each entry's launch and
+collect, as JAX's asynchronous dispatch gives too. With telemetry on, the
+decode and prefill programs also compute a per-layer sparsity probe
+(``nnz_mean``, ``tile_frac``, ``ffn_present``; captured in the same graph)
+that reaches the host with the sampled tokens, behind the same event.
+Without telemetry the engine pays only ``is None`` checks. Not in this
+slice of the port: tensor parallelism and disaggregation.
 """
 from __future__ import annotations
 
@@ -62,6 +75,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
+from repro_torch.observability import accounting
 from repro_torch.serving import sampling as sampling_mod
 from repro_torch.serving.backends import (DECODE, PREFILL, get_backend,
                                           make_draft_pair)
@@ -70,7 +84,7 @@ from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.pipeline import (DecodeLaunch, HostCopy,
                                           InFlightStep, PrefillLaunch,
                                           SpecLaunch, bucket, bucket_grid,
-                                          start_host_copy)
+                                          start_host_copies, start_host_copy)
 from repro_torch.serving.request import (CANCELLED, EVENT_CANCEL,
                                          EVENT_FINISH, EVENT_PREEMPT,
                                          EVENT_TOKEN, FINISH_CANCELLED,
@@ -82,6 +96,12 @@ from repro_torch.serving.scheduler import (Scheduler, get_scheduler,
                                            plan_victims)
 from repro_torch.serving.spec import (Drafter, SpecConfig, Verifier,
                                       rollback_after_verify)
+from repro_torch.serving.telemetry import (PHASE_ADMISSION, PHASE_CANCEL,
+                                           PHASE_COLLECT, PHASE_DECODE,
+                                           PHASE_DRAFT, PHASE_LAUNCH,
+                                           PHASE_OVERLAP, PHASE_PLAN,
+                                           PHASE_PREFILL, PHASE_SAMPLE,
+                                           PHASE_VERIFY, Telemetry)
 
 __all__ = ["ServingEngine", "StepStats", "bucket"]
 
@@ -122,6 +142,13 @@ class StepStats:
     verify_ms: float = 0.0   # ... and of the verify pass, to its logits
 
 
+def _probe_stack(aux) -> torch.Tensor:
+    """The per-layer sparsity probe as one (3, L) float32 tensor: rows
+    nnz_mean, tile_frac, ffn_present."""
+    return torch.stack([aux["nnz_mean"], aux["tile_frac"],
+                        aux["ffn_present"]]).float()
+
+
 def _pick(last: torch.Tensor, greedy: bool, samp) -> torch.Tensor:
     """Next token per row on the device: argmax for an all-greedy batch,
     else the per-row threefry sampler."""
@@ -142,7 +169,10 @@ class ServingEngine:
                  prefix_cache: bool = True, prefill_chunk: int = 64,
                  scheduler: Union[str, Scheduler] = "fcfs",
                  max_stats: Optional[int] = 4096,
-                 pipeline: bool = False, warmup: bool = False, device=None):
+                 telemetry: Union[bool, Telemetry, None] = False,
+                 pipeline: bool = False, warmup: bool = False,
+                 role: str = "unified", device=None):
+        self.role = role
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_seq_len < 1:
@@ -177,6 +207,29 @@ class ServingEngine:
                                device=self.device)
         self.table_width = -(-max_seq_len // block_size)
         self.scheduler: Scheduler = get_scheduler(scheduler)
+        # observability: metrics registry + span tracing (telemetry=True
+        # builds a default Telemetry; pass an instance to share a registry
+        # across engines; False/None = zero instrumentation on the hot path)
+        if telemetry is True:
+            telemetry = Telemetry()
+        elif telemetry is False:
+            telemetry = None
+        self.telemetry: Optional[Telemetry] = telemetry
+        if telemetry is not None:
+            # attn_backend: the port's paged-KV read path, chosen by device
+            telemetry.metrics.build_info.set(
+                1, backend=self.backend.name,
+                attn_backend="cuda" if self.device.type == "cuda"
+                else "plain",
+                scheduler=self.scheduler.name,
+                spec_k=str(0 if spec is None else spec.k), tp="1")
+            # arm the sparsity/compute cost model: the decode/prefill
+            # programs compute a per-layer (nnz, tile_frac) probe as extra
+            # outputs (tokens are bit-identical with or without it); the
+            # count is the trainable tree's, as JAX's (no derived wu_t)
+            telemetry.attach_compute(
+                cfg, accounting.param_count(lm.trainable(self.params)))
+        self._probe = telemetry is not None
         self.prefilling: List[Request] = []
         self.running: List[Request] = []
         self.stats: List[StepStats] = []
@@ -187,6 +240,8 @@ class ServingEngine:
         self.cancelled_total = 0           # requests aborted via cancel()
         self.preempted_total = 0           # scheduler evictions (resumes)
         self.max_stats = max_stats         # keep only the newest N StepStats
+        self.on_new_work = None            # optional callable: submit/cancel
+        #                                    wake-up hook for a server loop
         self._master_key = sampling_mod.PRNGKey(seed)
         self._next_rid = 0
         self._step_idx = 0
@@ -195,8 +250,10 @@ class ServingEngine:
         self._lock = threading.RLock()
         self._requests: Dict[int, Request] = {}    # every non-terminal rid
         self._handles: Dict[int, RequestHandle] = {}
-        # one program per (entry, bucket key); programs.made counts them
-        self.programs = ProgramCache(self.device)
+        # one program per (entry, bucket key); programs.made counts them,
+        # and so does the telemetry's jit_compiles_total
+        self.programs = ProgramCache(
+            self.device, None if telemetry is None else telemetry.on_compile)
         # pipelined step loop (plan/launch/collect; see pipeline.py):
         # pipeline=False keeps the synchronous step as the numerics/latency
         # reference -- token streams are identical either way
@@ -217,6 +274,10 @@ class ServingEngine:
         out = copy.wait()
         self._sync_s += time.perf_counter() - t0
         return out
+
+    def _wake(self) -> None:
+        if self.on_new_work is not None:
+            self.on_new_work()
 
     # ------------------------------------------------------------------ API
 
@@ -239,6 +300,7 @@ class ServingEngine:
                           max_tokens=max_tokens, sampling=sp,
                           eos_token_id=eos_token_id, no_spec=no_spec,
                           priority=priority)
+            req.role = self.role
             if len(req.prompt) + max_tokens > self.max_seq_len:
                 raise ValueError(
                     f"prompt ({len(req.prompt)}) + max_tokens ({max_tokens}) "
@@ -256,7 +318,10 @@ class ServingEngine:
             handle = RequestHandle(self, req, stream=stream)
             self._requests[req.rid] = req
             self._handles[req.rid] = handle
+            if self.telemetry is not None:
+                self.telemetry.on_submit(req)
             self.scheduler.add(req)
+        self._wake()
         return handle
 
     def add_request(self, prompt: Sequence[int], *,
@@ -271,13 +336,14 @@ class ServingEngine:
     def cancel(self, request: Union[RequestHandle, int]) -> bool:
         """Abort a request at the next ``step()``, wherever it is in its
         lifecycle. Returns False when it is unknown or already terminal.
-        Lock-free: it only flags the request."""
+        Lock-free: it only flags the request (and wakes a server loop)."""
         rid = request.rid if isinstance(request, RequestHandle) \
             else int(request)
         req = self._requests.get(rid)
         if req is None or req.done:
             return False
         req.cancel_requested = True
+        self._wake()
         return True
 
     def has_unfinished(self) -> bool:
@@ -304,29 +370,46 @@ class ServingEngine:
         """The fully synchronous step: each phase launches AND collects
         before the next phase plans (the numerics/latency reference for the
         pipelined loop)."""
+        tm = self.telemetry
         t_step = time.perf_counter()
         self._sync_s = 0.0
         events: List[StepEvent] = self._process_cancels()
+        if tm is not None:
+            tm.phase(PHASE_CANCEL, t_step, time.perf_counter(),
+                     self._step_idx)
         decode_batch = padded = 0
         spec = {}
         if self.running:
             spec_rows = [r for r in self.running if self._can_spec(r)]
             normal_rows = [r for r in self.running if not self._can_spec(r)]
             if normal_rows:
+                t0 = time.perf_counter()
                 dl = self._launch_decode(normal_rows)
                 decode_batch, padded = dl.batch, dl.padded
                 events.extend(self._collect_decode(dl))
+                if tm is not None:
+                    tm.phase(PHASE_DECODE, t0, time.perf_counter(),
+                             self._step_idx)
             if spec_rows:
+                # draft / verify / sample sub-phases are timed inside
                 spec, evs = self._collect_spec(
                     self._launch_spec(spec_rows, timed=True), timed=True)
                 events.extend(evs)
+        t0 = time.perf_counter()
         admitted, cached_toks, evs = self._admit()
         events.extend(evs)
+        if tm is not None:
+            tm.phase(PHASE_ADMISSION, t0, time.perf_counter(),
+                     self._step_idx)
+        t0 = time.perf_counter()
         pf_tokens = 0
         pl = self._launch_prefill()
         if pl is not None:
             pf_tokens = sum(pl.chunk_lens)
             events.extend(self._collect_prefill(pl))
+            if tm is not None and pf_tokens:
+                tm.phase(PHASE_PREFILL, t0, time.perf_counter(),
+                         self._step_idx)
         return self._finalize_step(
             events, t_step=t_step, decode_batch=decode_batch, padded=padded,
             admitted=admitted, cached_toks=cached_toks, pf_tokens=pf_tokens,
@@ -349,23 +432,39 @@ class ServingEngine:
         launched rows are DEFERRED and settle at collect, right after their
         in-flight tokens commit, and nothing the device is reading or
         writing is ever freed, COW-copied, or reallocated under it."""
+        tm = self.telemetry
         t_step = time.perf_counter()
         self._sync_s = 0.0
         inflight = self._inflight
         # ---- plan: pure host work against committed state
         events = self._process_cancels(defer_inflight=inflight is not None)
+        t0 = time.perf_counter()
+        if tm is not None:
+            tm.phase(PHASE_CANCEL, t_step, t0, self._step_idx)
         admitted, cached_toks, evs = self._admit(
             defer_preempt=inflight is not None)
         events.extend(evs)
+        t_plan_end = time.perf_counter()
+        if tm is not None:
+            tm.phase(PHASE_ADMISSION, t0, t_plan_end, self._step_idx)
+            tm.phase(PHASE_PLAN, t_step, t_plan_end, self._step_idx)
         # ---- collect: resolve the previous launch, commit its tokens
         overlap_ms = 0.0
         spec = {}
         if inflight is not None:
             self._inflight = None
-            overlap_ms = (time.perf_counter() - inflight.t_launched) * 1e3
+            t_collect0 = time.perf_counter()
+            overlap_ms = (t_collect0 - inflight.t_launched) * 1e3
+            if tm is not None:
+                tm.phase(PHASE_OVERLAP, inflight.t_launched, t_collect0,
+                         self._step_idx)
             spec, evs = self._collect_inflight(inflight)
             events.extend(evs)
+            if tm is not None:
+                tm.phase(PHASE_COLLECT, t_collect0, time.perf_counter(),
+                         self._step_idx)
         # ---- launch: dispatch on post-collect state; nothing blocks
+        t_launch0 = time.perf_counter()
         decode_batch = padded = pf_tokens = 0
         dl = sl = None
         if self.running:
@@ -382,6 +481,9 @@ class ServingEngine:
         if dl is not None or sl is not None or pl is not None:
             self._inflight = InFlightStep(decode=dl, spec=sl, prefill=pl,
                                           t_launched=time.perf_counter())
+        if tm is not None:
+            tm.phase(PHASE_LAUNCH, t_launch0, time.perf_counter(),
+                     self._step_idx)
         return self._finalize_step(
             events, t_step=t_step, decode_batch=decode_batch, padded=padded,
             admitted=admitted, cached_toks=cached_toks, pf_tokens=pf_tokens,
@@ -443,8 +545,8 @@ class ServingEngine:
                        spec_drafted: int = 0, spec_accepted: int = 0,
                        draft_ms: float = 0.0, verify_ms: float = 0.0
                        ) -> List[StepEvent]:
-        """Shared step epilogue: StepStats and handle dispatch, identical
-        between the synchronous and pipelined loops."""
+        """Shared step epilogue: StepStats, telemetry rollup and handle
+        dispatch, identical between the synchronous and pipelined loops."""
         self._step_idx += 1
         self.stats.append(StepStats(
             step=self._step_idx, decode_batch=decode_batch,
@@ -466,6 +568,10 @@ class ServingEngine:
             verify_ms=verify_ms))
         if self.max_stats is not None and len(self.stats) >= 2 * self.max_stats:
             del self.stats[:-self.max_stats]     # amortized O(1) trim
+        if self.telemetry is not None:
+            self.telemetry.on_step(kv=self.kv, reserved=self._reserved,
+                                   wall_s=time.perf_counter() - t_step,
+                                   sync_s=self._sync_s)
         self._dispatch_events(events)
         return events
 
@@ -477,6 +583,17 @@ class ServingEngine:
                 if ev.terminal:
                     self._handles.pop(ev.rid, None)
 
+    def export_trace(self, path: str) -> None:
+        """Write the Chrome-trace JSON timeline (requires telemetry with
+        tracing on; open the file in chrome://tracing or ui.perfetto.dev)."""
+        if self.telemetry is None or self.telemetry.trace is None:
+            raise RuntimeError("engine was built without trace telemetry; "
+                               "construct with ServingEngine(..., "
+                               "telemetry=True)")
+        with self._lock:
+            live = list(self._requests.values())
+        self.telemetry.trace.export(path, live_requests=live)
+
     def _finish(self, req: Request, reason: str) -> RequestOutput:
         """Terminal transition (EOS / length / cancel) from any live state."""
         if req.rid in self.kv:
@@ -484,6 +601,11 @@ class ServingEngine:
         req.status = CANCELLED if reason == FINISH_CANCELLED else FINISHED
         req.finish_reason = reason
         req.finish_time = time.perf_counter()
+        if self.telemetry is not None:
+            # before RequestOutput.from_request so the FINISH/CANCEL instant
+            # lands on the spans the output snapshots
+            self.telemetry.on_terminal(req, reason,
+                                       cancelled=reason == FINISH_CANCELLED)
         self._reserved -= req.reserved_blocks
         req.reserved_blocks = 0
         req.cow_spare = 0
@@ -558,6 +680,8 @@ class ServingEngine:
         req.status = PREEMPTED
         req.num_preemptions += 1
         self.preempted_total += 1
+        if self.telemetry is not None:
+            self.telemetry.on_preempt(req)
         self.scheduler.add(req)
         return StepEvent(kind=EVENT_PREEMPT, rid=req.rid,
                          step=self._step_idx)
@@ -567,6 +691,19 @@ class ServingEngine:
         draft must leave room for the verifier's correction/bonus token)."""
         return (self.spec is not None and not req.no_spec
                 and req.max_tokens - len(req.output_tokens) >= 2)
+
+    def _publish_ffn(self, ffn_aux: Optional[HostCopy], tokens: int,
+                     cfg_phase) -> None:
+        """Hand a probed forward's per-layer (nnz, tile_frac, present) stack
+        to the telemetry cost model. ``tokens`` is the REAL token count
+        (padding rows count in the averaged stats, not in FLOPs credit).
+        The probe shares the sampled tokens' event: its wait is free."""
+        if ffn_aux is None or self.telemetry is None:
+            return
+        probe = self._wait(ffn_aux).numpy().astype(np.float64)
+        self.telemetry.on_ffn(tokens, probe[0], tile_frac_per_layer=probe[1],
+                              ffn_present=probe[2],
+                              impl=cfg_phase.sparsity.ffn_impl)
 
     # ----------------------------------------------------------- programs
     # A program's entry closes over what it reads (weights, pools, config),
@@ -615,13 +752,18 @@ class ServingEngine:
         ``width`` is the bucketed block-table width the step runs at, so a
         short-context step reads only its live page span; it is part of the
         key because the program's shapes are. Inputs (bt, sl, toks[, keys,
-        temps, topks, topps]); outputs (tok, last-position logits)."""
+        temps, topks, topps]); outputs (tok, last-position logits[, the
+        (3, L) sparsity probe when the engine has telemetry])."""
         params, pools, cfg = self.params, self.kv.pools, self.cfg_decode
+        probe = self._probe
 
         def fn(bt, sl, toks, *samp):
-            logits, _ = lm.paged_decode_step(params, pools, bt, sl, toks, cfg)
-            last = logits[:, -1]
-            return _pick(last, greedy, samp), last
+            out = lm.paged_decode_step(params, pools, bt, sl, toks, cfg,
+                                       collect_aux=probe)
+            last = out[0][:, -1]
+            tok = _pick(last, greedy, samp)
+            return (tok, last, _probe_stack(out[1])) if probe else \
+                (tok, last)
 
         def dummy():
             args = [np.zeros((padded, width), np.int32),
@@ -635,17 +777,20 @@ class ServingEngine:
                      ) -> Program:
         """The prefill program at (padded batch, padded chunk, greedy).
         Inputs (bt, toks, start, num_new[, keys, temps, topks, topps]);
-        outputs (tok, last valid position's logits)."""
+        outputs (tok, last valid position's logits[, the probe])."""
         params, pools, cfg = self.params, self.kv.pools, self.cfg_prefill
+        probe = self._probe
 
         def fn(bt, toks, start, num_new, *samp):
             # last_only: the head runs on each row's final valid hidden
             # state only -- never (B, C, V) over the whole chunk
-            logits, _ = lm.paged_prefill(params, pools, bt, toks, num_new,
-                                         cfg, start_lens=start,
-                                         last_only=True)
-            last = logits[:, 0]
-            return _pick(last, greedy, samp), last
+            out = lm.paged_prefill(params, pools, bt, toks, num_new, cfg,
+                                   start_lens=start, last_only=True,
+                                   collect_aux=probe)
+            last = out[0][:, 0]
+            tok = _pick(last, greedy, samp)
+            return (tok, last, _probe_stack(out[1])) if probe else \
+                (tok, last)
 
         def dummy():
             args = [np.zeros((padded_b, self.table_width), np.int32),
@@ -736,11 +881,12 @@ class ServingEngine:
         greedy = all(r.sampling.greedy for r in batch)
         if not greedy:
             args += self._samp_args(batch, padded, self._keys(batch, padded))
-        tok, last = self._jit_decode(padded, width, greedy)(*args)
+        tok, last, *probe = self._jit_decode(padded, width, greedy)(*args)
+        next_toks, *ffn_aux = start_host_copies(tok, *probe)
         return DecodeLaunch(
-            rows=list(batch), batch=b, padded=padded,
-            next_toks=start_host_copy(tok),
-            logits=start_host_copy(last) if self.record_logits else None)
+            rows=list(batch), batch=b, padded=padded, next_toks=next_toks,
+            logits=start_host_copy(last) if self.record_logits else None,
+            ffn_aux=ffn_aux[0] if ffn_aux else None)
 
     def _collect_decode(self, dl: DecodeLaunch) -> List[StepEvent]:
         """Resolve a launched decode: wait for the sampled row (counted as
@@ -748,12 +894,15 @@ class ServingEngine:
         next_toks = self._wait(dl.next_toks).numpy()
         logits = None if dl.logits is None else \
             self._wait(dl.logits).float().numpy()
+        self._publish_ffn(dl.ffn_aux, dl.batch, self.cfg_decode)
         events: List[StepEvent] = []
         now = time.perf_counter()
         for i, r in enumerate(dl.rows):
             if r.logits_trace is not None:
                 r.logits_trace.append(logits[i])
             reason = r.append(int(next_toks[i]), now)
+            if self.telemetry is not None:
+                self.telemetry.on_tokens(r, 1, now)
             events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
                                     step=self._step_idx,
                                     tokens=(int(next_toks[i]),)))
@@ -809,6 +958,9 @@ class ServingEngine:
         dl_copy = None if greedy else start_host_copy(d_logits)
         if timed:
             self._wait(d_copy)
+            if self.telemetry is not None:
+                self.telemetry.phase(PHASE_DRAFT, t_draft0,
+                                     time.perf_counter(), self._step_idx)
         num_new = (dlen + (dlen > 0)).astype(np.int32)  # k_eff + 1; 0 padded
         t_verify0 = time.perf_counter()
         t_logits = self._jit_verify(padded)(bt, sl0, num_new, tok0, d_toks)
@@ -824,13 +976,17 @@ class ServingEngine:
         guaranteed), roll the block-table tail covering rejected scratch
         positions back to the pool, and settle deferred cancels. Returns
         (StepStats spec columns, events)."""
+        tm = self.telemetry
         d_toks = self._wait(sl.d_toks).numpy()
         t_logits = self._wait(sl.t_logits).numpy()
         t_done = time.perf_counter()
+        if timed and tm is not None:
+            tm.phase(PHASE_VERIFY, sl.t_verify0, t_done, self._step_idx)
         d_logits = None if sl.all_greedy else \
             self._wait(sl.d_logits).float().numpy()
         events: List[StepEvent] = []
         drafted_total = accepted_total = 0
+        t_sample = time.perf_counter()
         for i, r in enumerate(sl.rows):
             k_eff = sl.k_effs[i]
             emitted, n_acc = self.verifier.accept(
@@ -850,6 +1006,9 @@ class ServingEngine:
                 reason = r.append(int(tok))
                 if reason:
                     break
+            if tm is not None:
+                tm.on_spec(r, k_eff, n_acc)
+                tm.on_tokens(r, len(committed))
             events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
                                     step=self._step_idx,
                                     tokens=tuple(committed)))
@@ -866,6 +1025,10 @@ class ServingEngine:
             freed = rollback_after_verify(self.kv, r.rid, r.seq_len - 1)
             r.reserved_blocks += freed
             self._reserved += freed
+        if tm is not None:
+            # host-side acceptance / rejection sampling over the whole batch
+            tm.phase(PHASE_SAMPLE, t_sample, time.perf_counter(),
+                     self._step_idx)
         stats = dict(spec_batch=sl.batch, spec_drafted=drafted_total,
                      spec_accepted=accepted_total)
         if timed:
@@ -943,6 +1106,8 @@ class ServingEngine:
             cached_tokens += start
             self.cached_tokens_total += start
             self.prompt_tokens_total += tlen
+            if self.telemetry is not None:
+                self.telemetry.on_admit(req, start, tlen - start)
             req.cow_spare = spare
             req.reserved_blocks = total - target_blocks + spare
             self._reserved += req.reserved_blocks
@@ -996,11 +1161,14 @@ class ServingEngine:
             # slot for a resumed one, so resume replays the same draw
             args += self._samp_args(rows, padded_b, self._keys(rows,
                                                                padded_b))
-        tok, last = self._jit_prefill(padded_b, padded_c, greedy)(*args)
+        tok, last, *probe = self._jit_prefill(padded_b, padded_c,
+                                              greedy)(*args)
         self.prefill_tokens_total += sum(chunk_lens)
+        tok_copy, *ffn_aux = start_host_copies(tok, *probe)
         return PrefillLaunch(
-            rows=rows, chunk_lens=chunk_lens, tok=start_host_copy(tok),
-            logits=start_host_copy(last) if self.record_logits else None)
+            rows=rows, chunk_lens=chunk_lens, tok=tok_copy,
+            logits=start_host_copy(last) if self.record_logits else None,
+            ffn_aux=ffn_aux[0] if ffn_aux else None)
 
     def _collect_prefill(self, pl: PrefillLaunch) -> List[StepEvent]:
         """Resolve a launched prefill chunk: advance each row's position,
@@ -1011,6 +1179,7 @@ class ServingEngine:
         tok = self._wait(pl.tok).numpy()
         logits = None if pl.logits is None else \
             self._wait(pl.logits).float().numpy()
+        self._publish_ffn(pl.ffn_aux, sum(pl.chunk_lens), self.cfg_prefill)
         events: List[StepEvent] = []
         for i, r in enumerate(pl.rows):
             r.prefill_pos += pl.chunk_lens[i]
@@ -1026,7 +1195,11 @@ class ServingEngine:
             self.prefilling = [x for x in self.prefilling if x.rid != r.rid]
             r.status = RUNNING
             self.running.append(r)
+            if self.telemetry is not None:
+                self.telemetry.on_running(r)
             reason = r.append(int(tok[i]))
+            if self.telemetry is not None:
+                self.telemetry.on_tokens(r, 1)
             events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
                                     step=self._step_idx,
                                     tokens=(int(tok[i]),)))
@@ -1087,4 +1260,6 @@ class ServingEngine:
                           lambda: self._jit_verify(padded))
             self.warmup_seconds = time.perf_counter() - t_start
             self.warmup_report = report
+            if self.telemetry is not None:
+                self.telemetry.on_warmup(self.warmup_seconds, len(report))
             return report

@@ -41,7 +41,8 @@ fails raises.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -152,10 +153,15 @@ class Program:
 class ProgramCache:
     """One engine's programs by (entry, bucket key), in one graph memory
     pool on the card; ``made`` counts the programs made, by entry (the
-    counterpart of the JAX engine's compile counter)."""
+    counterpart of the JAX engine's compile counter), and ``on_compile``
+    (if set) is called with the entry each time one is made: the
+    telemetry's ``jit_compiles_total``, counted where JAX counts a
+    compile, since the bucket keys are the same."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 on_compile: Optional[Callable[[str], None]] = None):
         self.device = device
+        self.on_compile = on_compile
         self.pool = torch.cuda.graph_pool_handle() \
             if device.type == "cuda" else None
         self.made: Dict[str, int] = {e: 0 for e in ENTRIES}
@@ -170,4 +176,6 @@ class ProgramCache:
             prog = Program(fn, dummy(), self.device, self.pool)
             self._programs[(entry, key)] = prog
             self.made[entry] += 1
+            if self.on_compile is not None:
+                self.on_compile(entry)
         return prog

@@ -93,6 +93,16 @@ class PagedKVCache:
         """Blocks a new allocation could claim: free + evictable cached."""
         return len(self._free) + len(self._lru)
 
+    def occupancy(self) -> Dict[str, int]:
+        """Point-in-time pool picture for telemetry: block counts by state
+        (``free`` + ``evictable`` + ``live`` = num_blocks - 1; the null
+        block is never counted) plus the lifetime copy-on-write and
+        pressure-eviction event totals."""
+        free, evictable = len(self._free), len(self._lru)
+        return {"free": free, "evictable": evictable,
+                "live": self.num_blocks - 1 - free - evictable,
+                "cow_total": self.cow_count, "evict_total": self.evict_count}
+
     def blocks_for(self, num_tokens: int) -> int:
         """Blocks needed to hold ``num_tokens`` cache slots."""
         return -(-num_tokens // self.block_size)

@@ -30,7 +30,8 @@ from repro_torch.serving.request import Request
 
 __all__ = [
     "DecodeLaunch", "HostCopy", "InFlightStep", "PrefillLaunch", "SpecLaunch",
-    "bucket", "bucket_grid", "sequence_hash", "start_host_copy",
+    "bucket", "bucket_grid", "sequence_hash", "start_host_copies",
+    "start_host_copy",
 ]
 
 
@@ -68,22 +69,31 @@ class HostCopy:
         return self.host
 
 
-def start_host_copy(value: torch.Tensor) -> HostCopy:
-    """Kick off the device→host transfer of a launched output without
-    blocking: a ``non_blocking`` copy into a fresh pinned buffer and an
-    event recorded after it on the current stream. By collect time the
-    copy has typically landed, so the residual ``sync_ms`` shrinks to the
-    tail of the transfer instead of the full device step. The copy is
-    queued behind the replay that produced ``value``, so a later replay
-    of the same program cannot overwrite it first. On a CPU tensor it is
-    a plain copy."""
-    if not value.is_cuda:
-        return HostCopy(value.detach().clone(), None)
-    host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
-    host.copy_(value, non_blocking=True)
+def start_host_copies(*values: torch.Tensor) -> Tuple[HostCopy, ...]:
+    """Kick off the device→host transfer of launched outputs without
+    blocking: a ``non_blocking`` copy of each into a fresh pinned buffer,
+    then ONE event recorded after them on the current stream (waiting for
+    any of them waits for all, so a second output costs no second sync).
+    By collect time the copies have typically landed, so the residual
+    ``sync_ms`` shrinks to the tail of the transfer instead of the full
+    device step. The copies are queued behind the replay that produced the
+    values, so a later replay of the same program cannot overwrite them
+    first. On CPU tensors they are plain copies."""
+    if not values[0].is_cuda:
+        return tuple(HostCopy(v.detach().clone(), None) for v in values)
+    hosts = []
+    for v in values:
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        hosts.append(host)
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(value.device))
-    return HostCopy(host, event)
+    event.record(torch.cuda.current_stream(values[0].device))
+    return tuple(HostCopy(h, event) for h in hosts)
+
+
+def start_host_copy(value: torch.Tensor) -> HostCopy:
+    """``start_host_copies`` of one output."""
+    return start_host_copies(value)[0]
 
 
 @dataclasses.dataclass
@@ -94,6 +104,9 @@ class DecodeLaunch:
     padded: int
     next_toks: HostCopy              # (padded,) int64 sampled tokens
     logits: Optional[HostCopy]       # last-position logits (record_logits)
+    ffn_aux: Optional[HostCopy] = None   # (3, L) float32 sparsity probe:
+    #                                      nnz_mean, tile_frac, ffn_present
+    #                                      (telemetry; next_toks's event)
 
 
 @dataclasses.dataclass
@@ -121,6 +134,7 @@ class PrefillLaunch:
     tok: HostCopy                    # (padded,) int64 next tokens
     logits: Optional[HostCopy]       # last valid position's logits
                                      # (record_logits)
+    ffn_aux: Optional[HostCopy] = None   # (3, L) probe, as DecodeLaunch's
 
 
 @dataclasses.dataclass

@@ -47,7 +47,8 @@ def test_walk_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "lm.py", "ops.py", "bridge.py", "build.py",
             "pipeline.py", "graphs.py", "chip_smoke.py", "random.py",
-            "accounting.py", "runlog.py", "paper_1p5b.py"} <= names
+            "accounting.py", "runlog.py", "paper_1p5b.py", "telemetry.py",
+            "trace.py", "engine_spec.py", "server.py"} <= names
 
 
 @pytest.fixture
@@ -59,7 +60,8 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import EngineSpec, ServingEngine
+    from repro_torch.serving.server import ServingServer
     cfg = get_config("paper-0.5b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init(cfg)
@@ -70,9 +72,17 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         ServingEngine(params, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EngineSpec(block_size=4, max_seq_len=16).build(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "--http", "--port", "0"])
     engine = ServingEngine(params, cfg, block_size=4, max_seq_len=16,
                            device="cpu")
     assert engine.generate([[1, 2, 3]], max_tokens=2)[0].token_ids
+    # the server serves whatever engine it is given; a CPU one on request
+    spec = EngineSpec(block_size=4, max_seq_len=16, device="cpu")
+    srv = ServingServer(spec.build(params, cfg), port=0)
+    srv.httpd.server_close()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
