@@ -93,6 +93,25 @@ JAX package) and runs these phases, each printing one JSON line:
                  sparsity probe, and the static reference loop
                  (``launch/serve.py:generate``, K1 + K2, plain attention)
                  against the engine up to each request's first near-tie
+  5d. disagg  -- the serve phase's model, prompts and engine settings behind
+                 a ``DisaggCoordinator`` (a prefill and a decode engine,
+                 each with its own KV pool and CUDA graphs): warmed, with
+                 ``InProcessTransport``, tokens equal to a warmed unified
+                 engine's up to each request's first near-tie, zero
+                 prefill chunks on the decode engine, no program made
+                 after the warmup, both pools clean, 83 blocks migrated
+                 (the plan's count), K1-K4 launched; then each transport
+                 unwarmed with every migration's blocks snapshot right
+                 after its copy (destination equal to source, the two
+                 transports' tokens and blocks equal bit for bit); the spec
+                 phase's speculation on the decode engine (K5 launched,
+                 tokens equal to the unified speculating engine's up to the
+                 near-ties); churn (a cancel mid-transfer, a cancel
+                 mid-decode, a TTL of DISAGG_TTL steps expiring entries
+                 that re-prefill with the same tokens); each transport's
+                 copy time a migration and a MiB, tokens/s, TTFT and the
+                 decode step beside the unified engine's, peak memory with
+                 two engines beside one
   6. serve_olmo -- olmo-1b (non-gated FFN, non-parametric LayerNorm, head
                  dim 128) at full width and depth through the same engine
                  settings and prompts, 98% of every layer's W_u columns
@@ -136,8 +155,9 @@ JAX package) and runs these phases, each printing one JSON line:
   9. each phase's wall seconds and the script's total (``{"phase":
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, HTTP, olmo serve, hybrid train, remat, paper-1.5b and
-     olmo train runs; a recomputed layer's kernels count again), then the
+     spec, pipelined, HTTP, disaggregated, olmo serve, hybrid train, remat,
+     paper-1.5b and olmo train runs; a recomputed layer's kernels count
+     again), then the
      last
      line ``{"ok": true, "device": {...}}``.
 
@@ -155,10 +175,14 @@ the last line. ``--train-phases train`` (or any of train, remat,
 train_1p5b, train_olmo and check_train, comma-separated) runs phases 1-2
 and those training phases (step times, peak memory), on the port under
 ``--src`` if given, without the last line.
-``--k1-plans`` runs phases 1-2 and then K1 at each of its timed shapes under
-the launch plans around ``gate_plan``'s (cluster size, rows a block, ring
-depth), each checked against the plain version and timed beside the
-clusters the card holds at once; for tuning the plan (no last line).
+``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
+the serve phase's model and prompts, with references it makes itself (a
+unified engine's near-ties, a speculating engine's tokens; no last
+line). ``--k1-plans`` runs phases 1-2 and then K1 at each of its timed
+shapes under the launch plans around ``gate_plan``'s (cluster size, rows
+a block, ring depth), each checked against the plain version and timed
+beside the clusters the card holds at once; for tuning the plan (no last
+line).
 """
 from __future__ import annotations
 
@@ -220,6 +244,12 @@ def parse_args(argv):
                          "device and build phases and those, on the port "
                          "under --src (no last line); for A/B timing of "
                          "the training step")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated serving phases (disagg): run only "
+                         "the device and build phases and those, on the "
+                         "serve phase's model and prompts, each comparing "
+                         "against references it makes itself (no last "
+                         "line)")
     ap.add_argument("--k1-plans", action="store_true",
                     help="run only the device and build phases and K1 at "
                          "each of K1_SHAPES under the launch plans around "
@@ -264,6 +294,20 @@ def main(argv=None) -> int:
             TRAIN_PHASES[name](torch)
         print(smi, flush=True)
         return 0
+    if args.phases:
+        names = args.phases.split(",")
+        unknown = [n for n in names if n not in SERVE_PHASES]
+        if unknown:
+            print(f"chip_smoke: unknown serving phases {unknown}; choose "
+                  f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
+            return 2
+        cfg, params, prompts = model_and_prompts(torch)
+        serve = {"cfg": cfg, "params": params, "prompts": prompts,
+                 "new_tokens": 32}
+        for name in names:
+            SERVE_PHASES[name](torch, serve, None, smi)
+        print(smi, flush=True)
+        return 0
     if args.kernels is not None:
         kernels = phase_kernels(torch, args.kernels.split(","))
         k5_splits(torch)
@@ -282,6 +326,7 @@ def main(argv=None) -> int:
     spec = timed("spec", phase_spec, serve)
     pipe = timed("pipeline", phase_pipeline, serve, spec)
     http = timed("http", phase_http, serve, spec, pipe)
+    disagg = timed("disagg", phase_disagg, serve, spec, smi)
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
@@ -293,8 +338,8 @@ def main(argv=None) -> int:
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
-                            (serve, spec, pipe, http, olmo, train, remat,
-                             p15, olmo_train))
+                            (serve, spec, pipe, http, disagg, olmo, train,
+                             remat, p15, olmo_train))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1346,14 +1391,18 @@ def model_and_prompts(torch):
     alive = torch.rand((cfg.num_layers, 1, cfg.d_ff), generator=gen,
                        device="cuda") < KEEP
     params["blocks"]["ffn"]["wg"] *= alive.to(params["blocks"]["ffn"]["wg"])
-    rng = np.random.RandomState(SEED)
+    return cfg, params, serve_prompts(np.random.RandomState(SEED),
+                                      cfg.vocab_size)
 
+
+def serve_prompts(rng, vocab):
+    """The serving phases' 6 prompts: 64-512 tokens, the 1st and 5th
+    sharing a 256-token prefix."""
     def toks(n):
-        return rng.randint(0, cfg.vocab_size, n).tolist()
+        return rng.randint(0, vocab, n).tolist()
     shared = toks(256)
-    prompts = [shared + toks(64), toks(512), toks(64), toks(200),
-               shared + toks(128), toks(96)]
-    return cfg, params, prompts
+    return [shared + toks(64), toks(512), toks(64), toks(200),
+            shared + toks(128), toks(96)]
 
 
 SERVE_KERNELS = ("twell_gate_matmul", "twell_fused_ffn",
@@ -2242,6 +2291,412 @@ def phase_http(torch, serve, spec, pipe):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# 5d. disaggregated serving: a prefill and a decode engine, one coordinator
+# --------------------------------------------------------------------------- #
+
+DISAGG_TTL = 2               # steps: the churn run's transfer TTL, short
+#                              enough to expire while the decode batch is full
+
+
+def disagg_coordinator(cfg, params, new_tokens, transport=None, ttl=64,
+                       **kw):
+    """The serve phase's engine settings as a DisaggCoordinator: a prefill
+    and a decode engine, each with its own KV pool and CUDA graphs."""
+    from repro_torch.serving import DisaggCoordinator, EngineSpec
+    spec = EngineSpec(backend="gather", block_size=16, max_batch=4,
+                      max_seq_len=512 + new_tokens, prefill_chunk=64,
+                      device="cuda", **kw)
+    return DisaggCoordinator(params, cfg, spec=spec, transport=transport,
+                             transfer_ttl_steps=ttl)
+
+
+def recording(torch, inner, snapshot=True):
+    """``inner`` (a Transport) with each migration's block ids recorded
+    and, with ``snapshot``, after each copy the source and destination
+    blocks snapshot on the card (no sync: what the decode engine's next
+    replay will read), for a bitwise check after the run."""
+    from repro_torch.serving import Transport
+
+    class Recording(Transport):
+        def __init__(self):
+            self.inner, self.moves = inner, []
+
+        def warmup(self, src_kv, dst_kv, max_blocks):
+            return self.inner.warmup(src_kv, dst_kv, max_blocks)
+
+        def transfer(self, src_kv, dst_kv, src_blocks, dst_blocks):
+            self.inner.transfer(src_kv, dst_kv, src_blocks, dst_blocks)
+            self.moves.append({"src": list(src_blocks),
+                               "dst": list(dst_blocks)})
+            if not snapshot:
+                return
+            si, di = torch.tensor([src_blocks, dst_blocks]).pin_memory(
+                ).cuda(non_blocking=True)
+            self.moves[-1].update(
+                kv_src={n: p.index_select(1, si)
+                        for n, p in src_kv.pools.items()},
+                kv_dst={n: p.index_select(1, di)
+                        for n, p in dst_kv.pools.items()})
+
+        def check(self):
+            """Each migration's destination blocks equal its source blocks
+            bit for bit; drops the source snapshots."""
+            for m in self.moves:
+                for n, got in m["kv_dst"].items():
+                    assert torch.equal(got.view(torch.int16),
+                                       m["kv_src"][n].view(torch.int16)), \
+                        f"migrated {n} blocks {m['dst']} differ from " \
+                        f"their source {m['src']}"
+                del m["kv_src"]
+    return Recording()
+
+
+def disagg_run(torch, coord, prompts, n, kernels):
+    """The workload through ``coord``: every request at max_tokens, each
+    kernel of ``kernels`` launched over exactly this run, no TwELL
+    overflow, zero prefill tokens on the decode engine, no program made
+    during the run when the coordinator was warmed, both pools clean.
+    Returns (outputs, wall seconds, launches)."""
+    from repro_torch.kernels import ops
+    made = coord.programs_made()
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = coord.generate(prompts, max_tokens=n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert all(launches[k] > 0 for k in kernels), \
+        f"a kernel of the disaggregated path never launched: {launches}"
+    assert not ops.OverflowLog.seen(), "a TwELL tile overflowed"
+    assert all(len(o.token_ids) == n for o in outs), \
+        [len(o.token_ids) for o in outs]
+    assert coord.decode_engine.prefill_tokens_total == 0 and not any(
+        s.prefill_tokens for s in coord.decode_engine.stats), \
+        "a prefill chunk ran on the decode engine"
+    if coord.warmup_report:
+        assert coord.programs_made() == made, \
+            f"a program was made after warmup: {made} -> " \
+            f"{coord.programs_made()}"
+    disagg_clean(coord)
+    return outs, wall, launches
+
+
+def disagg_clean(coord):
+    """Both pools pass check_invariants with nothing held, reserved,
+    buffered or leaked."""
+    for name, eng in (("prefill", coord.prefill_engine),
+                      ("decode", coord.decode_engine)):
+        eng.kv.check_invariants()
+        assert eng.kv.num_available == eng.kv.num_blocks - 1, \
+            f"{name} pool leaked blocks"
+        assert not [o for o in eng.kv._tables if o < 0], \
+            f"{name} pool: a transfer hold outlived the run"
+        assert eng._reserved == 0, f"{name}: a reservation leaked"
+    assert len(coord.buffer) == 0 and coord.buffer.blocks_pinned == 0
+
+
+def block_mib(kv):
+    """MiB of one block over every pool (K and V, all layers)."""
+    return sum(p[:, 0].numel() * p.element_size()
+               for p in kv.pools.values()) / 2 ** 20
+
+
+def transfer_times(torch, coord, transport, moves):
+    """Each recorded migration's copy again on the run's pools (the run
+    is over; the blocks' contents no longer matter), timed by CUDA events
+    with the L2 flushed and the card spinning while the host enqueues
+    (``Timer``), and by the host clock around the call and a sync."""
+    timer = Timer(torch)
+    src, dst = coord.prefill_engine.kv, coord.decode_engine.kv
+    rows = []
+    for m in moves:
+        def copy():
+            transport.transfer(src, dst, m["src"], m["dst"])
+        ms = timer.ms(copy, iters=3, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy()
+        torch.cuda.synchronize()
+        rows.append({"blocks": len(m["src"]), "ms": ms,
+                     "host_ms": (time.perf_counter() - t0) * 1e3})
+    mib = block_mib(dst)
+    blocks = sum(r["blocks"] for r in rows)
+    total = sum(r["ms"] for r in rows)
+    return {"migrations": rows, "block_mib": mib, "blocks": blocks,
+            "ms_per_migration": total / len(rows),
+            "ms_per_mib": total / (blocks * mib),
+            "host_ms_per_migration": sum(r["host_ms"] for r in rows) /
+            len(rows)}
+
+
+def timing_columns(outs, wall, stats):
+    ttft = sorted(o.ttft for o in outs)
+    decode = [s.wall_ms for s in stats if s.decode_batch and
+              not s.prefill_tokens]
+    return {"tokens_per_s": sum(len(o.token_ids) for o in outs) / wall,
+            "wall_s": wall, "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
+            "ttft_ms_max": 1e3 * ttft[-1],
+            "decode_step_ms_mean": (sum(decode) / len(decode)
+                                    if decode else None)}
+
+
+DISAGG_ROUNDS = 10           # timed rounds of fresh prompts, engines in turn
+
+
+def timed_rounds(torch, engines, vocab, n):
+    """Tokens/s, mean TTFT and the decode step of warmed engines over
+    DISAGG_ROUNDS rounds, each on new prompts of the serve phase's lengths
+    and shared prefix (no prefix hits across rounds), the engines' order
+    alternating a round; medians and min-max, and no program made."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 11)
+    made = {k: (e.programs_made() if hasattr(e, "programs_made") else
+                dict(e.programs.made)) for k, e in engines.items()}
+    got = {k: [] for k in engines}
+    for r in range(DISAGG_ROUNDS):
+        prompts = serve_prompts(rng, vocab)
+        for name in (list(engines) if r % 2 == 0 else list(engines)[::-1]):
+            eng = engines[name]
+            before = len(eng.stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, max_tokens=n)
+            torch.cuda.synchronize()
+            got[name].append(timing_columns(outs, time.perf_counter() - t0,
+                                            eng.stats[before:]))
+    for k, e in engines.items():
+        now = e.programs_made() if hasattr(e, "programs_made") else \
+            dict(e.programs.made)
+        assert now == made[k], f"{k}: a program was made in the rounds"
+    out = {k: {col: spread([r[col] for r in rows])
+               for col in ("tokens_per_s", "ttft_ms_mean",
+                           "decode_step_ms_mean")}
+           for k, rows in got.items()}
+    out["tokens_per_s_ratio"] = out["disagg"]["tokens_per_s"]["median"] / \
+        out["unified"]["tokens_per_s"]["median"]
+    return out
+
+
+def peak_mib(torch, fn):
+    """``fn()``'s result and the card's peak allocated MiB above what was
+    allocated before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase_disagg(torch, serve, spec, smi):
+    """The serve phase's model, prompts and engine settings behind a
+    ``DisaggCoordinator`` (a prefill engine and a decode engine, each with
+    its own KV pool and CUDA graphs):
+
+    1. warmed, ``InProcessTransport``: tokens equal to a warmed synchronous
+       unified engine's up to each request's first near-tie, zero prefill
+       chunks on the decode engine, no program made after ``warmup()``,
+       both pools clean, the migrated blocks the plan's count (each
+       request's ceil(prompt / 16) blocks less the 16 of the shared prefix
+       that dedupe on the decode side); its times and peak memory beside
+       the unified engine's, then DISAGG_ROUNDS timed rounds of both;
+    2. each transport unwarmed, every migration's blocks snapshot on the
+       card right after its copy: destination equal to source, tokens
+       equal to run 1's, and the two transports' blocks equal, bit for
+       bit; each transport's copy time a migration and a MiB (CUDA
+       events) on the migrations' own block lists;
+    3. the spec phase's speculation (k=4 tile-skip drafts) on the decode
+       engine: tokens equal to the unified speculating engine's up to the
+       near-ties, K5 launched, no draft program made by the prefill engine;
+    4. churn: a cancel mid-transfer, a cancel mid-decode and a TTL of
+       DISAGG_TTL steps that expires entries while the decode batch is
+       full: the re-prefilled requests' tokens equal the unified engine's
+       up to the near-ties, both pools clean."""
+    from repro_torch.serving import (HostRoundtripTransport,
+                                     InProcessTransport, SpecConfig)
+    from repro_torch.serving.disagg.coordinator import (STAGE_DECODE,
+                                                        STAGE_TRANSFER)
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    n = serve["new_tokens"]
+    res = {"phase": "disagg", "card": smi, "arch": cfg.name,
+           "backend": "gather", "requests": len(prompts), "new_tokens": n}
+    if spec is None:            # --phases: the near-ties of a fresh run
+        ref = serving_engine(cfg, params, n, record_logits=True).generate(
+            prompts, max_tokens=n)
+        ties = first_near_ties(torch, ref)
+        spec_cfg = SpecConfig(k=SPEC_K, draft_backend="tile_skip",
+                              draft_threshold=DRAFT_THRESHOLD)
+        spec_outs = spec_run(torch, cfg, params, prompts, n)[1]
+    else:
+        ties, spec_cfg, spec_outs = spec["near_ties"], spec["spec_config"], \
+            spec["outs"]
+    res["near_ties"] = ties
+
+    def unified():
+        engine = serving_engine(cfg, params, n, warmup=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, max_tokens=n)
+        torch.cuda.synchronize()
+        return engine, outs, time.perf_counter() - t0
+    (uni, uni_outs, uni_wall), uni_mib = peak_mib(torch, unified)
+    want = [o.token_ids for o in uni_outs]
+    res["unified"] = {**timing_columns(uni_outs, uni_wall, uni.stats),
+                      "warmup_seconds": uni.warmup_seconds,
+                      "peak_mib": uni_mib}
+
+    # 1. warmed, in-process transport: the timed run (block ids recorded,
+    #    nothing else, so its memory and times are the transport's own)
+    def run1():
+        coord = disagg_coordinator(cfg, params, n, recording(
+            torch, InProcessTransport(), snapshot=False))
+        coord.warmup()
+        return (coord,) + disagg_run(torch, coord, prompts, n,
+                                     SERVE_KERNELS)
+    (coord, outs, wall, launches), mib = peak_mib(torch, run1)
+    equal_before(outs, want, ties, "disaggregated")
+    expect = sum(-(-len(p) // 16) for p in prompts) - 256 // 16
+    migrated = coord.migrated_blocks_total
+    assert migrated == expect == sum(len(m["dst"])
+                                     for m in coord.transport.moves), \
+        f"{migrated} blocks migrated, the plan says {expect}"
+    res["in_process"] = {
+        **timing_columns(outs, wall, coord.stats), "warmed": True,
+        "warmup_seconds": coord.warmup_seconds,
+        "warmup_programs": coord.programs_made(),
+        "warmup_transfer_row": [r for r in coord.warmup_report
+                                if r["role"] == "transfer"],
+        "peak_mib": mib, "migrated_blocks": migrated,
+        "expected_blocks": expect,
+        "decode_prefill_tokens": coord.decode_engine.prefill_tokens_total,
+        "cached_tokens": coord.cached_tokens_total,
+        "tokens_equal_unified": [o.token_ids == w
+                                 for o, w in zip(outs, want)],
+        "transfer": transfer_times(torch, coord, InProcessTransport(),
+                                   coord.transport.moves),
+        "launches": launches}
+    total = dict(launches)
+    res["rounds"] = timed_rounds(torch, {"unified": uni, "disagg": coord},
+                                 cfg.vocab_size, n)
+    del coord, uni
+
+    # 2. each transport with every migration's blocks snapshot
+    # right after its copy: destination equal to source, and the two
+    # transports' tokens and blocks equal, bit for bit
+    runs = {}
+    for name, transport in (("in_process_checked", InProcessTransport()),
+                            ("host_roundtrip", HostRoundtripTransport())):
+        coord = disagg_coordinator(cfg, params, n,
+                                   recording(torch, transport))
+        outs2, wall2, launches2 = disagg_run(torch, coord, prompts, n,
+                                             SERVE_KERNELS)
+        coord.transport.check()
+        assert [o.token_ids for o in outs2] == [o.token_ids for o in outs], \
+            f"{name}: the tokens differ from the warmed run's"
+        runs[name] = coord.transport.moves
+        res[name] = {**timing_columns(outs2, wall2, coord.stats),
+                     "warmed": False, "kv_bitwise_after_claim": True,
+                     "tokens_equal_warmed_run": True,
+                     "launches": launches2}
+        if name == "host_roundtrip":
+            res[name]["transfer"] = transfer_times(
+                torch, coord, transport, coord.transport.moves)
+        del coord
+        for k, v in launches2.items():
+            total[k] = total.get(k, 0) + v
+    a, b = runs["in_process_checked"], runs["host_roundtrip"]
+    assert [(m["src"], m["dst"]) for m in a] == \
+        [(m["src"], m["dst"]) for m in b], "the migrations differ"
+    for ma, mb in zip(a, b):
+        for name in ma["kv_dst"]:
+            assert torch.equal(ma["kv_dst"][name].view(torch.int16),
+                               mb["kv_dst"][name].view(torch.int16)), \
+                f"migrated {name} blocks differ between the transports"
+    res["host_roundtrip"]["blocks_equal_in_process"] = True
+    del runs, a, b
+
+    # 3. speculation on the decode engine
+    coord = disagg_coordinator(cfg, params, n, spec=spec_cfg)
+    souts, swall, slaunches = disagg_run(torch, coord, prompts, n,
+                                         SPEC_KERNELS)
+    assert coord.prefill_engine.programs.made["draft"] == 0, \
+        "the prefill engine drafted"
+    equal_before(souts, [o.token_ids for o in spec_outs], ties,
+                 "disaggregated speculative")
+    drafted = sum(o.spec_drafted for o in souts)
+    res["spec"] = {**timing_columns(souts, swall, coord.stats),
+                   "warmed": False, "k": SPEC_K,
+                   "draft_threshold": DRAFT_THRESHOLD,
+                   "acceptance_rate": sum(o.spec_accepted for o in souts) /
+                   drafted,
+                   "tokens_equal_unified_spec": [
+                       o.token_ids == w.token_ids
+                       for o, w in zip(souts, spec_outs)],
+                   "launches": slaunches}
+    del coord
+    for k, v in slaunches.items():
+        total[k] = total.get(k, 0) + v
+
+    # 4. churn: cancel mid-transfer and mid-decode, TTL expiry, re-prefill
+    from repro_torch.kernels import ops
+    coord = disagg_coordinator(cfg, params, n, ttl=DISAGG_TTL)
+    ops.reset_launch_counts()
+    hs = [coord.submit(p, max_tokens=n) for p in prompts]
+    cancelled = {}
+    while coord.has_unfinished():
+        coord.step()
+        stages = {h.rid: coord._slots[h.rid].stage for h in hs}
+        if "transfer" not in cancelled:
+            rid = next((r for r, s in stages.items()
+                        if s == STAGE_TRANSFER), None)
+            if rid is not None and coord.cancel(rid):
+                cancelled["transfer"] = rid
+        if "decode" not in cancelled and coord.expired_total:
+            # after an expiry: a slot freed earlier would let every
+            # waiting transfer in before its TTL ran out
+            rid = next((r for r, s in stages.items() if s == STAGE_DECODE
+                        and len(coord._slots[r].req.output_tokens) >= 4),
+                       None)
+            if rid is not None and coord.cancel(rid):
+                cancelled["decode"] = rid
+    torch.cuda.synchronize()
+    claunches = ops.launch_counts()
+    couts = [h.result() for h in hs]
+    assert set(cancelled) == {"transfer", "decode"}, cancelled
+    assert {couts[r].finish_reason for r in cancelled.values()} == \
+        {"cancelled"}, [o.finish_reason for o in couts]
+    kept = [o for o in couts if o.rid not in cancelled.values()]
+    assert all(o.finish_reason == "length" for o in kept)
+    assert coord.expired_total >= 1, "no transfer expired"
+    requeued = [o.rid for o in kept if o.num_preemptions]
+    assert requeued, "no request re-prefilled"
+    equal_before(kept, [want[o.rid] for o in kept],
+                 [ties[o.rid] for o in kept], "re-prefilled")
+    assert coord.decode_engine.prefill_tokens_total == 0
+    assert all(claunches[k] > 0 for k in SERVE_KERNELS), claunches
+    disagg_clean(coord)
+    res["churn"] = {"ttl_steps": DISAGG_TTL, "cancelled": cancelled,
+                    "expired": coord.expired_total,
+                    "preempted": coord.preempted_total,
+                    "requeued_rids": requeued,
+                    "num_preemptions": [o.num_preemptions for o in couts],
+                    "tokens_equal_unified": {
+                        o.rid: o.token_ids == want[o.rid] for o in kept},
+                    "role_stats": coord.role_stats(),
+                    "launches": claunches}
+    del coord
+    for k, v in claunches.items():
+        total[k] = total.get(k, 0) + v
+    res["launches"] = total
+    emit(res)
+    return res
+
+
 
 # --------------------------------------------------------------------------- #
 # 6. olmo-1b: the non-gated TwELL path (K1 + K6) through the serving engine
@@ -2844,6 +3299,7 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
             "grad_tolerance": TRAIN_GRAD_TOL, "grad_rel_err": rel}
 
 
+SERVE_PHASES = {"disagg": phase_disagg}
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,

@@ -3,12 +3,12 @@ TwELL path, on the card unless ``--device cpu``; also the HTTP server and
 the static reference loop (``generate``) the engine is checked against.
 
 Ports ``repro/launch/serve.py`` with every flag but the JAX package's
-``--tp``, ``--mesh``, ``--disagg``, ``--transfer-ttl`` (no tensor
-parallelism or disaggregation in the port yet) and ``--attn-backend`` (the
-port reads the paged KV through one path a device: the CUDA kernels on the
-card, their plain versions on the CPU). ``--backend`` (alias
-``--ffn-impl``) picks the FFN path; ``--torch-profile DIR`` stands for
-``--jax-profile``; ``--device`` is the port's own.
+``--tp`` and ``--mesh`` (no tensor parallelism in the port yet) and
+``--attn-backend`` (the port reads the paged KV through one path a
+device: the CUDA kernels on the card, their plain versions on the CPU).
+``--backend`` (alias ``--ffn-impl``) picks the FFN path;
+``--torch-profile DIR`` stands for ``--jax-profile``; ``--device`` is the
+port's own.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-0.5b
@@ -27,6 +27,10 @@ Usage:
   # chosen port is printed; SIGINT shuts it down cleanly
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --http --port 0
+  # disaggregated serving: a prefill engine and a decode engine, each with
+  # its own KV pool, behind one DisaggCoordinator (synchronous engines)
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --disagg --transfer-ttl 64 --check-static
 
 Weights are random (``lm.init``, ``--seed``) and so are the ``--batch``
 prompts of ``--prompt-len`` token ids (numpy, ``--seed``). The batch run
@@ -164,6 +168,15 @@ def main(argv=None):
     ap.add_argument("--draft-threshold", type=float, default=0.0,
                     help="tile-skip gate threshold for the draft pass "
                          "(higher = sparser/cheaper draft, lower acceptance)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill engine and a "
+                         "decode engine with separate KV pools in one "
+                         "process, bridged by a KV-block transfer buffer "
+                         "(requests migrate after prefill and decode "
+                         "without prefill interference)")
+    ap.add_argument("--transfer-ttl", type=int, default=64,
+                    help="--disagg: steps an unclaimed KV transfer survives "
+                         "before it expires and the request re-queues")
     ap.add_argument("--scheduler", default="fcfs",
                     help="admission policy: fcfs | priority (priority "
                          "preempts lower-priority running requests under "
@@ -246,8 +259,9 @@ def main(argv=None):
     if dev.type == "cuda":     # compile the kernels before the clock starts
         print(f"[serve/torch] kernels built in {build.build_all():.1f}s")
 
-    from repro_torch.serving import (EngineSpec, SamplingParams, SpecConfig,
-                                     Telemetry, torch_profiler)
+    from repro_torch.serving import (DisaggCoordinator, EngineSpec,
+                                     SamplingParams, SpecConfig, Telemetry,
+                                     torch_profiler)
     use_engine = cfg.family == "dense" and not cfg.window \
         and not cfg.attn_chunk and not args.static
     if args.http and not use_engine:
@@ -285,6 +299,12 @@ def main(argv=None):
     # no program made behind /healthz), off for the one-shot demo
     use_pipeline = args.http if args.pipeline is None else args.pipeline
     use_warmup = args.http if args.warmup is None else args.warmup
+    if args.disagg:
+        if args.pipeline:
+            raise SystemExit("--disagg runs synchronous engines (KV "
+                             "withdraw cannot race a launched step); drop "
+                             "--pipeline")
+        use_pipeline = False
     espec = EngineSpec(
         backend=args.backend, block_size=args.block_size,
         max_batch=args.max_batch or args.batch,
@@ -293,7 +313,11 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk, scheduler=args.scheduler,
         telemetry=telemetry if telemetry is not None else False,
         pipeline=use_pipeline, device=dev)
-    engine = espec.build(params, cfg)
+    if args.disagg:
+        engine = DisaggCoordinator(params, cfg, spec=espec,
+                                   transfer_ttl_steps=args.transfer_ttl)
+    else:
+        engine = espec.build(params, cfg)
 
     if args.http:
         return _serve_http(args, engine, use_warmup, use_telemetry, dev)
@@ -304,8 +328,7 @@ def main(argv=None):
     if use_warmup:
         engine.warmup()
         print(f"[serve/torch] warmup: {len(engine.warmup_report)} programs "
-              f"in {engine.warmup_seconds:.2f}s "
-              f"({dict(engine.programs.made)})")
+              f"in {engine.warmup_seconds:.2f}s ({_programs(engine)})")
     ops.OverflowLog.reset()
     t0 = time.perf_counter()
     with torch_profiler(args.torch_profile, dev):
@@ -320,7 +343,14 @@ def main(argv=None):
           f"device={dev}, pipeline={use_pipeline}, "
           f"block_size={args.block_size}, "
           f"ttft mean {np.mean(ttft) * 1e3:.1f}ms, "
-          f"programs {sum(engine.programs.made.values())})")
+          f"programs {_programs(engine, total=True)})")
+    if args.disagg:
+        rs = engine.role_stats()
+        print(f"[serve/torch] disagg: {engine.migrated_blocks_total} KV "
+              f"blocks migrated, decode-side prefill tokens "
+              f"{rs['decode']['prefill_tokens_total']}, transfers "
+              f"{rs['transfer']['claimed_total']} claimed / "
+              f"{rs['transfer']['expired_total']} expired")
     overflow = ops.OverflowLog.seen()
     if overflow:
         print("[serve/torch] a TwELL gate tile overflowed its T/C slots: "
@@ -370,6 +400,16 @@ def main(argv=None):
     return outs
 
 
+def _programs(engine, total: bool = False):
+    """Programs made by entry (per engine role behind ``--disagg``), or
+    their total."""
+    made = engine.programs_made() if hasattr(engine, "programs_made") \
+        else {"unified": dict(engine.programs.made)}
+    if total:
+        return sum(n for per in made.values() for n in per.values())
+    return made if len(made) > 1 else made["unified"]
+
+
 def _serve_http(args, engine, use_warmup: bool, use_telemetry: bool, dev):
     """Run ``engine`` behind the HTTP server until SIGINT/SIGTERM (or the
     engine thread fails), then shut down cleanly."""
@@ -388,7 +428,7 @@ def _serve_http(args, engine, use_warmup: bool, use_telemetry: bool, dev):
             server.shutdown()
             server.check()
         print(f"[serve/warmup] {len(engine.warmup_report)} programs in "
-              f"{engine.warmup_seconds:.2f}s ({dict(engine.programs.made)}); "
+              f"{engine.warmup_seconds:.2f}s ({_programs(engine)}); "
               f"serving makes none", flush=True)
     stop = {"flag": False}
 
@@ -398,8 +438,9 @@ def _serve_http(args, engine, use_warmup: bool, use_telemetry: bool, dev):
     signal.signal(signal.SIGTERM, _sig)
     print(f"[serve/http] listening on http://{server.host}:{server.port} "
           f"(backend={args.backend}, device={dev}, "
-          f"scheduler={args.scheduler}, pipeline={engine.pipeline}; "
-          f"POST /v1/completions, GET /healthz"
+          f"scheduler={args.scheduler}, pipeline={engine.pipeline}"
+          + (", disagg=prefill+decode" if args.disagg else "") +
+          "; POST /v1/completions, GET /healthz"
           + (", GET /metrics" if use_telemetry else "") + ")", flush=True)
     try:
         while not stop["flag"] and server.error is None:

@@ -33,9 +33,20 @@
                  cancels the request; ``/metrics``, ``/v1/stats``,
                  ``/healthz``) over one engine thread (imported from its
                  module, as in the JAX package).
+  disagg/      — disaggregated prefill/decode serving: a prefill engine and
+                 a decode engine with separate KV pools in one process,
+                 bridged by a bounded refcount-holding ``TransferBuffer``
+                 and a pluggable ``Transport`` (in-place copy on the
+                 device; host bytes-roundtrip as the socket stand-in),
+                 fronted by ``DisaggCoordinator``: the same handle/event
+                 API, with migration a cross-engine preempt-resume.
 """
 from repro_torch.serving.backends import (DraftPair, ServingBackend,
                                           get_backend, make_draft_pair)
+from repro_torch.serving.disagg import (DisaggCoordinator,
+                                        HostRoundtripTransport,
+                                        InProcessTransport, TransferBuffer,
+                                        Transport)
 from repro_torch.serving.engine import ServingEngine, StepStats
 from repro_torch.serving.engine_spec import EngineSpec
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -62,5 +73,6 @@ __all__ = [
     "SpecConfig", "DraftPair", "make_draft_pair",
     "Telemetry", "MetricsRegistry", "ServingMetrics", "Counter", "Gauge",
     "Histogram", "SpanEvent", "TraceRecorder", "span_names",
-    "torch_profiler", "EngineSpec",
+    "torch_profiler", "EngineSpec", "DisaggCoordinator", "TransferBuffer",
+    "Transport", "InProcessTransport", "HostRoundtripTransport",
 ]

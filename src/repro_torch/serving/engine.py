@@ -59,8 +59,15 @@ collect, as JAX's asynchronous dispatch gives too. With telemetry on, the
 decode and prefill programs also compute a per-layer sparsity probe
 (``nnz_mean``, ``tile_frac``, ``ffn_present``; captured in the same graph)
 that reaches the host with the sampled tokens, behind the same event.
-Without telemetry the engine pays only ``is None`` checks. Not in this
-slice of the port: tensor parallelism and disaggregation.
+Without telemetry the engine pays only ``is None`` checks.
+
+Disaggregation (``serving/disagg/``): ``submit(outputs=, base_key=)``
+resumes a request with committed tokens under the coordinator's key,
+``on_prefill_done`` fires after a prefill's first token commits and
+before anything is freed, ``admit_migrated`` takes a request whose KV
+another engine's pool holds straight into the decode batch, and
+``withdraw`` hands a running request back to the coordinator. Not in the
+port yet: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -140,6 +147,10 @@ class StepStats:
     draft_ms: float = 0.0    # synchronous mode: wall time of the draft, to
     #                          its tokens on the host
     verify_ms: float = 0.0   # ... and of the verify pass, to its logits
+    migrated_blocks: int = 0  # KV blocks materialized into this engine's pool
+    #                           from another engine this step (disaggregation)
+    role: str = "unified"    # engine role that produced this step
+    #                          (unified | prefill | decode)
 
 
 def _probe_stack(aux) -> torch.Tensor:
@@ -239,9 +250,19 @@ class ServingEngine:
         self.finished_total = 0            # requests finished (EOS / length)
         self.cancelled_total = 0           # requests aborted via cancel()
         self.preempted_total = 0           # scheduler evictions (resumes)
+        self.migrated_blocks_total = 0     # KV blocks materialized into this
+        #                                    pool from another engine (disagg)
+        self._migrated_step = 0            # ... of which since the last step
         self.max_stats = max_stats         # keep only the newest N StepStats
         self.on_new_work = None            # optional callable: submit/cancel
         #                                    wake-up hook for a server loop
+        self.on_prefill_done = None        # optional callable(req, reason):
+        #                                    fires when a request's prefill
+        #                                    target completes, AFTER its first
+        #                                    sampled token commits but BEFORE
+        #                                    any terminal transition frees its
+        #                                    KV -- the disagg coordinator holds
+        #                                    the blocks for transfer here
         self._master_key = sampling_mod.PRNGKey(seed)
         self._next_rid = 0
         self._step_idx = 0
@@ -287,19 +308,35 @@ class ServingEngine:
                eos_token_id: Optional[int] = None,
                no_spec: bool = False,
                priority: int = 0,
-               stream: bool = False) -> RequestHandle:
+               stream: bool = False,
+               outputs: Sequence[int] = (),
+               base_key: Optional[torch.Tensor] = None) -> RequestHandle:
         """Queue a request; returns its ``RequestHandle`` immediately.
         Admission happens in ``step()`` under the scheduler policy.
         priority: larger = more urgent (the priority scheduler may preempt
         lower tiers; FCFS ignores it). stream: buffer this request's
         ``StepEvent``s on the handle. no_spec: decode this request one
-        token at a time even in a speculating engine."""
+        token at a time even in a speculating engine.
+
+        outputs / base_key are the disaggregation coordinator's resume
+        interface: ``outputs`` pre-commits already-generated tokens (the
+        request admits exactly like a preempt-resume, prefilling
+        ``prompt + outputs``; ``max_tokens`` still counts TOTAL outputs and
+        must exceed ``len(outputs)``), and ``base_key`` replaces the
+        per-request threefry base key, so a cross-engine request samples
+        with the key of the coordinator rid it belongs to, not this
+        engine's local rid."""
         with self._lock:
             sp = sampling or SamplingParams()
+            if outputs and max_tokens <= len(outputs):
+                raise ValueError(
+                    f"max_tokens ({max_tokens}) must exceed pre-committed "
+                    f"outputs ({len(outputs)})")
             req = Request(rid=self._next_rid, prompt=list(map(int, prompt)),
                           max_tokens=max_tokens, sampling=sp,
                           eos_token_id=eos_token_id, no_spec=no_spec,
-                          priority=priority)
+                          priority=priority,
+                          output_tokens=list(map(int, outputs)))
             req.role = self.role
             if len(req.prompt) + max_tokens > self.max_seq_len:
                 raise ValueError(
@@ -310,8 +347,9 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {worst} KV blocks but the pool only has "
                     f"{self.kv.num_blocks - 1}; it could never be admitted")
-            req.base_key = sampling_mod.request_base_key(
-                self._master_key, req.rid, sp.seed)
+            req.base_key = base_key if base_key is not None else \
+                sampling_mod.request_base_key(
+                    self._master_key, req.rid, sp.seed)
             if self.record_logits:
                 req.logits_trace = []
             self._next_rid += 1
@@ -345,6 +383,111 @@ class ServingEngine:
         req.cancel_requested = True
         self._wake()
         return True
+
+    def admit_migrated(self, req: Request,
+                       migrate_fn) -> Optional[RequestHandle]:
+        """Admit a request whose KV arrives from ANOTHER engine's pool
+        (disaggregated serving): the decode-side half of a migration.
+
+        ``req`` is a coordinator-owned ``Request`` carrying committed
+        ``output_tokens``; this pool holds nothing of it yet. The method
+        plans a prefix-cache-aware allocation for its ``seq_len - 1``
+        cached positions (matched full prompt blocks dedupe against this
+        pool's content-hash index: their K/V is the same by construction,
+        so the transfer skips them), claims the remaining blocks fresh,
+        and calls ``migrate_fn(fresh_blocks, skip_blocks)`` to fill them
+        from the source pool. The request then joins the decode batch
+        directly: ZERO prefill chunks run here, and its first decode writes
+        position ``seq_len - 1``, where a preempt-resume would continue.
+        Matched blocks are never written (the next write lands in a fresh
+        or appended private block), so no copy-on-write is needed.
+
+        Returns the engine-side ``RequestHandle``, or None when a batch
+        slot or the worst-case block reservation is not free right now
+        (the caller retries after capacity frees up)."""
+        with self._lock:
+            if req.rid in self._requests or req.rid in self.kv:
+                raise ValueError(f"rid {req.rid} already live in this engine")
+            cached = req.seq_len - 1
+            plen = len(req.prompt)
+            total = self.kv.blocks_for(plen + req.max_tokens)
+            if plen + req.max_tokens > self.max_seq_len:
+                raise ValueError(
+                    f"prompt ({plen}) + max_tokens ({req.max_tokens}) "
+                    f"exceeds max_seq_len ({self.max_seq_len})")
+            if total > self.kv.num_blocks - 1:
+                raise ValueError(
+                    f"request needs {total} KV blocks but the pool only has "
+                    f"{self.kv.num_blocks - 1}; it could never be admitted")
+            n_blocks = self.kv.blocks_for(cached)
+            if self.prefix_cache:
+                matched, avail = self.kv.plan_admission(req.prompt)
+            else:
+                matched, avail = [], self.kv.num_available
+            have_slot = len(self.running) + len(self.prefilling) \
+                < self.max_batch
+            if not have_slot or avail - self._reserved < total - len(matched):
+                return None
+            if self.prefix_cache:
+                self.kv.commit_allocation(self.kv.plan_allocation(
+                    req.rid, req.prompt, n_blocks, matched=matched))
+            else:
+                self.kv.allocate(req.rid, n_blocks)
+            fresh = self.kv.block_table(req.rid)[len(matched):]
+            if fresh:
+                migrate_fn(fresh, len(matched))
+            if self.prefix_cache:
+                self.kv.register_prefix(req.rid, req.prompt)
+            hit = len(matched) * self.kv.block_size
+            req.cached_prefix_tokens = hit
+            self.cached_tokens_total += hit
+            self.prompt_tokens_total += plen
+            req.migrated_blocks += len(fresh)
+            self.migrated_blocks_total += len(fresh)
+            self._migrated_step += len(fresh)
+            req.reserved_blocks = total - n_blocks
+            self._reserved += req.reserved_blocks
+            req.cow_spare = 0
+            req.status = RUNNING
+            req.role = self.role
+            handle = RequestHandle(self, req)
+            self._requests[req.rid] = req
+            self._handles[req.rid] = handle
+            self.running.append(req)
+            if self.telemetry is not None:
+                self.telemetry.on_migrated(req, len(fresh))
+        self._wake()
+        return handle
+
+    def withdraw(self, rid: int) -> Optional[Request]:
+        """Remove a RUNNING request from this engine, freeing/parking its
+        KV and returning the ``Request`` (committed outputs intact) to the
+        caller instead of this engine's own queue: the disagg
+        coordinator's cross-engine preemption. The withdrawn request
+        re-queues at the coordinator, re-prefills on the prefill engine
+        and migrates again, as an in-engine preempt-resume would. Returns
+        None when the rid is unknown or not running."""
+        with self._lock:
+            if self._inflight is not None:
+                raise RuntimeError(
+                    "cannot withdraw with a launched step in flight; "
+                    "flush() first (disagg engines run pipeline=False)")
+            req = self._requests.get(rid)
+            if req is None or req.status != RUNNING:
+                return None
+            self.kv.free(rid)
+            self._reserved -= req.reserved_blocks
+            req.reserved_blocks = 0
+            req.cow_spare = 0
+            self.running = [r for r in self.running if r.rid != rid]
+            self._requests.pop(rid, None)
+            self._handles.pop(rid, None)
+            req.status = PREEMPTED
+            req.num_preemptions += 1
+            self.preempted_total += 1
+            if self.telemetry is not None:
+                self.telemetry.on_preempt(req)
+            return req
 
     def has_unfinished(self) -> bool:
         return bool(len(self.scheduler) or self.prefilling or self.running
@@ -565,7 +708,9 @@ class ServingEngine:
             sync_ms=self._sync_s * 1e3, overlap_ms=overlap_ms,
             spec_batch=spec_batch, spec_drafted=spec_drafted,
             spec_accepted=spec_accepted, draft_ms=draft_ms,
-            verify_ms=verify_ms))
+            verify_ms=verify_ms, migrated_blocks=self._migrated_step,
+            role=self.role))
+        self._migrated_step = 0
         if self.max_stats is not None and len(self.stats) >= 2 * self.max_stats:
             del self.stats[:-self.max_stats]     # amortized O(1) trim
         if self.telemetry is not None:
@@ -1203,6 +1348,11 @@ class ServingEngine:
             events.append(StepEvent(kind=EVENT_TOKEN, rid=r.rid,
                                     step=self._step_idx,
                                     tokens=(int(tok[i]),)))
+            if self.on_prefill_done is not None:
+                # disagg hook: the row's whole prefill target is cached and
+                # its first token committed, but nothing is freed yet -- the
+                # coordinator can still hold the blocks for transfer
+                self.on_prefill_done(r, reason)
             if reason:
                 events.append(self._terminal_event(r, reason))
             else:

@@ -294,6 +294,28 @@ class PagedKVCache:
                 freed += 1
         return parked, freed
 
+    def hold(self, owner: int, blocks: Sequence[int]) -> None:
+        """Pin ``blocks`` under a synthetic ``owner`` id (incref each,
+        reviving any evictable ones out of the LRU) and record them as the
+        owner's table. Release with ``free(owner)``.
+
+        The disaggregation transfer buffer's primitive: when a prefill
+        engine finishes a request and its table is about to be freed, the
+        coordinator holds the blocks so their contents stay intact until a
+        decode engine claims (or a TTL expires) the entry. ``owner`` must
+        not collide with any request id: callers use negative ids."""
+        if owner in self._tables:
+            raise ValueError(f"owner {owner} already holds blocks")
+        for blk in blocks:
+            if blk == NULL_BLOCK:
+                raise ValueError("cannot hold the null block")
+            if self._ref[blk] == 0:
+                if blk not in self._lru:
+                    raise ValueError(f"block {blk} is free; cannot hold it")
+                self._lru.pop(blk)                       # revive from LRU
+            self._ref[blk] += 1
+        self._tables[owner] = list(blocks)
+
     def __contains__(self, rid: int) -> bool:
         """Whether ``rid`` currently owns a block table."""
         return rid in self._tables
@@ -336,8 +358,9 @@ class PagedKVCache:
 
         Every block in [1, num_blocks) is exactly one of {free, evictable
         cached (LRU), live (referenced by >= 1 table)}; refcounts equal the
-        number of table references; the hash index is a bijection onto
-        registered blocks, none of which sit on the free list."""
+        number of table references (``hold`` owners' tables included); the
+        hash index is a bijection onto registered blocks, none of which sit
+        on the free list."""
         owned: Dict[int, int] = {}
         for tbl in self._tables.values():
             for b in tbl:

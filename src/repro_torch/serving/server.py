@@ -38,7 +38,9 @@ Endpoints:
   GET  /v1/stats           engine counters (finished/cancelled/preempted,
                            KV-pool picture) + a telemetry rollup (phase
                            timing means, cache hit rate, spec acceptance,
-                           programs made) when the engine has telemetry
+                           programs made) when the engine has telemetry;
+                           behind ``--disagg`` a ``roles`` section adds the
+                           per-role engine + transfer-buffer picture
   GET  /metrics            Prometheus text exposition of the engine's
                            metrics registry (step-phase histograms, KV
                            occupancy gauges, TTFT/ITL histograms, ...);
@@ -377,6 +379,10 @@ class ServingServer:
                       "reserved": e._reserved},
                "prefill_tokens_total": e.prefill_tokens_total,
                "cached_tokens_total": e.cached_tokens_total}
+        role_stats = getattr(e, "role_stats", None)
+        if role_stats is not None:
+            # disaggregated front door: per-role engine + transfer-buffer view
+            out["roles"] = role_stats()
         if e.telemetry is not None:
             out["telemetry"] = e.telemetry.summary()
             sp = out["telemetry"].get("sparsity")

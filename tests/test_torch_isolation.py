@@ -48,7 +48,8 @@ def test_walk_covers_the_package():
     assert {"engine.py", "lm.py", "ops.py", "bridge.py", "build.py",
             "pipeline.py", "graphs.py", "chip_smoke.py", "random.py",
             "accounting.py", "runlog.py", "paper_1p5b.py", "telemetry.py",
-            "trace.py", "engine_spec.py", "server.py"} <= names
+            "trace.py", "engine_spec.py", "server.py", "coordinator.py",
+            "transfer.py"} <= names
 
 
 @pytest.fixture
