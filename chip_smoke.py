@@ -25,7 +25,9 @@ JAX package) and runs these phases, each printing one JSON line:
                  20, 64 and 256 on paper-0.5b's W_g and at M 4 and 256 on
                  olmo-1b's N 8192, K2 at M 4, 256 and 20 and on a gate with
                  every column alive (a union near N), with its host time
-                 beside the dense FFN's, K6 at M 4 and 256 (with K1 + K6
+                 beside the dense FFN's, K1 and K2 at the MoE experts'
+                 shapes (K 5120, N 8192; K 6144, N 16384) at M 4 and 64,
+                 K6 at M 4 and 256 (with K1 + K6
                  beside the dense non-gated FFN) and on a pattern with every
                  column alive, with its union a row block and its launch
                  plan, K3 and K4 at hd 64 (MHA, GQA) and at
@@ -119,6 +121,16 @@ JAX package) and runs these phases, each printing one JSON line:
                  attend; each launched over exactly this run, no overflow,
                  the prefix cache hit, the pool clean; then a profiled rerun
                  and the kernel launches of 4 decode-only steps
+  6b. serve_moe -- mixtral-8x22b and llama4-scout-17b-a16e at full width
+                 and MOE_LAYERS layers (KEEP of every expert's gate
+                 columns alive) through the serve CLI's static loop,
+                 greedy: gather (K1 + K2 once an expert a layer a step,
+                 counted exactly; K2 past K 4096) then dense, tokens
+                 equal up to each request's first near-tie; mixtral's
+                 prompts run past its 4096-token window (the decode ring
+                 wraps) and its first layer's decode logits there are
+                 held against ``lm.forward``'s in float32; tokens/s and
+                 the step time
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -144,6 +156,14 @@ JAX package) and runs these phases, each printing one JSON line:
                  (full), hybrid (non-gated) then dense, OLMO_TRAIN_STEPS
                  steps each: K7 at head dim 128, K8 and K9 launched, rows on
                  both sides of the format, no overflow, a falling loss
+  7e. train_moe -- mixtral-8x22b's full-width layer (2.91 B parameters),
+                 hybrid then dense, MOE_TRAIN_STEPS steps each on
+                 TRAIN_SEQ-token rows (within the window: K7), the first
+                 batch of MOE_TRAIN_BATCHES that fits: K7, K8 and K9
+                 launched, both sides of the hybrid format, no overflow,
+                 a falling loss, step time and peak; then its MoE
+                 block's hybrid gradients against the dense formula in
+                 float32
   8. check    -- the same weights in float32 on the CPU (plain versions)
                  against the card: prefill plus 4 decode steps of two prompts
                  through the gather path and one through tile_skip, logits
@@ -155,9 +175,9 @@ JAX package) and runs these phases, each printing one JSON line:
   9. each phase's wall seconds and the script's total (``{"phase":
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, HTTP, disaggregated, olmo serve, hybrid train, remat,
-     paper-1.5b and olmo train runs; a recomputed layer's kernels count
-     again), then the
+     spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, hybrid
+     train, remat, paper-1.5b, olmo train and MoE train runs; a
+     recomputed layer's kernels count again), then the
      last
      line ``{"ok": true, "device": {...}}``.
 
@@ -172,9 +192,10 @@ flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--train-phases train`` (or any of train, remat,
-train_1p5b, train_olmo and check_train, comma-separated) runs phases 1-2
-and those training phases (step times, peak memory), on the port under
-``--src`` if given, without the last line.
+train_1p5b, train_olmo, train_moe and check_train, comma-separated) runs
+phases 1-2 and those training phases (step times, peak memory), on the
+port under ``--src`` if given, without the last line.
+``--phases serve_moe,train_moe`` runs phases 1-2 and the MoE phases.
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -240,16 +261,16 @@ def parse_args(argv):
                          "print their table (no last line); for A/B timing")
     ap.add_argument("--train-phases", default=None,
                     help="comma-separated training phases (train, remat, "
-                         "train_1p5b, train_olmo, check_train): run only the "
-                         "device and build phases and those, on the port "
-                         "under --src (no last line); for A/B timing of "
-                         "the training step")
+                         "train_1p5b, train_olmo, train_moe, check_train): "
+                         "run only the device and build phases and those, "
+                         "on the port under --src (no last line); for A/B "
+                         "timing of the training step")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated serving phases (disagg): run only "
-                         "the device and build phases and those, on the "
-                         "serve phase's model and prompts, each comparing "
-                         "against references it makes itself (no last "
-                         "line)")
+                    help="comma-separated phases (disagg, serve_moe, "
+                         "train_moe): run only the device and build phases "
+                         "and those (disagg on the serve phase's model and "
+                         "prompts), each comparing against references it "
+                         "makes itself (no last line)")
     ap.add_argument("--k1-plans", action="store_true",
                     help="run only the device and build phases and K1 at "
                          "each of K1_SHAPES under the launch plans around "
@@ -301,9 +322,11 @@ def main(argv=None) -> int:
             print(f"chip_smoke: unknown serving phases {unknown}; choose "
                   f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
             return 2
-        cfg, params, prompts = model_and_prompts(torch)
-        serve = {"cfg": cfg, "params": params, "prompts": prompts,
-                 "new_tokens": 32}
+        serve = None
+        if any(n in NEEDS_SERVE_MODEL for n in names):
+            cfg, params, prompts = model_and_prompts(torch)
+            serve = {"cfg": cfg, "params": params, "prompts": prompts,
+                     "new_tokens": 32}
         for name in names:
             SERVE_PHASES[name](torch, serve, None, smi)
         print(smi, flush=True)
@@ -328,18 +351,21 @@ def main(argv=None) -> int:
     http = timed("http", phase_http, serve, spec, pipe)
     disagg = timed("disagg", phase_disagg, serve, spec, smi)
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
+    serve_moe = timed("serve_moe", phase_serve_moe)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
     olmo_train = timed("train_olmo", phase_train_olmo)
+    train_moe = timed("train_moe", phase_train_moe)
     timed("check", phase_check, serve, olmo)
     timed("k5_splits", k5_splits)
     emit({"phase": "seconds", "seconds": seconds,
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
-                            (serve, spec, pipe, http, disagg, olmo, train,
-                             remat, p15, olmo_train))
+                            (serve, spec, pipe, http, disagg, olmo,
+                             serve_moe, train, remat, p15, olmo_train,
+                             train_moe))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -497,13 +523,13 @@ def k1_agrees(torch, x, wg, t, c, case):
     return err, int(near.sum()), (pv, pi, pz)
 
 
-def check_k1(torch, timer, m, n, gen, t=256, c=8):
+def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048):
     """K1 on a KEEP-masked gate weight (K 2048; N 5632 is paper-0.5b's W_g,
-    8192 olmo-1b's W_u), held by ``k1_agrees`` and timed. Returns the case
-    and the inputs with the plain version's outputs."""
+    8192 olmo-1b's W_u; K 5120 and 6144 the MoE experts'), held by
+    ``k1_agrees`` and timed. Returns the case and the inputs with the plain
+    version's outputs."""
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
-    k = 2048
     x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
     err1, near, (pv, pi, pz) = k1_agrees(torch, x, wg, t, c,
                                          f"M={m}, N={n}")
@@ -518,7 +544,7 @@ def check_k1(torch, timer, m, n, gen, t=256, c=8):
           "host_us": host_us(torch, lambda: twell_gate_matmul_cuda(
               x, wg, t, c)),
           "library_host_us": host_us(torch, lambda: torch.matmul(x, wg)),
-          "near_zero_rows": near, "M": m, "N": n}
+          "near_zero_rows": near, "M": m, "K": k, "N": n}
     return k1, (x, wg, wu, wd, pv, pi, pz)
 
 
@@ -570,8 +596,8 @@ def check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz, pattern="alive"):
         p = sf.fused_ffn_plan(m, k, n, t, c, torch.cuda.get_device_properties(
             0).multi_processor_count)
         plan = {"width": p.width, "row_blocks": p.row_blocks, "ks": p.ks,
-                "ring": p.stages, "smem": p.smem, "split": p.split,
-                "other_union_ms": None}
+                "slices": p.slices, "ring": p.stages, "smem": p.smem,
+                "split": p.split, "other_union_ms": None}
         if p.ks > 1:
             # the other way of building the union (each rank all the
             # block's rows, or the ranks split them): the same bits, timed
@@ -591,8 +617,8 @@ def check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz, pattern="alive"):
             "library_host_us": host_us(torch, dense_ffn),
             "bound_ms": b2, "bound_by": by2, "max_abs_err": err2,
             "active_slots_per_row": slots / m, "distinct_columns": cols,
-            "overflow": bool(tw.overflow), "M": m, "pattern": pattern,
-            "plan": plan}
+            "overflow": bool(tw.overflow), "M": m, "K": k, "N": n,
+            "pattern": pattern, "plan": plan}
 
 
 def check_k2_scattered(torch, timer, m, gen):
@@ -617,6 +643,28 @@ def k2_cases(torch, timer, gen):
     k1_20, k2_20 = check_k1_k2(torch, timer, 20, gen)
     return [k1_4, k1_256, k1_20], [k2_4, k2_256, k2_20,
                                    check_k2_scattered(torch, timer, 256, gen)]
+
+
+# the MoE experts' FFNs past K 4096: llama4-scout-17b-a16e's (K 5120, N
+# 8192) and mixtral-8x22b's (K 6144, N 16384), at decode and a 64-row chunk
+WIDE_FFN_SHAPES = [(5120, 8192, 4), (5120, 8192, 64), (6144, 16384, 4),
+                   (6144, 16384, 64)]
+
+
+def k2_wide_cases(torch, timer, gen):
+    """K1, then K2 on the plain version's packed gate, at each of
+    WIDE_FFN_SHAPES (KEEP of the gate columns alive, as the experts of the
+    serve_moe phase): K2's wide plans (a rank of 10 or 12 K stages, the
+    ring landing in groups); no case on an earlier port without them."""
+    from repro_torch.kernels import sparse_ffn as sf
+    k1s, k2s = [], []
+    if not hasattr(sf, "FUSED_FFN_WIDE_SLICES"):
+        return k1s, k2s
+    for k, n, m in WIDE_FFN_SHAPES:
+        k1, inputs = check_k1(torch, timer, m, n, gen, k=k)
+        k1s.append(k1)
+        k2s.append(check_k2(torch, timer, *inputs))
+    return k1s, k2s
 
 
 def check_k6(torch, timer, m, gen, keep=KEEP):
@@ -1313,15 +1361,18 @@ def phase_kernels(torch, only=None):
                 torch, timer, hybrid_inputs(torch, gen)),
             "hybrid_to_dense": lambda: k8_cases(
                 torch, timer, hybrid_inputs(torch, gen)),
-            "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1],
+            "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1] +
+            k2_wide_cases(torch, timer, gen)[1],
             "twell_down_proj": lambda: k6_cases(torch, timer, gen),
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1s, k2s = k2_cases(torch, timer, gen)
+    k1w, k2w = k2_wide_cases(torch, timer, gen)
     cases = {
         "twell_gate_matmul": k1s + [
-            check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[3:]],
-        "twell_fused_ffn": k2s,
+            check_k1(torch, timer, m, n, gen)[0] for n, m in K1_SHAPES[3:]]
+        + k1w,
+        "twell_fused_ffn": k2s + k2w,
         "twell_down_proj": k6_cases(torch, timer, gen),
         "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
                                    check_k3(torch, timer, 32, 8, gen),
@@ -2735,6 +2786,200 @@ def phase_serve_olmo(torch, serve):
 
 
 # --------------------------------------------------------------------------- #
+# 6b. the MoE family at full width: mixtral-8x22b and llama4-scout, served
+# --------------------------------------------------------------------------- #
+
+MOE_LAYERS = 2                     # of mixtral's 56 and llama4's 48
+MOE_KERNELS = ("twell_gate_matmul", "twell_fused_ffn")
+MOE_GEN = 32                       # greedy tokens a request
+MOE_RING_TOL = 1e-3                # float32 decode against the forward:
+#                                    sums over 4096 keys and the FFN in
+#                                    other orders, on logits of order 1
+# (arch, requests, prompt tokens): mixtral's prompt runs 64 past its 4096
+# window, so the decode ring wraps before the first generated token
+MOE_SERVE = (("mixtral-8x22b", 2, 4096 + 64),
+             ("llama4-scout-17b-a16e", 2, 64))
+
+
+def moe_model(torch, arch, layers, impl, keep=KEEP, alive=None):
+    """``arch`` at full width and ``layers`` layers in bfloat16 with the
+    FFN as ``impl``, random weights from SEED (lm.init), and in every
+    expert all but ``keep`` of W_g's columns zeroed (or exactly ``alive``
+    columns alive): the MoE counterpart of ``model_and_prompts``'s gate
+    sparsity."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl=impl))
+    params = lm.init(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    wg = params["blocks"]["moe"]["experts"]["wg"]       # (L, E, K, N)
+    for w in wg.flatten(0, 1):
+        if alive is None:
+            w *= (torch.rand((1, cfg.d_ff), generator=gen, device="cuda")
+                  < keep).to(w)
+        else:
+            w *= alive_columns(torch, gen, cfg.d_ff).to(w)
+    return cfg, params
+
+
+def moe_static_run(torch, cfg, params, prompt, impl):
+    """The serve CLI's static loop (``launch/serve.py:generate``, greedy)
+    with the FFN as ``impl``: tokens, each generated step's logits, wall
+    seconds and the kernel launches over exactly this run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl=impl))
+    logits = []
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve.generate(params, cfg, prompt, MOE_GEN,
+                          prompt.shape[1] + MOE_GEN + 1, logits_out=logits)
+    torch.cuda.synchronize()
+    return toks, logits, time.perf_counter() - t0, ops.launch_counts()
+
+
+def moe_decode_against_forward(torch, cfg, params, toks, logits):
+    """A static-loop run's decode logits at its generated positions (all
+    past the window) against ``lm.forward``'s on the same tokens (dense
+    FFN): one request, right-padded to a multiple of the window (the
+    banded forward's chunks; causal, so the padding moves no earlier
+    position). Returns each compared position's max abs difference and
+    the positions."""
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="dense"))
+    row = toks[:1]
+    total = -(-row.shape[1] // cfg.window) * cfg.window
+    padded = torch.nn.functional.pad(row, (0, total - row.shape[1]))
+    first = row.shape[1] - MOE_GEN - 1              # the last prompt token
+    with torch.no_grad():
+        fwd, _ = lm.forward(params, {"tokens": padded}, cfg)
+    want = fwd[0, first:first + MOE_GEN].float()
+    got = torch.stack([lg[0] for lg in logits])
+    return (got - want).abs().amax(dim=-1).tolist(), \
+        [first, first + MOE_GEN - 1]
+
+
+def moe_ring_check(torch, cfg, params, prompt):
+    """The ring against the forward in float32, where a router's top-k
+    choice cannot flip between the two (in bf16 the router logits of a
+    2-row decode step and of the 8192-row forward round differently, and
+    a token whose second and third experts are that close takes another
+    expert: an order-1 change of its FFN output). mixtral's first layer at
+    full width in float32 (the bf16 weights widened), one request of the
+    prompt, the static loop with the dense FFN: its decode logits past
+    the window within MOE_RING_TOL of ``lm.forward``'s."""
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_map
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype="float32",
+                                param_dtype="float32",
+                                sparsity=dataclasses.replace(
+                                    cfg.sparsity, ffn_impl="dense"))
+    p32 = {**params, "blocks": tree_map(lambda t: t[:1],
+                                        params["blocks"])}
+    p32 = tree_map(lambda t: t.float(), p32)
+    logits = []
+    t0 = time.perf_counter()
+    toks = serve.generate(p32, cfg32, prompt[:1], MOE_GEN,
+                          prompt.shape[1] + MOE_GEN + 1, logits_out=logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs, span = moe_decode_against_forward(torch, cfg32, p32, toks, logits)
+    del p32
+    return {"layers": 1, "dtype": "float32", "max_abs_diff": max(errs),
+            "positions": span, "tolerance": MOE_RING_TOL,
+            "step_ms": wall / (prompt.shape[1] + MOE_GEN) * 1e3}
+
+
+def phase_serve_moe(torch):
+    """mixtral-8x22b and llama4-scout-17b-a16e at full width and MOE_LAYERS
+    layers (bf16, KEEP of every expert's gate columns alive) through the
+    serve CLI's static loop, greedy: the gather FFN (K1 + K2 for every
+    expert at every step, K2 past K 4096: 6144 and 5120), then the dense
+    FFN on the same prompts, tokens equal up to each request's first
+    near-tie (LOGIT_TOL). mixtral's prompts run past its 4096-token window,
+    so the decode ring wraps; there its decode logits are held against
+    ``lm.forward``'s in float32 (``moe_ring_check``; the bf16 run's
+    differences are reported beside). Tokens/s and the step time of
+    each."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.observability import accounting
+    runs, launches = [], {}
+    for arch, batch, plen in MOE_SERVE:
+        cfg, params = moe_model(torch, arch, MOE_LAYERS, "gather")
+        e, steps = cfg.num_experts, plen + MOE_GEN
+        rng = np.random.RandomState(SEED)
+        prompt = torch.tensor(rng.randint(0, cfg.vocab_size, (batch, plen)),
+                              dtype=torch.int64, device="cuda")
+        toks, logits, wall, counts = moe_static_run(torch, cfg, params,
+                                                    prompt, "gather")
+        overflow = ops.OverflowLog.seen()
+        for k in MOE_KERNELS:
+            assert counts[k] == steps * MOE_LAYERS * e, \
+                f"{arch}: {k} launched {counts[k]} times, not once an " \
+                f"expert a layer a step ({steps * MOE_LAYERS * e})"
+            launches[k] = launches.get(k, 0) + counts[k]
+        assert not overflow, f"{arch}: a TwELL tile overflowed"
+        dtoks, dlogits, dwall, _ = moe_static_run(torch, cfg, params, prompt,
+                                                  "dense")
+        ties = serve.first_near_ties(dlogits)
+        for r, n in enumerate(ties):
+            assert torch.equal(toks[r, plen:plen + n],
+                               dtoks[r, plen:plen + n]), \
+                f"{arch} row {r}: gather and dense differ before the " \
+                f"first near-tie ({n})"
+        res = {"arch": arch, "layers": MOE_LAYERS, "experts": e,
+               "top_k": cfg.top_k, "d_model": cfg.d_model,
+               "d_ff": cfg.d_ff,
+               "params": accounting.param_count(lm.trainable(params)),
+               "requests": batch, "prompt_len": plen, "new_tokens": MOE_GEN,
+               "decode_steps": steps,
+               "cache_slots": lm.init_cache(cfg, 1, steps + 1,
+                                            device="cuda")["k"].shape[2],
+               "window": cfg.window, "attn_chunk": cfg.attn_chunk,
+               "gather": {"wall_s": wall,
+                          "step_ms": wall / steps * 1e3,
+                          "tokens_per_s": batch * MOE_GEN / wall,
+                          "launches": {k: counts[k] for k in MOE_KERNELS}},
+               "dense": {"wall_s": dwall, "step_ms": dwall / steps * 1e3,
+                         "tokens_per_s": batch * MOE_GEN / dwall},
+               "near_ties": ties, "overflow": overflow,
+               "first_tokens": toks[:, plen].tolist()}
+        if cfg.window:
+            errs, span = moe_decode_against_forward(torch, cfg, params,
+                                                    dtoks, dlogits)
+            res["decode_vs_forward_bf16"] = {
+                "max_abs_diff": max(errs),
+                "median_abs_diff": statistics.median(errs),
+                "positions_within_logit_tol": sum(e <= LOGIT_TOL
+                                                  for e in errs),
+                "positions": span}
+            res["decode_vs_forward_f32"] = moe_ring_check(torch, cfg, params,
+                                                          prompt)
+        runs.append(res)
+        emit({"phase": "serve_moe", **res})
+        if cfg.window:
+            assert steps > cfg.window == res["cache_slots"], \
+                f"{arch}: the ring did not wrap"
+            ring = res["decode_vs_forward_f32"]
+            assert ring["max_abs_diff"] <= MOE_RING_TOL, \
+                f"{arch}: decode past the window differs from the forward " \
+                f"by {ring['max_abs_diff']} in float32"
+        del params, logits, dlogits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------- #
 # 7. training: full-width paper-0.5b through the hybrid FFN
 # --------------------------------------------------------------------------- #
 
@@ -2934,9 +3179,10 @@ def train_steps(torch, cfg, batches, params=None):
     from repro_torch.kernels import ops
     from repro_torch.observability import accounting
     from repro_torch.optim import adamw
+    from repro_torch import device as device_mod
     params = train_setup(torch, cfg) if params is None else params
     n_params = accounting.param_count(params)
-    opt = adamw.init(params)
+    opt = adamw.init(params, device_mod.torch_dtype(cfg.opt_state_dtype))
     _, grad_peak = peak_of(torch, lambda: loss_and_grads(
         torch, params, batches[0], cfg)[0])
     step = training.make_train_step(cfg, TrainConfig(
@@ -3142,6 +3388,115 @@ def phase_train_olmo(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 7e. training mixtral-8x22b's full-width layer
+# --------------------------------------------------------------------------- #
+
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_BATCHES = (8, 4, 2)      # rows of TRAIN_SEQ tried in turn until
+#                                    hybrid and dense both fit the card
+MOE_GRAD_ROWS = 256
+
+
+def moe_train_run(torch, impl, batch):
+    """MOE_TRAIN_STEPS steps of mixtral-8x22b at full width, 1 layer, under
+    remat none (S = TRAIN_SEQ <= the window: K7), TRAIN_ALIVE of every
+    expert's gate columns alive; None where they do not fit the card."""
+    from repro_torch.models import lm
+    cfg, params = moe_model(torch, "mixtral-8x22b", 1, impl,
+                            alive=TRAIN_ALIVE)
+    cfg = dataclasses.replace(cfg, remat="none")
+    params = lm.trainable(params)
+    try:
+        return train_steps(torch, cfg, train_batches(
+            torch, cfg, batch, TRAIN_SEQ, MOE_TRAIN_STEPS), params=params)
+    except torch.cuda.OutOfMemoryError as e:
+        return str(e).split("\n")[0][:160]
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_grad_check(torch):
+    """mixtral-8x22b's MoE block at full width (8 experts of d_ff 16384,
+    top 2) in float32 on MOE_GRAD_ROWS tokens, TRAIN_ALIVE gate columns an
+    expert: the hybrid FFN (K8 and K9 in every expert) against autograd of
+    the dense formula, gradients of x, the router and every expert leaf
+    within GRAD_TOL of their max, as ``grad_check``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x22b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    p = moe.moe_init(cfg.d_model, cfg.d_ff, cfg.num_experts, True,
+                     torch.float32, gen, torch.device("cuda"))
+    for w in p["experts"]["wg"]:
+        w *= alive_columns(torch, gen, cfg.d_ff)
+    x = torch.randn((MOE_GRAD_ROWS, cfg.d_model), generator=gen,
+                    device="cuda")
+    gy = torch.randn(x.shape, generator=gen, device="cuda") * 1e-2
+    leaves = {"x": x, "router": p["router"],
+              **{f"experts/{k}": v for k, v in p["experts"].items()}}
+    grads = {}
+    for impl in ("hybrid", "dense"):
+        scfg = dataclasses.replace(cfg.sparsity, ffn_impl=impl)
+        live = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        params = {"router": live["router"], "experts": {
+            k.split("/")[1]: v for k, v in live.items() if "/" in k}}
+        y, aux = moe.moe_apply(params, live["x"], cfg, scfg, True)
+        loss = (y * gy).sum() + 0.5 * aux["l1"] + aux["moe_balance"]
+        grads[impl] = dict(zip(live, torch.autograd.grad(loss,
+                                                         list(live.values()))))
+        del live, params, y, aux
+    errs = {}
+    for name, want in grads["dense"].items():
+        errs[name] = float((grads["hybrid"][name] - want).abs().max()
+                           / want.abs().max())
+        assert errs[name] <= GRAD_TOL, \
+            f"MoE hybrid grad {name} off by {errs[name]} of its max"
+    del grads, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"M": MOE_GRAD_ROWS, "dtype": "float32", "experts":
+            cfg.num_experts, "tolerance": GRAD_TOL, "rel_max_err": errs}
+
+
+def phase_train_moe(torch):
+    """mixtral-8x22b's full-width layer (2.91 B parameters: 8 experts of
+    d_ff 16384 at d_model 6144, 48 heads over 8 KV heads of 128; bf16 AdamW
+    moments, as the config keeps them) trained MOE_TRAIN_STEPS steps,
+    hybrid FFN then dense, on TRAIN_SEQ-token rows (within the 4096-token
+    window: attention degenerates to causal, K7), the first of
+    MOE_TRAIN_BATCHES rows that both fit: K7, K8 and K9 launched, rows on
+    both sides of the hybrid format, no overflow, finite and falling loss,
+    step time and peak memory; then the float32 gradient check of the MoE
+    block against the dense formula."""
+    free, total = torch.cuda.mem_get_info()
+    tried = []
+    for batch in MOE_TRAIN_BATCHES:
+        hybrid = moe_train_run(torch, "hybrid", batch)
+        dense = moe_train_run(torch, "dense", batch) \
+            if isinstance(hybrid, dict) else None
+        if isinstance(dense, dict):
+            break
+        tried.append({"batch": batch, "hybrid": hybrid, "dense": dense})
+    assert isinstance(dense, dict), \
+        f"mixtral-8x22b's layer does not train on the card: {tried}"
+    runs = [hybrid, dense]
+    res = {"phase": "train_moe", "arch": "mixtral-8x22b", "layers": 1,
+           "batch": [batch, TRAIN_SEQ], "batches_not_fitting": tried,
+           "alive_columns": TRAIN_ALIVE, "card_free_bytes_before": free,
+           "card_total_bytes": total, "runs": runs,
+           "hybrid_over_dense_peak": {
+               key: hybrid[key] / dense[key]
+               for key in ("peak_mem_bytes", "grad_peak_mem_bytes")},
+           "grad_check": moe_grad_check(torch)}
+    emit(res)
+    assert_trained(hybrid, TRAIN_KERNELS)
+    assert_trained(dense, ("flash_attention",))
+    return {"launches": summed_launches(runs)}
+
+
+# --------------------------------------------------------------------------- #
 # 8. the same weights in float32 on the CPU
 # --------------------------------------------------------------------------- #
 
@@ -3299,10 +3654,14 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
             "grad_tolerance": TRAIN_GRAD_TOL, "grad_rel_err": rel}
 
 
-SERVE_PHASES = {"disagg": phase_disagg}
+SERVE_PHASES = {"disagg": phase_disagg,
+                "serve_moe": lambda torch, *_: phase_serve_moe(torch),
+                "train_moe": lambda torch, *_: phase_train_moe(torch)}
+NEEDS_SERVE_MODEL = ("disagg",)
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,
+                "train_moe": phase_train_moe,
                 "check_train": lambda torch: emit({
                     "phase": "check_train",
                     "train_step": check_train(torch),

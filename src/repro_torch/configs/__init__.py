@@ -16,6 +16,8 @@ _REGISTRY: Dict[str, str] = {
     "paper-0.5b": "paper_0p5b",
     "paper-1.5b": "paper_1p5b",
     "olmo-1b": "olmo_1b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 

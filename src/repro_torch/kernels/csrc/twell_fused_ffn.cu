@@ -25,7 +25,9 @@
 //     split): rank r owns stages kb .. kb + ns - 1, both as the reduction
 //     range of the up product and as its columns of y. NW, ks and the ring
 //     depth come from the host plan (kernels/sparse_ffn.py: fused_ffn_plan,
-//     from shapes and the SM count; every cluster resident at once);
+//     from shapes and the SM count; every cluster resident at once). Up to
+//     K 4096 a rank holds at most 8 stages (4 slices of y); past it up to
+//     16 (6 or 8 slices, narrower row blocks), up to K 8192;
 //   * the union, built on the card (the host never reads the pattern):
 //     each (row, tile)'s count read in the same round as its first 8 slot
 //     indices (one 32-byte sector; slot s of tile t is valid iff s <
@@ -65,7 +67,9 @@
 //     TMA has no gather), used a phase at a time (a chunk's ns up stages,
 //     then its down stages: one barrier and one wgmma wait a phase) and
 //     refilled as far ahead as it holds, so the W_d rows land while the up
-//     product and the scatter run;
+//     product and the scatter run. Where the ring holds less than a phase
+//     (past K 4096 the rank's 9-16 stages and x's tile leave room for 3-8)
+//     a phase lands in groups of half the ring, the other half in flight;
 //   * y is stored straight from the accumulators: each element has one
 //     writer and a fixed summation order, so a repeated call gives the same
 //     bits. A row block whose union is empty writes its zeros.
@@ -257,12 +261,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                  mat + (ok ? (size_t)col * K + k : 0), ok);
     }
   };
-  // The stages are used a phase at a time (a chunk's up stages, then its
-  // down stages; the ring holds a phase). Before phase [j0, j0 + g): every
-  // thread is done with the stages before j0 (a barrier), their slots are
-  // refilled with the next stages (one copy group a stage), then this
-  // thread's copies of the phase have landed, and every thread's (a
-  // barrier). `issued` is the same in every thread.
+  // The stages are used a group at a time (a chunk's up stages, then its
+  // down stages; a group is a phase where the ring holds one). Before
+  // group [j0, j0 + g): every thread is done with the stages before j0 (a
+  // barrier), their slots are refilled with the next stages (one copy
+  // group a stage), then this thread's copies of the group have landed,
+  // and every thread's (a barrier). `issued` is the same in every thread.
   int issued = 0;
   auto land = [&](int j0, int g) {
     __syncthreads();
@@ -300,27 +304,37 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int i = 0; i < SL; ++i) fence_regs<NW / 2>(acc[i]);
 
+  // A phase lands at once where the ring holds one (every plan up to K
+  // 4096); past that (a rank of more than 8 stages) in groups of half the
+  // ring: g_up up stages, g_sl slices' down stages a group
+  const bool whole = nst >= 2 * ((s_max + 1) / 2);
+  const int g_up = whole ? ns : max(1, nst / 2);
+  const int g_sl = whole ? nsl : max(1, nst / 4);
+
   int j = 0;  // the next ring stage used
   for (int c = 0; c < nch; ++c) {
     // up: this rank's partial of h_u over the chunk, positions as wgmma M
-    land(j, ns);
     float hu[NW / 2];
 #pragma unroll
     for (int e = 0; e < NW / 2; ++e) hu[e] = 0.f;
     fence_regs<NW / 2>(hu);
-    for (int s = 0; s < ns; ++s) {
-      const uint32_t st = ring_a + ((j + s) % nst) * UNIT + wg * PANEL;
-      const uint32_t xs = x_a + s * NW * PANEL_ROW;
-      wgmma_fence();
+    for (int s0 = 0; s0 < ns; s0 += g_up) {
+      const int g = min(g_up, ns - s0);
+      land(j, g);
+      for (int s = 0; s < g; ++s) {
+        const uint32_t st = ring_a + ((j + s) % nst) * UNIT + wg * PANEL;
+        const uint32_t xs = x_a + (s0 + s) * NW * PANEL_ROW;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        WgmmaKA<NW>::mma(hu, sw128_desc(st + kk * 32, 0),
-                         sw128_desc(xs + kk * 32, 0));
-      wgmma_commit();
+        for (int kk = 0; kk < BK / 16; ++kk)
+          WgmmaKA<NW>::mma(hu, sw128_desc(st + kk * 32, 0),
+                           sw128_desc(xs + kk * 32, 0));
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs<NW / 2>(hu);
+      j += g;
     }
-    wgmma_wait<0>();
-    fence_regs<NW / 2>(hu);
-    j += ns;
     // D element 4n + 2h + e: position 64 wg + 16 wwarp + g8 + 8h of the
     // chunk, row 8n + c2 + e; stored as part[row][position]
 #pragma unroll
@@ -408,30 +422,34 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     fence_proxy_async();  // the h tile, for the async proxy (land's barrier)
 
-    // down: 128 y columns a slice, the chunk's two 64-position halves
-    land(j, 2 * nsl);
+    // down: 128 y columns a slice, the chunk's two 64-position halves;
+    // slices i0 .. i1 - 1 a group
+    for (int i0 = 0; i0 < nsl; i0 += g_sl) {
+      const int i1 = min(nsl, i0 + g_sl);
+      land(j, 2 * (i1 - i0));
 #pragma unroll
-    for (int i = 0; i < SL; ++i) {
-      if (i < nsl) {
+      for (int i = 0; i < SL; ++i) {
+        if (i >= i0 && i < i1) {
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const uint32_t st =
-              ring_a + ((j + 2 * i + q) % nst) * UNIT + wg * PANEL;
-          const uint32_t hs = h_a + q * NW * PANEL_ROW;
-          wgmma_fence();
+          for (int q = 0; q < 2; ++q) {
+            const uint32_t st =
+                ring_a + ((j + 2 * (i - i0) + q) % nst) * UNIT + wg * PANEL;
+            const uint32_t hs = h_a + q * NW * PANEL_ROW;
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaTA<NW>::mma(acc[i],
-                             sw128_desc(st + kk * 16 * PANEL_ROW, PANEL),
-                             sw128_desc(hs + kk * 32, 0));
-          wgmma_commit();
+            for (int kk = 0; kk < 4; ++kk)
+              WgmmaTA<NW>::mma(acc[i],
+                               sw128_desc(st + kk * 16 * PANEL_ROW, PANEL),
+                               sw128_desc(hs + kk * 32, 0));
+            wgmma_commit();
+          }
         }
       }
-    }
-    wgmma_wait<0>();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < SL; ++i) fence_regs<NW / 2>(acc[i]);
-    j += 2 * nsl;
+      for (int i = 0; i < SL; ++i) fence_regs<NW / 2>(acc[i]);
+      j += 2 * (i1 - i0);
+    }
   }
   cp_async_wait<0>();
 
@@ -517,9 +535,11 @@ int resident(int ks, size_t smem, int* out) {
 }
 
 // the (width, slices) pairs built: the accumulators of both products,
-// (slices + 1) x width / 2 floats a thread, stay within 128
-#define FUSED_FFN_CONFIGS(X) \
-  X(8, 2) X(8, 4) X(16, 2) X(16, 4) X(32, 2) X(32, 4) X(64, 2)
+// (slices + 1) x width / 2 floats a thread, stay within 128; 6 and 8
+// slices only past K 4096
+#define FUSED_FFN_CONFIGS(X)                                           \
+  X(8, 2) X(8, 4) X(16, 2) X(16, 4) X(32, 2) X(32, 4) X(64, 2) X(8, 6) \
+  X(16, 6) X(32, 6) X(8, 8) X(16, 8)
 
 // checks the launch, its shared memory into *smem; 0 or a cudaError_t
 int plan_smem(int M, int K, int N, int T, int C, int width, int ks,
@@ -531,7 +551,6 @@ int plan_smem(int M, int K, int N, int T, int C, int width, int ks,
   const int nk = (K + BK - 1) / BK;
   if (ks > nk) return (int)cudaErrorInvalidValue;
   *s_max = (nk + ks - 1) / ks;
-  if (stages < 2 * ((*s_max + 1) / 2)) return (int)cudaErrorInvalidValue;
   if (staging_bytes(N) > (uint32_t)stages * UNIT)
     return (int)cudaErrorInvalidValue;
   *smem = 1024 + Layout(width, *s_max, stages, N).end;
@@ -545,10 +564,10 @@ int plan_smem(int M, int K, int N, int T, int C, int width, int ks,
 // (= W_u transposed), wd (N, K) bf16, all contiguous; x, wu_t and wd
 // 16-byte aligned; y (M, K) float32. Requires K % 8 == 0, N % T == 0,
 // T % C == 0, N < 65536. width (rows a block: 8, 16, 32 or 64), slices
-// (128-column slices of y a rank holds: 2 or 4, at least half the rank's
-// stages), ks (blocks a cluster, 1..8, at most K's 64-deep stages),
-// stages (ring depth, 2..8, at least a phase: the rank's stages rounded up
-// to even) and split (1: each rank marks only its rows' columns and the
+// (128-column slices of y a rank holds: 2, 4, 6 or 8, at least half the
+// rank's stages; K up to 8192 at ks 8), ks (blocks a cluster, 1..8, at
+// most K's 64-deep stages), stages (ring depth, 2..8; below a phase, the
+// rank's stages rounded up to even, a phase lands in groups) and split (1: each rank marks only its rows' columns and the
 // ranks OR their bitmaps through DSMEM; 0: each rank marks all the block's)
 // are the host plan's (kernels/sparse_ffn.py: fused_ffn_plan).
 extern "C" int twell_fused_ffn_bf16(const void* vals, const void* idx,

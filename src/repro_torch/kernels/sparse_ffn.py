@@ -15,7 +15,9 @@ shared memory, rounds h = h_u * g once to bf16 and multiplies it by the
 union's W_d rows into each rank's share of y's columns (wgmma again, f32
 accumulators stored as y). ``fused_ffn_plan`` is its launch plan, a plain
 function of shapes that reuses K1's residency model; from 32 rows a block
-it has the ranks split the union's rows (``split``).
+it has the ranks split the union's rows (``split``). It takes K up to 8192
+(``FUSED_FFN_MAX_K``): past 4096 a rank's share of K outgrows the ring,
+which then lands each phase in groups.
 
 K5, the gated FFN end to end with (row block x tile) skipping:
 ``tile_skip_ffn_cuda`` launches ``csrc/tile_skip_ffn.cu``, the Hopper
@@ -81,6 +83,8 @@ def twell_fused_ffn_plain(x: torch.Tensor, tw: twell.TwellActs,
 
 FUSED_FFN_WIDTHS = (8, 16, 32, 64)   # rows a block (wgmma N)
 FUSED_FFN_SLICES = (2, 4)            # 128-column slices of y a rank holds
+FUSED_FFN_WIDE_SLICES = (6, 8)       # the same past K 4096 (the ring then
+#                                      holds less than a rank's stages)
 FUSED_FFN_UC = 128                   # union positions a chunk
 FUSED_FFN_UNIT = 128 * 128           # a ring stage: 128 rows x 64 bf16
 FUSED_FFN_STAGES = (3, 8)            # ring depth, least and most
@@ -88,6 +92,7 @@ FUSED_FFN_ACC = 128                  # accumulator floats a thread, at most
 FUSED_FFN_MAX_N = 65535              # columns held as u16 positions
 FUSED_FFN_SPLIT_WIDTH = 32           # rows a block from which the ranks
 #                                      split the union's rows
+FUSED_FFN_MAX_K = tp.MAX_KS * 2 * FUSED_FFN_WIDE_SLICES[-1] * tp.GATE_BK
 _FUSED_FFN_TYPES = (torch.bfloat16, torch.bfloat16, torch.int32, torch.int32,
                     torch.bfloat16, torch.bfloat16)
 
@@ -144,6 +149,24 @@ class FusedFfnPlan:
         of its up partial and its columns of y."""
         return tp.splits(self.k_stages, self.ks)
 
+    @property
+    def whole(self) -> bool:
+        """The ring holds a phase (a rank's up stages, or its down stages:
+        two a slice): each lands at once. Every plan up to K 4096."""
+        return self.stages >= 2 * tp.cdiv(self.k_per_rank, 2)
+
+    def up_groups(self, ns: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of a rank's ``ns`` up stages landed together: all of
+        them, or groups of half the ring (as the kernel's ``g_up``)."""
+        g = ns if self.whole else max(1, self.stages // 2)
+        return [(lo, min(lo + g, ns)) for lo in range(0, ns, g)]
+
+    def down_groups(self, nsl: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of a rank's ``nsl`` slices whose down stages (two a
+        slice) land together (as the kernel's ``g_sl``)."""
+        g = nsl if self.whole else max(1, self.stages // 4)
+        return [(lo, min(lo + g, nsl)) for lo in range(0, nsl, g)]
+
     def scatter_rows(self, valid: int) -> List[Tuple[int, int]]:
         """[lo, hi) of a block's ``valid`` rows whose h each rank forms."""
         return tp.splits(valid, self.ks)
@@ -168,12 +191,30 @@ def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
     not fit its accumulators. The ring as deep as FUSED_FFN_STAGES and the
     shared memory allow, at least a phase (the rank's stages, rounded up
     to even). Where nothing fits, narrower row blocks. The ranks split the
-    union's rows from FUSED_FFN_SPLIT_WIDTH rows a block up. Cached: the
-    serving path calls it every launch with a few shapes."""
+    union's rows from FUSED_FFN_SPLIT_WIDTH rows a block up. That covers K
+    up to 4096 (8 ranks of 8 stages). Only where it finds nothing does a
+    rank take FUSED_FFN_WIDE_SLICES (up to 16 stages) with a ring shorter
+    than a phase, which then lands in groups (``up_groups``,
+    ``down_groups``): K up to FUSED_FFN_MAX_K = 8192. Cached: the serving
+    path calls it every launch with a few shapes."""
     tp.check_ints(m, k, n, tile, c, sms)
     _twell_check("twell_fused_ffn", m, k, n, tile, c)
     if sms < 1:
         raise ValueError(f"fused_ffn_plan: {sms} SMs")
+    plan = _fused_ffn_search(m, k, n, sms, FUSED_FFN_SLICES, True) or \
+        _fused_ffn_search(m, k, n, sms, FUSED_FFN_WIDE_SLICES, False)
+    if plan is None:
+        raise ValueError(f"fused_ffn_plan: M {m}, K {k}, N {n}, tile {tile} "
+                         "does not fit a block's registers and shared memory"
+                         f" (K up to {FUSED_FFN_MAX_K})")
+    return plan
+
+
+def _fused_ffn_search(m: int, k: int, n: int, sms: int,
+                      slices: Tuple[int, ...], whole: bool
+                      ) -> Optional[FusedFfnPlan]:
+    """``fused_ffn_plan``'s search with a rank's slices of y from
+    ``slices``; ``whole``: the ring holds at least a phase."""
     k_stages = tp.cdiv(k, tp.GATE_BK)
     top = next(w for w in FUSED_FFN_WIDTHS
                if w >= min(m, FUSED_FFN_WIDTHS[-1]))
@@ -183,11 +224,11 @@ def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
         first = tp.widest_cluster(row_blocks, k_stages, 1, sms)
         for ks in range(first, min(tp.MAX_KS, k_stages) + 1):
             per = tp.cdiv(k_stages, ks)
-            sl = next((s for s in FUSED_FFN_SLICES if 2 * s >= per), None)
+            sl = next((s for s in slices if 2 * s >= per), None)
             if sl is None or (sl + 1) * width // 2 > FUSED_FFN_ACC:
                 continue
-            fit = [st for st in range(max(lo_st, 2 * tp.cdiv(per, 2)),
-                                      hi_st + 1)
+            least = max(lo_st, 2 * tp.cdiv(per, 2)) if whole else lo_st
+            fit = [st for st in range(least, hi_st + 1)
                    if fused_ffn_smem(width, per, st, n) <= tp.SMEM_BYTES
                    and fused_ffn_staging(n) <= st * FUSED_FFN_UNIT]
             if fit:
@@ -196,8 +237,7 @@ def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
                                     st, fused_ffn_smem(width, per, st, n),
                                     (ks, row_blocks),
                                     width >= FUSED_FFN_SPLIT_WIDTH and ks > 1)
-    raise ValueError(f"fused_ffn_plan: M {m}, K {k}, N {n}, tile {tile} does "
-                     "not fit a block's registers and shared memory")
+    return None
 
 
 def fused_ffn_resident_clusters(k: int, n: int, tile: int,

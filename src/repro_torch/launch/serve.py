@@ -31,6 +31,10 @@ Usage:
   # its own KV pool, behind one DisaggCoordinator (synchronous engines)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --disagg --transfer-ttl 64 --check-static
+  # the MoE configs: a sliding window (mixtral) or local chunks (llama4)
+  # route to the static loop, as in the JAX package
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
+      --reduced --device cpu --prompt-len 24 --gen 16
 
 Weights are random (``lm.init``, ``--seed``) and so are the ``--batch``
 prompts of ``--prompt-len`` token ids (numpy, ``--seed``). The batch run
@@ -113,6 +117,15 @@ def generate(params, cfg, prompt: torch.Tensor, steps: int, cache_len: int,
             out.append(nxt)
             logits, cache = lm.decode_step(params, cache, nxt, cfg)
     return torch.cat(out, dim=1)
+
+
+def uses_engine(cfg, static: bool = False) -> bool:
+    """The serve CLI's route, as the JAX package's: the continuous-batching
+    engine for the dense and MoE families without a sliding window or a
+    local chunk (its paged pools hold neither), the static loop
+    (``generate``) for everything else and with ``--static``."""
+    return cfg.family in ("dense", "moe") and not cfg.window \
+        and not cfg.attn_chunk and not static
 
 
 def first_near_ties(logits: List[torch.Tensor], tol: float = LOGIT_TOL
@@ -262,11 +275,11 @@ def main(argv=None):
     from repro_torch.serving import (DisaggCoordinator, EngineSpec,
                                      SamplingParams, SpecConfig, Telemetry,
                                      torch_profiler)
-    use_engine = cfg.family == "dense" and not cfg.window \
-        and not cfg.attn_chunk and not args.static
+    use_engine = uses_engine(cfg, args.static)
     if args.http and not use_engine:
         raise SystemExit("--http requires the continuous-batching engine "
-                         "(dense family, no --static)")
+                         "(dense/moe family without a window or local "
+                         "chunk, no --static)")
     cache_len = args.prompt_len + args.gen + 1
     if not use_engine:
         t0 = time.perf_counter()

@@ -1,12 +1,23 @@
-"""Model primitives of the dense family: norms, RoPE, attention,
+"""Model primitives of the dense and MoE families: norms, RoPE, attention
+(causal, sliding-window ``swa``, chunked-local ``local_chunk``),
 embeddings. Ports the parts of ``repro/models/layers.py`` that the paged
-serving engine and the training forward run, keeping its layouts:
-activations (B, S, H, hd), pools (num_blocks, block_size, Hkv, hd),
-weights (in, out).
+serving engine, the static loop and the training forward run, keeping its
+layouts: activations (B, S, H, hd), pools (num_blocks, block_size, Hkv,
+hd), weights (in, out).
+
+The windowed kinds' decode departs from the JAX package's on purpose. Its
+ring mask ``(kpos < pos + 1) & (kpos > pos - s_cache)``
+(``repro/models/layers.py:351``) compares ring slots with absolute
+positions, so past the window it masks out the newest keys, the current
+token's own among them; its chunked cache is written at slot ``pos``
+(``:343``) and never restarts at a chunk boundary. Here decode follows the
+training forward (``_banded``) at every position: a ring of the newest
+``window`` positions for ``swa``, a cache that restarts at each chunk for
+``local_chunk``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -14,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.paged_decode_attention import masked_sdpa
 
 INIT_STD = 0.02
+ATTN_KINDS = ("causal", "swa", "local_chunk")
 
 
 def rmsnorm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
@@ -162,33 +174,99 @@ def _paged_attention(q, k, v, cache) -> torch.Tensor:
     return ops.paged_attention_extend(q, kpool, vpool, bt, sl, num_new)
 
 
-def _cache_attention(q, k, v, cache, n_heads: int) -> torch.Tensor:
+def _cache_slot(kind: str, cfg, pos: int, s_cache: int) -> Tuple[int, int]:
+    """(the slot the new K/V of position ``pos`` go to, the last slot the
+    read covers) in a static cache of ``s_cache`` slots. ``causal``: slot
+    ``pos``, the read over slots <= pos. ``swa``: a ring of
+    min(cache_len, window) slots, slot pos % s_cache; every slot up to
+    ``pos`` holds one of the newest s_cache positions (once the ring has
+    wrapped, all of them), which are the window's. ``local_chunk``: slot
+    pos % attn_chunk; the read covers the slots of the current chunk only,
+    those written since its start (the later ones hold the last chunk's
+    keys)."""
+    if kind == "swa":
+        return pos % s_cache, pos
+    if kind == "local_chunk":
+        r = pos % cfg.attn_chunk
+        return r, r
+    return pos, pos
+
+
+def _cache_attention(q, k, v, cache, n_heads: int, kind: str, cfg
+                     ) -> torch.Tensor:
     """Decode against the monolithic cache of ONE layer, updated in place:
     cache = {"k", "v": (B, S_cache, Hkv, hd), "pos": tokens cached}; the
-    new K/V go to position ``pos``, the read covers kpos <= pos. Plain
-    masked attention (``repro/models/layers.py:339-356``, which computes it
-    in jnp outside any Pallas kernel)."""
+    new K/V go to ``_cache_slot``'s slot and the read covers the slots up
+    to its last. The keys were roped at their absolute positions, so the
+    slots' order does not matter. Plain masked attention, as the JAX
+    package computes it in jnp outside any Pallas kernel
+    (``repro/models/layers.py:339-356``), with the windowed kinds' ring
+    and chunk masks following the forward's band (see the module
+    docstring)."""
     ck, cv, pos = cache["k"], cache["v"], int(cache["pos"])
-    ck[:, pos:pos + 1] = k
-    cv[:, pos:pos + 1] = v
+    slot, last = _cache_slot(kind, cfg, pos, ck.shape[1])
+    ck[:, slot:slot + 1] = k
+    cv[:, slot:slot + 1] = v
     kpos = torch.arange(ck.shape[1], device=q.device)
-    mask = (kpos <= pos)[None, None, None, :]
+    mask = (kpos <= last)[None, None, None, :]
     return masked_sdpa(q, repeat_kv(ck, n_heads), repeat_kv(cv, n_heads),
                        mask, 1.0 / (q.shape[-1] ** 0.5))
+
+
+def _banded(q, k, v, scale: float, band_chunk: int, lookback: int,
+            window: int = 0) -> torch.Tensor:
+    """Exact banded causal attention (``repro/models/layers.py:165-195``):
+    query chunk i attends KV chunks [i - lookback, i]. lookback 0 is
+    chunked-local attention (llama4); lookback 1 with band_chunk = W and a
+    window mask is sliding-window attention (mixtral). q, k, v (B, S, H,
+    hd) with S a multiple of band_chunk; logits in float32, masked with
+    -1e30, probabilities rounded to q.dtype, as JAX's. Plain PyTorch (JAX's
+    is jnp, outside any Pallas kernel), one query chunk at a time so that
+    one chunk's (B, H, C, span) logits are alive at once."""
+    b, s, h, hd = q.shape
+    c = band_chunk
+    nq = s // c
+    if nq * c != s:
+        raise ValueError(f"_banded: S {s} is not a multiple of the band "
+                         f"chunk {c}")
+    pad = lookback * c
+    span = (lookback + 1) * c
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, pad, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
+    # positions relative to the chunk's start: the band's mask is the same
+    # for every chunk but the first, whose lookback is padding
+    qpos = torch.arange(c, device=q.device)[:, None]
+    kpos = torch.arange(span, device=q.device)[None, :] - pad
+    band = qpos >= kpos
+    if window:
+        band = band & (qpos - kpos < window)
+    outs = []
+    for i in range(nq):
+        kb, vb = kp[:, i * c:i * c + span], vp[:, i * c:i * c + span]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, i * c:(i + 1) * c],
+                              kb).float() * scale
+        mask = band & (kpos + i * c >= 0)
+        logits = torch.where(mask, logits, torch.full((), -1e30,
+                                                      device=q.device))
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, vb))
+    return torch.cat(outs, dim=1)
 
 
 def attention(params: Dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor, kind: str = "causal",
               cache: Optional[Dict] = None) -> torch.Tensor:
-    """Causal self-attention: paged (the serving engine) when ``cache``
-    holds pools; one decode token against the monolithic cache (the static
-    reference loop) when it holds ``k``/``v``/``pos``; else over the
-    sequence itself (the training forward, kernel K7 on the card). The
-    windowed and chunked kinds are not ported yet."""
+    """Self-attention of ``kind`` causal, swa or local_chunk: paged (the
+    serving engine, causal only) when ``cache`` holds pools; one decode
+    token against the monolithic cache (the static reference loop) when it
+    holds ``k``/``v``/``pos``; else over the sequence itself (the training
+    forward): kernel K7 on the card for causal, and for a window or chunk
+    that covers the sequence (the band degenerates to causal, as JAX's
+    ``attention`` routes it); ``_banded`` otherwise."""
     b, s, _ = x.shape
-    if kind != "causal":
+    if kind not in ATTN_KINDS:
         raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet (causal only)")
+            f"attention kind {kind!r} is not ported (one of {ATTN_KINDS})")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     k = (x @ params["wk"]).reshape(b, s, hkv, hd)
@@ -196,11 +274,25 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = ops.flash_attention(q, repeat_kv(k, h), repeat_kv(v, h))
+        if kind == "swa" and cfg.window >= s or \
+                kind == "local_chunk" and cfg.attn_chunk >= s:
+            kind = "causal"
+        kf, vf = repeat_kv(k, h), repeat_kv(v, h)
+        if kind == "causal":
+            out = ops.flash_attention(q, kf, vf)
+        elif kind == "local_chunk":
+            out = _banded(q, kf, vf, 1.0 / hd ** 0.5, cfg.attn_chunk, 0)
+        else:
+            out = _banded(q, kf, vf, 1.0 / hd ** 0.5, cfg.window, 1,
+                          window=cfg.window)
     elif "kpool" in cache:
+        if kind != "causal":
+            raise NotImplementedError(
+                "paged KV serving does not support windowed/chunked "
+                "attention")
         out = _paged_attention(q, k, v, cache)
     else:
-        out = _cache_attention(q, k, v, cache, h)
+        out = _cache_attention(q, k, v, cache, h, kind, cfg)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 

@@ -1,5 +1,6 @@
-"""Dense-family LM for training and paged serving (ports ``forward``,
-``loss_fn`` and the paged entry points of ``repro/models/lm.py``).
+"""Dense- and MoE-family LM for training and serving (ports ``forward``,
+``loss_fn``, the paged entry points and the static decode of
+``repro/models/lm.py``).
 
 Public API:
   init(cfg, device=None, seed=0)             -> params
@@ -15,11 +16,13 @@ Public API:
   decode_step(params, cache, tokens, cfg)    -> (logits, cache)
 
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
-every per-layer leaf stacked on a leading L axis, so ``bridge.py`` maps one
-onto the other leaf for leaf. The layer stack is a Python loop (the JAX
-package scans); the training forward unbinds the stacked leaves once, so
-autograd sums each layer's gradient into one slice, not into a zero tensor
-the size of the whole stack per layer. The training forward runs its layers
+every per-layer leaf stacked on a leading L axis (a MoE block's ``moe``:
+``router`` (L, D, E) and ``experts`` with (L, E, ...) leaves, in place of
+``ffn``), so ``bridge.py`` maps one onto the other leaf for leaf. The
+layer stack is a Python loop (the JAX package scans); the training
+forward unbinds the stacked leaves once, so autograd sums each layer's
+gradient into one slice, not into a zero tensor the size of the whole
+stack per layer. The training forward runs its layers
 through ``stacked_layers``, which applies ``cfg.remat`` as the JAX
 package's ``stacked_scan`` does (``none``, ``full``, ``dots``, ``2level``);
 the paged serving entry points run no backward and ignore it. The KV pools
@@ -30,7 +33,11 @@ point asks the FFN for the serving probe only (``nnz_mean``, ``tile_frac``;
 
 ``init_cache`` / ``decode_step`` are the monolithic-cache decode of the
 static reference loop (``launch/serve.py:generate``): one (L, B, S, Hkv,
-hd) cache per K and V, one token a call appended at ``pos``.
+hd) cache per K and V, one token a call; a window's cache is a ring of
+min(S, window) slots and a local chunk's one of min(S, attn_chunk) that
+restarts at each chunk (``layers._cache_slot``). The paged entry points
+take the dense and MoE families without a window or chunk, as the JAX
+package's engine does.
 
 Recomputation runs a layer's forward again in the backward, kernels
 included, so they count again in ``ops.launch_counts()`` and every hybrid
@@ -50,18 +57,28 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import sparse_ffn
+from repro_torch.models import moe
 from repro_torch.models.layers import (attention, attn_init, embed_init,
                                        embed_lookup, lm_logits, norm_apply,
                                        norm_init)
 
 _NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
+FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.norm not in _NORMS:
+    if cfg.family not in FAMILIES or cfg.norm not in _NORMS:
         raise NotImplementedError(
-            f"the port serves the dense family with a norm of {_NORMS}; got "
-            f"family {cfg.family!r}, norm {cfg.norm!r}")
+            f"the port serves the families {FAMILIES} with a norm of "
+            f"{_NORMS}; got family {cfg.family!r}, norm {cfg.norm!r}")
+
+
+def _stack(trees):
+    """Per-layer trees -> one tree with every leaf stacked on a leading
+    axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
@@ -75,16 +92,19 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
 
     layers = []
     for _ in range(L):
-        layers.append({
-            "ln1": norm_init(cfg.norm, d, dtype, dev),
-            "ln2": norm_init(cfg.norm, d, dtype, dev),
-            "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.resolved_head_dim, dtype, gen, dev),
-            "ffn": sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen, dev),
-        })
-    blocks = {name: {k: torch.stack([p[name][k] for p in layers])
-                     for k in layers[0][name]}
-              for name in ("ln1", "ln2", "attn", "ffn")}
+        p = {"ln1": norm_init(cfg.norm, d, dtype, dev),
+             "ln2": norm_init(cfg.norm, d, dtype, dev),
+             "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, dtype, gen, dev)}
+        if cfg.family == "moe":
+            p["moe"] = moe.moe_init(d, cfg.d_ff, cfg.num_experts, cfg.gated,
+                                    dtype, gen, dev)
+        else:
+            p["ffn"] = sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen,
+                                       dev)
+        layers.append(p)
+    blocks = _stack(layers)
+    del layers
     params: Dict[str, Any] = {
         "embed": embed_init(cfg.padded_vocab, d, dtype, gen, dev),
         "final_ln": norm_init(cfg.norm, d, dtype, dev),
@@ -95,12 +115,19 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     return prepare_params(params)
 
 
+def _ffn_leaves(blocks: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The FFN weights of the stacked blocks: ``ffn`` (L, ...) leaves, or a
+    MoE block's ``moe.experts`` (L, E, ...)."""
+    return blocks["moe"]["experts"] if "moe" in blocks else blocks["ffn"]
+
+
 def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Add the weights derived once at load time: for a gated FFN (one with
-    ``wg``), ``blocks.ffn.wu_t``, W_u transposed to (L, N, K), which the
-    TwELL fused kernel (K2), its only reader, takes by row; a non-gated FFN
-    gets none. Idempotent."""
-    ffn = params["blocks"]["ffn"]
+    ``wg``), ``wu_t`` beside it, W_u transposed to (..., N, K), which the
+    TwELL fused kernel (K2), its only reader, takes by row (``blocks.ffn``,
+    or every expert's in ``blocks.moe.experts``); a non-gated FFN gets
+    none. Idempotent."""
+    ffn = _ffn_leaves(params["blocks"])
     if "wg" in ffn and "wu_t" not in ffn:
         ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
     return params
@@ -108,10 +135,15 @@ def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def trainable(params: Dict[str, Any]) -> Dict[str, Any]:
     """The parameters an optimizer updates: the tree without the derived
-    ``blocks.ffn.wu_t`` (re-derive it with ``prepare_params`` before
-    serving trained weights)."""
-    ffn = {k: v for k, v in params["blocks"]["ffn"].items() if k != "wu_t"}
-    return {**params, "blocks": {**params["blocks"], "ffn": ffn}}
+    ``wu_t`` (re-derive it with ``prepare_params`` before serving trained
+    weights)."""
+    blocks = params["blocks"]
+    ffn = {k: v for k, v in _ffn_leaves(blocks).items() if k != "wu_t"}
+    if "moe" in blocks:
+        blocks = {**blocks, "moe": {**blocks["moe"], "experts": ffn}}
+    else:
+        blocks = {**blocks, "ffn": ffn}
+    return {**params, "blocks": blocks}
 
 
 def params_to(params, device) -> Dict[str, Any]:
@@ -147,9 +179,15 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal"):
     a = attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
                   positions=positions, kind=kind, cache=cache)
     x = x + a
-    y, aux = sparse_ffn.apply(p["ffn"], norm_apply(cfg.norm, p["ln2"], x),
-                              cfg.sparsity, cfg.gated,
-                              collect_aux=collect_aux)
+    h = norm_apply(cfg.norm, p["ln2"], x)
+    if "moe" in p:
+        y, aux = moe.moe_apply(p["moe"], h, cfg, cfg.sparsity, cfg.gated,
+                               collect_aux=collect_aux)
+        if aux is not None:
+            aux.pop("moe_drop_frac", None)
+    else:
+        y, aux = sparse_ffn.apply(p["ffn"], h, cfg.sparsity, cfg.gated,
+                                  collect_aux=collect_aux)
     return x + y, aux
 
 
@@ -280,11 +318,12 @@ def stacked_layers(body, x, layers, cfg: ModelConfig):
 
 
 def forward(params: Dict, batch: Dict, cfg: ModelConfig):
-    """Training forward of the dense family: tokens (B, S) -> (logits
-    (B, S, V), aux), aux stacked per layer as the JAX package stacks it
-    (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``, ``tile_frac``,
-    ``ffn_present`` = 1, ``moe_balance`` = 0); the layers run under
-    ``cfg.remat`` (``stacked_layers``)."""
+    """Training forward of the dense and MoE families: tokens (B, S) ->
+    (logits (B, S, V), aux), aux stacked per layer as the JAX package
+    stacks it (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``,
+    ``tile_frac``, ``ffn_present`` = 1, ``moe_balance``: the router's
+    balance loss, 0 in a dense block); the layers run under ``cfg.remat``
+    (``stacked_layers``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
@@ -294,7 +333,7 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
     def body(xc, p):
         xc, aux = _block_apply(p, xc, cfg, positions, None, True, kind=kind)
         aux["ffn_present"] = torch.ones((), device=xc.device)
-        aux["moe_balance"] = torch.zeros((), device=xc.device)
+        aux.setdefault("moe_balance", torch.zeros((), device=xc.device))
         return xc, aux
     x, aux = stacked_layers(body, x, _unstack(params["blocks"],
                                               cfg.num_layers), cfg)
@@ -384,18 +423,19 @@ def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
                ) -> Dict[str, Any]:
-    """Zero monolithic KV cache of the dense family: ``k`` and ``v`` of
-    shape (L, batch, cache_len, Hkv, hd) and ``pos``, the tokens written so
-    far (a Python int; JAX's is an int32 scalar). ``cache_len`` is the
-    capacity. Windowed and chunked attention raise, as in ``attention``."""
+    """Zero monolithic KV cache of the dense and MoE families: ``k`` and
+    ``v`` of shape (L, batch, S_cache, Hkv, hd) and ``pos``, the tokens
+    written so far (a Python int; JAX's is an int32 scalar). ``cache_len``
+    is the capacity; a sliding window keeps a ring of min(cache_len,
+    window) slots, a local chunk min(cache_len, attn_chunk), as JAX's
+    ``init_cache`` sizes them."""
     _check_family(cfg)
-    if cfg.window or cfg.attn_chunk:
-        raise NotImplementedError(
-            "the static cache does not support windowed/chunked attention "
-            "yet")
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+    sc = min(cache_len, cfg.window) if cfg.window else cache_len
+    if cfg.attn_chunk:
+        sc = min(cache_len, cfg.attn_chunk)
+    shape = (cfg.num_layers, batch, sc, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
@@ -405,13 +445,14 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence through the monolithic cache: tokens
     (B, 1) -> (logits (B, 1, V), cache). The K/V are written in place at
-    ``cache["pos"]``, which advances by one; attention is plain masked
+    position ``cache["pos"]`` (its ring or chunk slot for a window or a
+    local chunk), which advances by one; attention is plain masked
     attention over the cache (``layers.attention``), the FFN
     ``sparse_ffn.apply`` under ``cfg.sparsity`` (K1 + K2 on the card for
-    ``gather``)."""
+    ``gather``; each expert's in a MoE block)."""
     _check_family(cfg)
     pos = int(cache["pos"])
-    if pos >= cache["k"].shape[2]:
+    if _attn_kind(cfg) == "causal" and pos >= cache["k"].shape[2]:
         raise ValueError(f"cache full: pos {pos} of {cache['k'].shape[2]}")
     x = embed_lookup(params["embed"], tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)

@@ -187,6 +187,34 @@ def test_fused_ffn_empty_and_scattered_unions(card, case):
     assert torch.equal(y, twell_fused_ffn_cuda(*args))
 
 
+@pytest.mark.parametrize("shape", [  # (M, K, N, T, C, keep) past K 4096:
+    (4, 5120, 8192, 256, 8, 0.02), (64, 5120, 8192, 256, 8, 0.02),  # llama4
+    (4, 6144, 16384, 256, 8, 0.02), (64, 6144, 16384, 256, 8, 0.02),  # mixtral
+    (300, 6144, 16384, 256, 8, 0.02), (20, 8192, 22016, 256, 8, 0.02),
+    (37, 4608, 768, 64, 1, 1.0), (5, 5128, 512, 64, 4, 0.3)], ids=str)
+def test_fused_ffn_wide_k_matches_plain(card, shape):
+    """K2 past K 4096 (a rank of 9-16 K stages, 6 or 8 slices of y, the
+    ring landing each phase in groups), the MoE experts' shapes, the
+    widest K, a union over many chunks and a K that is not a multiple of
+    64, within bf16 tolerance, the same bits on a second call, and the
+    plan's clusters resident as at the narrow shapes."""
+    from repro_torch.kernels import sparse_ffn as sf
+    from repro_torch.kernels import twell_pack as tp
+    m, k, n, t, c, keep = shape
+    args = _fused_case(m, k, n, t, c, keep, 7, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = sf.fused_ffn_plan(m, k, n, t, c, sms)
+    assert plan.slices in sf.FUSED_FFN_WIDE_SLICES and not plan.whole
+    y = sf.twell_fused_ffn_cuda(*args)
+    torch.testing.assert_close(y, sf.twell_fused_ffn_plain(*args).float(),
+                               **TOL)
+    assert torch.equal(y, sf.twell_fused_ffn_cuda(*args))
+    held, smem = sf.fused_ffn_resident_clusters(k, n, t, plan)
+    assert smem == plan.smem
+    if tp.one_wave(plan.row_blocks, plan.ks, 1, sms):
+        assert plan.row_blocks <= held
+
+
 def test_fused_ffn_is_one_launch(card):
     """One K2 call is one kernel on the card (the union, both products and
     the rank-order sums in one launch): captured into a CUDA graph it is

@@ -14,8 +14,11 @@ rows, the down products over each rank's columns of y -- and held against
 ``twell_fused_ffn_plain`` (bf16 2e-2, float32 2e-4, rtol and atol, as
 tests/test_torch_twell.py), with every y element written exactly once and
 every (row, position) entry of h at most once, on gates packed by K1's
-plain version. The wrapper refuses bad shapes, types and alignment before
-anything is built.
+plain version. Plans up to K 4096 are pinned as they were before the wide
+plans; past it (llama4-scout's K 5120, mixtral-8x22b's 6144, up to 8192) a
+rank holds up to 16 stages with a ring shorter than a phase, and the ring's
+groups are replayed too. The wrapper refuses bad shapes, types and alignment
+before anything is built.
 """
 import numpy as np
 import pytest
@@ -137,13 +140,148 @@ def test_fused_ffn_plan_refuses(bad):
 
 def test_fused_ffn_plan_narrows_rows_for_a_wide_k():
     """A K whose share a rank cannot hold at 64 rows (more than 4 stages a
-    rank) takes narrower row blocks, and one too wide for any (more than
-    8 stages a rank) is refused."""
+    rank) takes narrower row blocks; one past 8 stages a rank takes the
+    wide slices, narrower still; one past 16 stages a rank (K above
+    FUSED_FFN_MAX_K) is refused."""
     plan = sf.fused_ffn_plan(256, 4096, 5632, 256, 8, SMS)
     assert plan.width < 64 and plan.ks == tp.MAX_KS
     assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
-    with pytest.raises(ValueError):
-        sf.fused_ffn_plan(4, 64 * 8 * 9, 5632, 256, 8, SMS)
+    plan = sf.fused_ffn_plan(256, 64 * 8 * 9, 5632, 256, 8, SMS)
+    assert plan.width < 64 and plan.slices in sf.FUSED_FFN_WIDE_SLICES
+    assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
+    assert sf.FUSED_FFN_MAX_K == 8192
+    sf.fused_ffn_plan(4, sf.FUSED_FFN_MAX_K, 5632, 256, 8, SMS)
+    for k in (sf.FUSED_FFN_MAX_K + 8, 64 * 8 * 17):
+        with pytest.raises(ValueError, match="K up to 8192"):
+            sf.fused_ffn_plan(4, k, 5632, 256, 8, SMS)
+
+
+# (M, K, N, T, C) -> (width, ks, slices, stages, split): the plans up to K
+# 4096 as they were before the wide-K plans were added, which must not move
+# (paper-0.5b's and olmo-1b's K2 times stand on them)
+NARROW_PLANS = {
+    (1, 2048, 5632, 256, 8): (8, 8, 2, 8, False),
+    (4, 2048, 5632, 256, 8): (8, 8, 2, 8, False),
+    (8, 2048, 5632, 256, 8): (8, 8, 2, 8, False),
+    (9, 2048, 5632, 256, 8): (16, 8, 2, 8, False),
+    (20, 2048, 5632, 256, 8): (32, 8, 2, 8, True),
+    (64, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (65, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (128, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (129, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (256, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (300, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (4096, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (8192, 2048, 5632, 256, 8): (64, 8, 2, 8, True),
+    (4, 2048, 8192, 256, 8): (8, 8, 2, 8, False),
+    (256, 2048, 8192, 256, 8): (64, 8, 2, 7, True),
+    (4, 4096, 5632, 256, 8): (8, 8, 4, 8, False),
+    (64, 4096, 5632, 256, 8): (32, 8, 4, 8, True),
+    (256, 4096, 5632, 256, 8): (32, 8, 4, 8, True),
+    (4, 4096, 14336, 256, 8): (8, 8, 4, 8, False),
+    (64, 4096, 14336, 256, 8): (32, 8, 4, 8, True),
+    (1, 64, 256, 64, 1): (8, 1, 2, 8, False),
+    (37, 128, 512, 128, 4): (64, 2, 2, 8, True),
+    (70, 256, 768, 256, 2): (64, 4, 2, 8, True),
+    (16, 96, 512, 64, 8): (16, 2, 2, 8, False),
+    (5, 200, 256, 64, 4): (8, 4, 2, 8, False),
+    (300, 512, 1024, 256, 8): (64, 8, 2, 8, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(NARROW_PLANS), ids=str)
+def test_fused_ffn_plan_up_to_k4096_is_unchanged(shape):
+    plan = sf.fused_ffn_plan(*shape, SMS)
+    assert (plan.width, plan.ks, plan.slices, plan.stages, plan.split) == \
+        NARROW_PLANS[shape]
+    assert plan.whole and plan.up_groups(plan.k_per_rank) == \
+        [(0, plan.k_per_rank)]
+
+
+# past K 4096: llama4-scout's expert FFN (K 5120, N 8192), mixtral-8x22b's
+# (K 6144, N 16384), the widest K, and K 4608 (9 stages a rank)
+WIDE = [(m, k, n, 256, 8) for m in (1, 4, 20, 64, 256, 8192)
+        for k, n in ((5120, 8192), (6144, 16384))] + \
+    [(4, 8192, 22016, 256, 8), (64, 8192, 16384, 256, 8),
+     (37, 4608, 5632, 256, 8), (5, 5128, 512, 64, 4)]
+
+
+@pytest.mark.parametrize("shape", WIDE, ids=str)
+def test_fused_ffn_wide_plan_fits_and_groups_the_ring(shape):
+    """A rank past 8 stages holds FUSED_FFN_WIDE_SLICES within the register
+    rule and a ring shorter than a phase within a block's shared memory;
+    the groups it lands its up stages and its slices' down stages in cover
+    each once, in order, each within half the ring."""
+    m, k, n, t, c = shape
+    plan = sf.fused_ffn_plan(m, k, n, t, c, SMS)
+    assert plan.k_per_rank > 8 and plan.slices in sf.FUSED_FFN_WIDE_SLICES
+    assert 2 * plan.slices >= plan.k_per_rank
+    assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
+    assert plan.smem == sf.fused_ffn_smem(plan.width, plan.k_per_rank,
+                                          plan.stages, n) <= tp.SMEM_BYTES
+    assert sf.FUSED_FFN_STAGES[0] <= plan.stages <= sf.FUSED_FFN_STAGES[1]
+    assert not plan.whole
+    assert _covered_once(plan.k_splits(), plan.k_stages)
+    for lo, hi in plan.k_splits():
+        ns = hi - lo
+        ups = plan.up_groups(ns)
+        assert _covered_once(ups, ns)
+        assert all(0 < b - a <= plan.stages // 2 for a, b in ups)
+        downs = plan.down_groups(tp.cdiv(ns, 2))
+        assert _covered_once(downs, tp.cdiv(ns, 2))
+        assert all(0 < 2 * (b - a) <= plan.stages // 2 or b - a == 1
+                   for a, b in downs)
+
+
+def ring_replay(plan, ns, chunks):
+    """The cp.async ring of one rank over ``chunks`` union chunks as the
+    kernel runs it: before each group ``land`` refills every slot whose
+    stage is done with the next stages (as far ahead as the ring holds),
+    then the group's stages are read. Returns the (stage, slot) reads and
+    asserts each read finds its own stage in its slot, landed."""
+    nst, nsl = plan.stages, tp.cdiv(ns, 2)
+    per_c = ns + 2 * nsl
+    total = chunks * per_c
+    slot = [None] * nst
+    issued, j, reads = 0, 0, []
+
+    def land(j0, g):
+        nonlocal issued
+        assert 0 < g <= nst
+        while issued < min(total, j0 + nst):
+            old = slot[issued % nst]
+            assert old is None or old < j0, "a slot refilled while in use"
+            slot[issued % nst] = issued
+            issued += 1
+        assert issued >= j0 + g
+
+    for _ in range(chunks):
+        for lo, hi in plan.up_groups(ns):
+            land(j, hi - lo)
+            for s in range(hi - lo):
+                assert slot[(j + s) % nst] == j + s
+                reads.append(j + s)
+            j += hi - lo
+        for lo, hi in plan.down_groups(nsl):
+            land(j, 2 * (hi - lo))
+            for v in range(2 * (hi - lo)):
+                assert slot[(j + v) % nst] == j + v
+                reads.append(j + v)
+            j += 2 * (hi - lo)
+    return reads, total
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 5632, 256, 8),
+                                   (64, 4096, 5632, 256, 8)] + WIDE[:4] +
+                         WIDE[-4:], ids=str)
+def test_fused_ffn_ring_schedule_reads_every_stage_once(shape):
+    """Whole phases (up to K 4096) and grouped ones (past it): every ring
+    stage of every chunk is read once, in order, after it landed and
+    before its slot is refilled."""
+    plan = sf.fused_ffn_plan(*shape, SMS)
+    for lo, hi in {plan.k_splits()[0], plan.k_splits()[-1]}:
+        reads, total = ring_replay(plan, hi - lo, 3)
+        assert reads == list(range(total))
 
 
 # --------------------------------------------------------------------------- #
@@ -244,6 +382,10 @@ CASES = {
     "scattered_f32": (37, 136, 512, 128, 4, 1.0, torch.float32, None),
     "all_empty": (3, 64, 256, 64, 2, 0.3, torch.bfloat16, "all_empty"),
     "verify": (20, 2048, 5632, 256, 8, 0.02, torch.bfloat16, None),
+    # past K 4096: llama4-scout's and mixtral-8x22b's d_model (a rank of
+    # 10 and 12 stages, the ring in groups) at a narrow N
+    "k5120": (6, 5120, 512, 128, 4, 0.3, torch.bfloat16, None),
+    "k6144": (33, 6144, 256, 64, 2, 0.3, torch.bfloat16, None),
 }
 
 
@@ -321,6 +463,10 @@ def test_replay_cases_reach_their_corners():
     assert block_union("all_empty") == 0
     assert sf.fused_ffn_plan(70, 192, 768, 256, 2, SMS).row_blocks == 2
     assert 0 < block_union("verify") <= UC
+    for name in ("k5120", "k6144"):
+        m, k, n, t, c = CASES[name][:5]
+        assert not sf.fused_ffn_plan(m, k, n, t, c, SMS).whole
+    assert block_union("k6144", 1) > 0
 
 
 def test_replay_counts_a_repeated_column():

@@ -49,7 +49,8 @@ def test_walk_covers_the_package():
             "pipeline.py", "graphs.py", "chip_smoke.py", "random.py",
             "accounting.py", "runlog.py", "paper_1p5b.py", "telemetry.py",
             "trace.py", "engine_spec.py", "server.py", "coordinator.py",
-            "transfer.py"} <= names
+            "transfer.py", "moe.py", "mixtral_8x22b.py",
+            "llama4_scout_17b_a16e.py"} <= names
 
 
 @pytest.fixture
@@ -68,6 +69,13 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         lm.init(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_paged_cache(cfg, 4, 4)
+    moe_cfg = get_config("mixtral-8x22b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init(moe_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(moe_cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama4-scout-17b-a16e", "--reduced"])
     params = lm.init(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(params, cfg)
