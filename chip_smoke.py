@@ -129,8 +129,12 @@ JAX package) and runs these phases, each printing one JSON line:
                  equal up to each request's first near-tie; mixtral's
                  prompts run past its 4096-token window (the decode ring
                  wraps) and its first layer's decode logits there are
-                 held against ``lm.forward``'s in float32; tokens/s and
-                 the step time
+                 held against ``lm.forward``'s in float32; each
+                 config's first layer in bf16, the dense run's tokens
+                 teacher-forced through decode under gather and under
+                 dense, logits within MOE_GATHER_TOL at every generated
+                 position (K1 + K2 checked inside the wrapped ring);
+                 tokens/s and the step time
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -158,8 +162,8 @@ JAX package) and runs these phases, each printing one JSON line:
                  both sides of the format, no overflow, a falling loss
   7e. train_moe -- mixtral-8x22b's full-width layer (2.91 B parameters),
                  hybrid then dense, MOE_TRAIN_STEPS steps each on
-                 TRAIN_SEQ-token rows (within the window: K7), the first
-                 batch of MOE_TRAIN_BATCHES that fits: K7, K8 and K9
+                 MOE_TRAIN_BATCH rows of TRAIN_SEQ tokens (within the
+                 window: K7): K7, K8 and K9
                  launched, both sides of the hybrid format, no overflow,
                  a falling loss, step time and peak; then its MoE
                  block's hybrid gradients against the dense formula in
@@ -195,7 +199,8 @@ the last line. ``--train-phases train`` (or any of train, remat,
 train_1p5b, train_olmo, train_moe and check_train, comma-separated) runs
 phases 1-2 and those training phases (step times, peak memory), on the
 port under ``--src`` if given, without the last line.
-``--phases serve_moe,train_moe`` runs phases 1-2 and the MoE phases.
+``--phases serve_moe`` and ``--train-phases train_moe`` run phases 1-2
+and the MoE serving or training phase.
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -266,8 +271,8 @@ def parse_args(argv):
                          "on the port under --src (no last line); for A/B "
                          "timing of the training step")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases (disagg, serve_moe, "
-                         "train_moe): run only the device and build phases "
+                    help="comma-separated phases (disagg, serve_moe): "
+                         "run only the device and build phases "
                          "and those (disagg on the serve phase's model and "
                          "prompts), each comparing against references it "
                          "makes itself (no last line)")
@@ -323,7 +328,7 @@ def main(argv=None) -> int:
                   f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
             return 2
         serve = None
-        if any(n in NEEDS_SERVE_MODEL for n in names):
+        if "disagg" in names:       # serve_moe makes its own models
             cfg, params, prompts = model_and_prompts(torch)
             serve = {"cfg": cfg, "params": params, "prompts": prompts,
                      "new_tokens": 32}
@@ -2795,6 +2800,10 @@ MOE_GEN = 32                       # greedy tokens a request
 MOE_RING_TOL = 1e-3                # float32 decode against the forward:
 #                                    sums over 4096 keys and the FFN in
 #                                    other orders, on logits of order 1
+MOE_GATHER_TOL = LOGIT_TOL         # bf16 gather against bf16 dense logits
+#                                    of one layer: the same router input
+#                                    bits, so the same experts; the FFNs
+#                                    round differently
 # (arch, requests, prompt tokens): mixtral's prompt runs 64 past its 4096
 # window, so the decode ring wraps before the first generated token
 MOE_SERVE = (("mixtral-8x22b", 2, 4096 + 64),
@@ -2896,6 +2905,50 @@ def moe_ring_check(torch, cfg, params, prompt):
             "step_ms": wall / (prompt.shape[1] + MOE_GEN) * 1e3}
 
 
+def moe_forced_logits(torch, cfg, params, toks, first):
+    """``toks`` (B, T) teacher-forced through the static loop's decode
+    (``lm.init_cache`` and ``lm.decode_step``, as ``serve.generate``
+    prefills its prompt): the float32 logits of positions ``first`` to
+    T - 1, (B, T - first, V)."""
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1] + 1,
+                          device="cuda")
+    out = []
+    with torch.no_grad():
+        for i in range(toks.shape[1]):
+            lg, cache = lm.decode_step(params, cache, toks[:, i:i + 1], cfg)
+            if i >= first:
+                out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+def moe_gather_check(torch, cfg, params, toks, plen):
+    """K1 + K2 inside the static decode, held numerically: ``params``'
+    first layer in bf16, the dense run's tokens ``toks`` teacher-forced
+    through decode (``moe_forced_logits``) with the gather FFN and with the
+    dense FFN, logits at every generated position (mixtral's all past the
+    window, so the ring has wrapped). With one layer the router sees the
+    same bits under both (embedding and attention do not depend on the
+    FFN), so it picks the same experts and the logits differ only by the
+    FFNs' rounding: within MOE_GATHER_TOL. Launches here are not the
+    main path's and are not counted."""
+    from repro_torch.tree import tree_map
+    p1 = {**params, "blocks": tree_map(lambda t: t[:1], params["blocks"])}
+    got = {}
+    t0 = time.perf_counter()
+    for impl in ("gather", "dense"):
+        c1 = dataclasses.replace(cfg, num_layers=1, sparsity=dataclasses.
+                                 replace(cfg.sparsity, ffn_impl=impl))
+        got[impl] = moe_forced_logits(torch, c1, p1, toks[:, :-1], plen - 1)
+    torch.cuda.synchronize()
+    err = (got["gather"] - got["dense"]).abs().amax(dim=-1)      # (B, P)
+    return {"layers": 1, "dtype": cfg.param_dtype, "max_abs_diff":
+            float(err.max()), "median_abs_diff": float(err.median()),
+            "positions": [plen - 1, toks.shape[1] - 2],
+            "rows": toks.shape[0], "tolerance": MOE_GATHER_TOL,
+            "wall_s": time.perf_counter() - t0}
+
+
 def phase_serve_moe(torch):
     """mixtral-8x22b and llama4-scout-17b-a16e at full width and MOE_LAYERS
     layers (bf16, KEEP of every expert's gate columns alive) through the
@@ -2905,8 +2958,9 @@ def phase_serve_moe(torch):
     near-tie (LOGIT_TOL). mixtral's prompts run past its 4096-token window,
     so the decode ring wraps; there its decode logits are held against
     ``lm.forward``'s in float32 (``moe_ring_check``; the bf16 run's
-    differences are reported beside). Tokens/s and the step time of
-    each."""
+    differences are reported beside). K1 + K2 are held numerically inside
+    that decode by ``moe_gather_check`` (one layer, gather against dense
+    on the same tokens). Tokens/s and the step time of each."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2952,7 +3006,9 @@ def phase_serve_moe(torch):
                "dense": {"wall_s": dwall, "step_ms": dwall / steps * 1e3,
                          "tokens_per_s": batch * MOE_GEN / dwall},
                "near_ties": ties, "overflow": overflow,
-               "first_tokens": toks[:, plen].tolist()}
+               "first_tokens": toks[:, plen].tolist(),
+               "gather_vs_dense": moe_gather_check(torch, cfg, params,
+                                                   dtoks, plen)}
         if cfg.window:
             errs, span = moe_decode_against_forward(torch, cfg, params,
                                                     dtoks, dlogits)
@@ -2966,6 +3022,10 @@ def phase_serve_moe(torch):
                                                           prompt)
         runs.append(res)
         emit({"phase": "serve_moe", **res})
+        gvd = res["gather_vs_dense"]
+        assert gvd["max_abs_diff"] <= MOE_GATHER_TOL, \
+            f"{arch}: gather's decode logits differ from dense's by " \
+            f"{gvd['max_abs_diff']} on one layer"
         if cfg.window:
             assert steps > cfg.window == res["cache_slots"], \
                 f"{arch}: the ring did not wrap"
@@ -3392,29 +3452,26 @@ def phase_train_olmo(torch):
 # --------------------------------------------------------------------------- #
 
 MOE_TRAIN_STEPS = 4
-MOE_TRAIN_BATCHES = (8, 4, 2)      # rows of TRAIN_SEQ tried in turn until
-#                                    hybrid and dense both fit the card
+MOE_TRAIN_BATCH = 8                # rows of TRAIN_SEQ tokens a step
 MOE_GRAD_ROWS = 256
 
 
-def moe_train_run(torch, impl, batch):
+def moe_train_run(torch, impl):
     """MOE_TRAIN_STEPS steps of mixtral-8x22b at full width, 1 layer, under
-    remat none (S = TRAIN_SEQ <= the window: K7), TRAIN_ALIVE of every
-    expert's gate columns alive; None where they do not fit the card."""
+    remat none (S = TRAIN_SEQ <= the window: K7), MOE_TRAIN_BATCH rows,
+    TRAIN_ALIVE of every expert's gate columns alive."""
     from repro_torch.models import lm
     cfg, params = moe_model(torch, "mixtral-8x22b", 1, impl,
                             alive=TRAIN_ALIVE)
     cfg = dataclasses.replace(cfg, remat="none")
     params = lm.trainable(params)
-    try:
-        return train_steps(torch, cfg, train_batches(
-            torch, cfg, batch, TRAIN_SEQ, MOE_TRAIN_STEPS), params=params)
-    except torch.cuda.OutOfMemoryError as e:
-        return str(e).split("\n")[0][:160]
-    finally:
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+    res = train_steps(torch, cfg, train_batches(
+        torch, cfg, MOE_TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_STEPS),
+        params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def moe_grad_check(torch):
@@ -3465,25 +3522,17 @@ def phase_train_moe(torch):
     d_ff 16384 at d_model 6144, 48 heads over 8 KV heads of 128; bf16 AdamW
     moments, as the config keeps them) trained MOE_TRAIN_STEPS steps,
     hybrid FFN then dense, on TRAIN_SEQ-token rows (within the 4096-token
-    window: attention degenerates to causal, K7), the first of
-    MOE_TRAIN_BATCHES rows that both fit: K7, K8 and K9 launched, rows on
+    window: attention degenerates to causal, K7), MOE_TRAIN_BATCH rows a
+    step: K7, K8 and K9 launched, rows on
     both sides of the hybrid format, no overflow, finite and falling loss,
     step time and peak memory; then the float32 gradient check of the MoE
     block against the dense formula."""
     free, total = torch.cuda.mem_get_info()
-    tried = []
-    for batch in MOE_TRAIN_BATCHES:
-        hybrid = moe_train_run(torch, "hybrid", batch)
-        dense = moe_train_run(torch, "dense", batch) \
-            if isinstance(hybrid, dict) else None
-        if isinstance(dense, dict):
-            break
-        tried.append({"batch": batch, "hybrid": hybrid, "dense": dense})
-    assert isinstance(dense, dict), \
-        f"mixtral-8x22b's layer does not train on the card: {tried}"
+    hybrid = moe_train_run(torch, "hybrid")
+    dense = moe_train_run(torch, "dense")
     runs = [hybrid, dense]
     res = {"phase": "train_moe", "arch": "mixtral-8x22b", "layers": 1,
-           "batch": [batch, TRAIN_SEQ], "batches_not_fitting": tried,
+           "batch": [MOE_TRAIN_BATCH, TRAIN_SEQ],
            "alive_columns": TRAIN_ALIVE, "card_free_bytes_before": free,
            "card_total_bytes": total, "runs": runs,
            "hybrid_over_dense_peak": {
@@ -3655,9 +3704,7 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
 
 
 SERVE_PHASES = {"disagg": phase_disagg,
-                "serve_moe": lambda torch, *_: phase_serve_moe(torch),
-                "train_moe": lambda torch, *_: phase_train_moe(torch)}
-NEEDS_SERVE_MODEL = ("disagg",)
+                "serve_moe": lambda torch, *_: phase_serve_moe(torch)}
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,

@@ -449,11 +449,14 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     local chunk), which advances by one; attention is plain masked
     attention over the cache (``layers.attention``), the FFN
     ``sparse_ffn.apply`` under ``cfg.sparsity`` (K1 + K2 on the card for
-    ``gather``; each expert's in a MoE block)."""
+    ``gather``; each expert's in a MoE block). Raises "cache full" once
+    ``pos`` reaches the cache's slots, unless they hold a whole window or
+    chunk (the ring then wraps, the chunk restarts)."""
     _check_family(cfg)
-    pos = int(cache["pos"])
-    if _attn_kind(cfg) == "causal" and pos >= cache["k"].shape[2]:
-        raise ValueError(f"cache full: pos {pos} of {cache['k'].shape[2]}")
+    pos, slots = int(cache["pos"]), cache["k"].shape[2]
+    span = cfg.window or cfg.attn_chunk     # 0: causal, every key kept
+    if pos >= slots and not (span and slots >= span):
+        raise ValueError(f"cache full: pos {pos} of {slots}")
     x = embed_lookup(params["embed"], tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for l in range(cfg.num_layers):

@@ -276,6 +276,23 @@ def test_decode_follows_the_forward_past_the_window(arch):
     assert err[:32].max() < 2e-4 and err[32:].min() > 1e-2, err
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_refuses_a_cache_shorter_than_the_window(arch):
+    """A cache of 16 slots for a window or chunk of 32 holds 16 tokens;
+    the 17th raises "cache full" (its ring slot would overwrite a key still
+    inside the window) instead of decoding wrong logits."""
+    _, cfg = _cfgs(arch)
+    _, tparams, _ = _weights(arch)
+    cache = lm.init_cache(cfg, 1, 16, device="cpu")
+    assert cache["k"].shape[2] == 16
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    with torch.no_grad():
+        for _ in range(16):
+            _, cache = lm.decode_step(tparams, cache, tok, cfg)
+        with pytest.raises(ValueError, match="cache full"):
+            lm.decode_step(tparams, cache, tok, cfg)
+
+
 def test_engine_on_window_free_mixtral_matches_jax_engine():
     """The port's ServingEngine on reduced mixtral without its window (the
     paged engine takes the MoE family, as JAX's does) against
