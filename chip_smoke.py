@@ -27,20 +27,29 @@ JAX package) and runs these phases, each printing one JSON line:
                  every column alive (a union near N), with its host time
                  beside the dense FFN's, K1 and K2 at the MoE experts'
                  shapes (K 5120, N 8192; K 6144, N 16384) at M 4 and 64,
+                 at llama3-405b's FFN (K 16384, N 53248: K2 past K 8192)
+                 at M 4 and 64 and at deepseek-67b's (K 8192, N 22016) at
+                 M 4,
                  K6 at M 4 and 256 (with K1 + K6
                  beside the dense non-gated FFN) and on a pattern with every
                  column alive, with its union a row block and its launch
-                 plan, K3 and K4 at hd 64 (MHA, GQA) and at
-                 olmo-1b's hd 128, K5 at M 4 and 256 with its launch plan,
+                 plan, K3 and K4 at hd 64 (MHA, GQA), at
+                 olmo-1b's hd 128, phi3-mini's 32 heads of 96 and the
+                 GQA groups of deepseek-67b (64/8) and llama3-405b
+                 (128/8) at hd 128, K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
                  programmatic dependent launch; K8 and K9 forward and
                  backward on the train phase's pattern and forward on a
                  pattern scattered over all N, with their host time a call
                  and the mean column union of a 128-row block (K8 also on
                  an f32 W, with a digest of its output's bits), K8 forward
-                 and backward and K9 backward at olmo-1b's N 8192; K7 at
+                 and backward and K9 backward at olmo-1b's N 8192, K8
+                 and K9 forward and backward at deepseek-67b's (K 8192, N
+                 22016) and llama3-405b's (K 16384, N 53248), on the
+                 wide union maps; K7 at
                  the train phase's batch with 32 heads of 64, one 4096-token
-                 row, and olmo-1b's 16 heads of 128
+                 row, olmo-1b's 16 heads of 128, phi3-mini's 32 of 96 and
+                 deepseek-67b's 64 of 128
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache; every step entry a CUDA graph, captured at the first
@@ -135,6 +144,24 @@ JAX package) and runs these phases, each printing one JSON line:
                  dense, logits within MOE_GATHER_TOL at every generated
                  position (K1 + K2 checked inside the wrapped ring);
                  tokens/s and the step time
+  6c. serve_dense -- phi3-mini-3.8b (all 32 layers, head dim 96),
+                 deepseek-67b and llama3-405b (2 layers each, GQA 64/8
+                 and 128/8 at head dim 128, d_model 8192 and 16384) at
+                 full width, KEEP of every layer's gate columns alive,
+                 through the engine with the serve phase's settings,
+                 warmed (CUDA graphs), on six prompts over each config's
+                 vocabulary: the gather FFN (K1-K4 each launched, no
+                 overflow, the prefix cache hit, a clean pool), then the
+                 dense FFN on a fresh warmed engine, tokens equal up to
+                 each request's first near-tie; two prompts' dense tokens
+                 teacher-forced through the paged decode under gather
+                 and under dense: on the first layer the two within
+                 LOGIT_TOL beyond one bf16 step of the logit (0.125 at
+                 llama3's largest) at every generated position; at the
+                 served depth each within DENSE_SERVE's tolerance of the same
+                 weights and tokens in float32 on the CPU, gather no
+                 farther from it than dense by more than LOGIT_TOL;
+                 tokens/s, decode step, TTFT
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -168,19 +195,30 @@ JAX package) and runs these phases, each printing one JSON line:
                  a falling loss, step time and peak; then its MoE
                  block's hybrid gradients against the dense formula in
                  float32
+  7f. train_dense -- phi3-mini-3.8b (8 layers, f32 moments: K7 at head
+                 dim 96) and deepseek-67b (1 layer, bf16 moments: K8/K9
+                 at N 22016 on the wide union maps) at full width under
+                 remat full, hybrid then dense, DENSE_TRAIN_STEPS steps of
+                 TRAIN_BATCH x TRAIN_SEQ tokens each: K7-K9 launched, both
+                 sides of the hybrid format, no overflow, a falling loss,
+                 step time, peak, MFU; then each config's FFN layer in
+                 float32, hybrid gradients against the dense formula
   8. check    -- the same weights in float32 on the CPU (plain versions)
                  against the card: prefill plus 4 decode steps of two prompts
                  through the gather path and one through tile_skip, logits
                  within a stated tolerance; the same for two prompts through
-                 olmo-1b's first 2 layers (K1 + K6); and one training step
+                 olmo-1b's first 2 layers (K1 + K6) and through
+                 phi3-mini-3.8b's first 2 (head dim 96 through K1-K4);
+                 and one training step
                  (2 layers, 1 x 256 tokens, hybrid) of paper-0.5b and of
                  olmo-1b (under its remat, full): loss and every gradient
                  leaf
   9. each phase's wall seconds and the script's total (``{"phase":
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, hybrid
-     train, remat, paper-1.5b, olmo train and MoE train runs; a
+     spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, dense
+     configs' serve (gather), hybrid train, remat, paper-1.5b, olmo
+     train, MoE train and dense configs' train runs; a
      recomputed layer's kernels count again), then the
      last
      line ``{"ok": true, "device": {...}}``.
@@ -196,11 +234,14 @@ flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--train-phases train`` (or any of train, remat,
-train_1p5b, train_olmo, train_moe and check_train, comma-separated) runs
+train_1p5b, train_olmo, train_moe, train_dense and check_train,
+comma-separated) runs
 phases 1-2 and those training phases (step times, peak memory), on the
 port under ``--src`` if given, without the last line.
 ``--phases serve_moe`` and ``--train-phases train_moe`` run phases 1-2
-and the MoE serving or training phase.
+and the MoE serving or training phase; ``--phases serve_dense`` and
+``--train-phases train_dense`` the dense configs' (phi3-mini-3.8b,
+deepseek-67b, llama3-405b).
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -266,16 +307,22 @@ def parse_args(argv):
                          "print their table (no last line); for A/B timing")
     ap.add_argument("--train-phases", default=None,
                     help="comma-separated training phases (train, remat, "
-                         "train_1p5b, train_olmo, train_moe, check_train): "
+                         "train_1p5b, train_olmo, train_moe, train_dense, "
+                         "check_train): "
                          "run only the device and build phases and those, "
                          "on the port under --src (no last line); for A/B "
                          "timing of the training step")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases (disagg, serve_moe): "
+                    help="comma-separated phases (disagg, serve_moe, "
+                         "serve_dense): "
                          "run only the device and build phases "
                          "and those (disagg on the serve phase's model and "
                          "prompts), each comparing against references it "
                          "makes itself (no last line)")
+    ap.add_argument("--wide-maps", action="store_true",
+                    help="with --kernels: K8 and K9 plan every N on the "
+                         "wide union maps (hybrid_matmul.NARROW_MAX_N set "
+                         "to 0), for an A/B against the N-sized maps")
     ap.add_argument("--k1-plans", action="store_true",
                     help="run only the device and build phases and K1 at "
                          "each of K1_SHAPES under the launch plans around "
@@ -328,7 +375,7 @@ def main(argv=None) -> int:
                   f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
             return 2
         serve = None
-        if "disagg" in names:       # serve_moe makes its own models
+        if "disagg" in names:       # serve_moe, serve_dense make their own
             cfg, params, prompts = model_and_prompts(torch)
             serve = {"cfg": cfg, "params": params, "prompts": prompts,
                      "new_tokens": 32}
@@ -337,6 +384,9 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     if args.kernels is not None:
+        if args.wide_maps:
+            from repro_torch.kernels import hybrid_matmul
+            hybrid_matmul.NARROW_MAX_N = 0
         kernels = phase_kernels(torch, args.kernels.split(","))
         k5_splits(torch)
         print(smi, flush=True)
@@ -357,20 +407,22 @@ def main(argv=None) -> int:
     disagg = timed("disagg", phase_disagg, serve, spec, smi)
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
     serve_moe = timed("serve_moe", phase_serve_moe)
+    serve_dense = timed("serve_dense", phase_serve_dense)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
     olmo_train = timed("train_olmo", phase_train_olmo)
     train_moe = timed("train_moe", phase_train_moe)
-    timed("check", phase_check, serve, olmo)
+    train_dense = timed("train_dense", phase_train_dense)
+    timed("check", phase_check, serve, olmo, serve_dense)
     timed("k5_splits", k5_splits)
     emit({"phase": "seconds", "seconds": seconds,
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
                             (serve, spec, pipe, http, disagg, olmo,
-                             serve_moe, train, remat, p15, olmo_train,
-                             train_moe))
+                             serve_moe, serve_dense, train, remat, p15,
+                             olmo_train, train_moe, train_dense))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -493,13 +545,15 @@ def close_err(torch, got, want, mask=None):
     return float(diff.max()) if diff.numel() else 0.0, bool(ok.all())
 
 
-def gate_inputs(torch, m, k, n, gen):
+def gate_inputs(torch, m, k, n, gen, scale=0.08):
     x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).bfloat16()
     alive = torch.rand((n,), generator=gen, device="cuda") < KEEP
-    wg = (torch.randn((k, n), generator=gen, device="cuda") * 0.08
+    wg = (torch.randn((k, n), generator=gen, device="cuda") * scale
           * alive[None]).bfloat16()
-    wu = (torch.randn((k, n), generator=gen, device="cuda") * 0.08).bfloat16()
-    wd = (torch.randn((n, k), generator=gen, device="cuda") * 0.08).bfloat16()
+    wu = (torch.randn((k, n), generator=gen, device="cuda") * scale
+          ).bfloat16()
+    wd = (torch.randn((n, k), generator=gen, device="cuda") * scale
+          ).bfloat16()
     return x, wg, wu, wd
 
 
@@ -528,14 +582,14 @@ def k1_agrees(torch, x, wg, t, c, case):
     return err, int(near.sum()), (pv, pi, pz)
 
 
-def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048):
+def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048, scale=0.08):
     """K1 on a KEEP-masked gate weight (K 2048; N 5632 is paper-0.5b's W_g,
-    8192 olmo-1b's W_u; K 5120 and 6144 the MoE experts'), held by
-    ``k1_agrees`` and timed. Returns the case and the inputs with the plain
-    version's outputs."""
+    8192 olmo-1b's W_u; K 5120 and 6144 the MoE experts'; the weights at
+    std ``scale``), held by ``k1_agrees`` and timed. Returns the case and
+    the inputs with the plain version's outputs."""
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
-    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
+    x, wg, wu, wd = gate_inputs(torch, m, k, n, gen, scale)
     err1, near, (pv, pi, pz) = k1_agrees(torch, x, wg, t, c,
                                          f"M={m}, N={n}")
     # x and W read once, the packed values, indices and counts written
@@ -549,7 +603,8 @@ def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048):
           "host_us": host_us(torch, lambda: twell_gate_matmul_cuda(
               x, wg, t, c)),
           "library_host_us": host_us(torch, lambda: torch.matmul(x, wg)),
-          "near_zero_rows": near, "M": m, "K": k, "N": n}
+          "near_zero_rows": near, "M": m, "K": k, "N": n,
+          "weight_std": scale}
     return k1, (x, wg, wu, wd, pv, pi, pz)
 
 
@@ -669,6 +724,37 @@ def k2_wide_cases(torch, timer, gen):
         k1, inputs = check_k1(torch, timer, m, n, gen, k=k)
         k1s.append(k1)
         k2s.append(check_k2(torch, timer, *inputs))
+    return k1s, k2s
+
+
+# the dense configs' FFNs: llama3-405b's (K 16384, N 53248; K2 past K
+# 8192, 16 slices a rank) at decode and a 64-row chunk, deepseek-67b's
+# (K 8192, N 22016) at decode
+DENSE_FFN_SHAPES = [(16384, 53248, 4), (16384, 53248, 64), (8192, 22016, 4)]
+
+
+def k2_dense_cases(torch, timer, gen):
+    """K1, then K2 on the plain version's packed gate, at each of
+    DENSE_FFN_SHAPES (KEEP of the gate columns alive, as serve_dense's
+    layers), the weights' std 0.08 scaled by sqrt(2048 / K): h of the
+    magnitudes of the K-2048 cases (at 0.08 itself h's one bf16 rounding
+    moves y by up to ~0.13 at K 16384, past BF16_TOL where y is near zero:
+    ``tests/test_torch_cuda.py:test_fused_ffn_widest_k_matches_plain``
+    holds it within that rounding's bound). No case on an earlier port
+    without K2 past K 8192. Each shape's weights are freed before the
+    next (llama3-405b's W_u, its transpose and W_d are 1.74 GB each)."""
+    from repro_torch.kernels import sparse_ffn as sf
+    k1s, k2s = [], []
+    if not hasattr(sf, "FUSED_FFN_WIDEST_SLICES"):
+        return k1s, k2s
+    for k, n, m in DENSE_FFN_SHAPES:
+        k1, inputs = check_k1(torch, timer, m, n, gen, k=k,
+                              scale=0.08 * (2048 / k) ** 0.5)
+        k1s.append(k1)
+        k2s.append(check_k2(torch, timer, *inputs))
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
     return k1s, k2s
 
 
@@ -1041,21 +1127,34 @@ def check_k7(torch, timer, b, s, h, hd, gen):
 
 def k7_cases(torch, timer, gen):
     """K7 at the train phase's batch (paper-0.5b: 32 heads of 64), one
-    4096-token row, and olmo-1b's training shape (16 heads of 128)."""
+    4096-token row, olmo-1b's training shape (16 heads of 128), and the
+    train_dense phase's: phi3-mini-3.8b's 32 heads of 96 (padded to 128)
+    and deepseek-67b's 64 of 128."""
     return [check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 64, gen),
             check_k7(torch, timer, 1, 4096, 32, 64, gen),
-            check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 16, 128, gen)]
+            check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 16, 128, gen),
+            check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 32, 96, gen),
+            check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 64, 128, gen)]
 
 
-def hybrid_inputs(torch, gen, n=5632, scattered=True):
+# (H, Hkv, hd) of K3's and K4's cases: paper-0.5b MHA and GQA 32/8 at hd
+# 64, olmo-1b's 16 heads of 128, phi3-mini-3.8b's 32 of 96, deepseek-67b's
+# 64 over 8 KV heads of 128 (G 8) and llama3-405b's 128 over 8 (G 16)
+ATTN_CASES = [(32, 32, 64), (32, 8, 64), (16, 16, 128), (32, 32, 96),
+              (64, 8, 128), (128, 8, 128)]
+
+
+def hybrid_inputs(torch, gen, n=5632, scattered=True, k=2048):
     """The train phase's FFN at full width (M = 8192 tokens, K 2048, N
     5632, ELL width 128, backup M/8) with TRAIN_ALIVE gate columns alive:
     x, the packed gate hg (its pattern), W_u, W_d, a gradient gy, and a
     pattern hs scattered over all N columns (None without ``scattered``).
     With N 8192 the same for olmo-1b's non-gated FFN, hg then the packed
-    relu(x @ W_u) with TRAIN_ALIVE columns of W_u alive."""
+    relu(x @ W_u) with TRAIN_ALIVE columns of W_u alive; with (K, N) a
+    dense config's FFN (deepseek-67b's (8192, 22016), llama3-405b's
+    (16384, 53248)) on the same pattern."""
     from repro_torch.core import hybrid as hyb
-    m, k = TRAIN_BATCH * TRAIN_SEQ, 2048
+    m = TRAIN_BATCH * TRAIN_SEQ
     x = (torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
     wg = (torch.randn((k, n), generator=gen, device="cuda") * 0.02
           * alive_columns(torch, gen, n)).bfloat16()
@@ -1138,7 +1237,7 @@ def check_k8(torch, timer, inputs, orient, pattern="alive"):
                         torch.cuda.get_device_properties(0)
                         .multi_processor_count, vals.element_size() // 2)
         plan = {"splits": p.splits, "ring": p.stages, "tile_cols": p.cols,
-                "smem": p.smem}
+                "smem": p.smem, "wide_maps": getattr(p, "wide", False)}
     return {"ms": timer.ms(k8),
             "plain_ms": timer.ms(lambda: hybrid_to_dense_plain(*args),
                                  iters=3),
@@ -1201,6 +1300,7 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
     scattered one. With the host time of a call beside ``x @ W``'s, the
     mean union of a 128-row block and a digest of the output's bits (to
     hold against an earlier version's from the same call)."""
+    from repro_torch.kernels import hybrid_matmul as hm
     from repro_torch.kernels.hybrid_matmul import (dense_to_hybrid_cuda,
                                                    dense_to_hybrid_plain)
     x, hg, wu, wd, gy, hs = inputs
@@ -1227,6 +1327,10 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
 
     def lib():
         return torch.matmul(a, w)
+    p = hm.d2h_plan(m, k, wt.shape[0], hy.ell_width,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = {"splits": p.splits, "ring": p.stages, "smem": p.smem,
+            "wide_maps": getattr(p, "wide", False)}
     return {"ms": timer.ms(k9),
             "plain_ms": timer.ms(lambda: dense_to_hybrid_plain(*args),
                                  iters=3),
@@ -1239,7 +1343,8 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
             "valid_slots_per_row": slots / m,
             "union_per_128_rows": float(union_sizes(torch, hy).float()
                                         .mean()),
-            "backup_rows": int(hy.is_dense.sum()), "digest": digest}
+            "backup_rows": int(hy.is_dense.sum()), "digest": digest,
+            "plan": plan}
 
 
 def k9_cases(torch, timer, inputs):
@@ -1353,21 +1458,24 @@ def phase_kernels(torch, only=None):
                 check_k1(torch, timer, m, n, gen)[0]
                 for n, m in K1_SHAPES],
             "paged_chunk_attention": lambda: [
-                check_k4(torch, timer, 32, 32, gen),
-                check_k4(torch, timer, 32, 8, gen),
-                check_k4(torch, timer, 16, 16, gen, hd=128)],
+                check_k4(torch, timer, h, hkv, gen, hd=hd)
+                for h, hkv, hd in ATTN_CASES],
             "flash_attention": lambda: k7_cases(torch, timer, gen),
             "tile_skip_ffn": lambda: k5_cases(torch, timer, gen),
             "paged_decode_attention": lambda: [
-                check_k3(torch, timer, 32, 32, gen),
-                check_k3(torch, timer, 32, 8, gen),
-                check_k3(torch, timer, 16, 16, gen, hd=128)],
+                check_k3(torch, timer, h, hkv, gen, hd=hd)
+                for h, hkv, hd in ATTN_CASES],
             "dense_to_hybrid": lambda: k9_cases(
-                torch, timer, hybrid_inputs(torch, gen)),
+                torch, timer, hybrid_inputs(torch, gen)) +
+            hybrid_dense_cases(torch, timer, gen, k8=False)[
+                "dense_to_hybrid"],
             "hybrid_to_dense": lambda: k8_cases(
-                torch, timer, hybrid_inputs(torch, gen)),
+                torch, timer, hybrid_inputs(torch, gen)) +
+            hybrid_dense_cases(torch, timer, gen, k9=False)[
+                "hybrid_to_dense"],
             "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1] +
-            k2_wide_cases(torch, timer, gen)[1],
+            k2_wide_cases(torch, timer, gen)[1] +
+            k2_dense_cases(torch, timer, gen)[1],
             "twell_down_proj": lambda: k6_cases(torch, timer, gen),
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
@@ -1379,31 +1487,60 @@ def phase_kernels(torch, only=None):
         + k1w,
         "twell_fused_ffn": k2s + k2w,
         "twell_down_proj": k6_cases(torch, timer, gen),
-        "paged_decode_attention": [check_k3(torch, timer, 32, 32, gen),
-                                   check_k3(torch, timer, 32, 8, gen),
-                                   check_k3(torch, timer, 16, 16, gen,
-                                            hd=128)],
-        "paged_chunk_attention": [check_k4(torch, timer, 32, 32, gen),
-                                  check_k4(torch, timer, 32, 8, gen),
-                                  check_k4(torch, timer, 16, 16, gen,
-                                           hd=128)],
+        "paged_decode_attention": [check_k3(torch, timer, h, hkv, gen,
+                                            hd=hd)
+                                   for h, hkv, hd in ATTN_CASES],
+        "paged_chunk_attention": [check_k4(torch, timer, h, hkv, gen, hd=hd)
+                                  for h, hkv, hd in ATTN_CASES],
         "tile_skip_ffn": k5_cases(torch, timer, gen),
         "flash_attention": k7_cases(torch, timer, gen),
     }
     hybrid = hybrid_inputs(torch, gen)
     cases["hybrid_to_dense"] = k8_cases(torch, timer, hybrid)
     cases["dense_to_hybrid"] = k9_cases(torch, timer, hybrid)
-    # olmo-1b's non-gated hybrid FFN (phase train_olmo): K8 forward and
-    # backward, K9 backward (its forward packs relu(x @ W_u) directly)
-    hybrid = hybrid_inputs(torch, gen, n=8192, scattered=False)
-    olmo = {"arch": "olmo-1b"}
-    cases["hybrid_to_dense"] += [
-        {**check_k8(torch, timer, hybrid, orient), **olmo}
-        for orient in ("forward", "backward")]
-    cases["dense_to_hybrid"].append(
-        {**check_k9(torch, timer, hybrid, "backward"), **olmo})
     del hybrid
+    k1d, k2d = k2_dense_cases(torch, timer, gen)
+    cases["twell_gate_matmul"] += k1d
+    cases["twell_fused_ffn"] += k2d
+    for name, runs in hybrid_dense_cases(torch, timer, gen).items():
+        cases[name] += runs
     return kernel_table(torch, cases)
+
+
+# (arch, K, N, K8's orientations, K9's) that a training phase runs at the
+# train phase's M 8192, E 128 and TRAIN_ALIVE pattern: olmo-1b's non-gated
+# FFN (train_olmo: its forward packs relu(x @ W_u) directly, no K9
+# forward), deepseek-67b's (train_dense) and llama3-405b's (trained on the
+# CPU only; its widest N held here) on the wide union maps
+HYBRID_DENSE_CASES = (
+    ("olmo-1b", 2048, 8192, ("forward", "backward"), ("backward",)),
+    ("deepseek-67b", 8192, 22016, ("forward", "backward"),
+     ("forward", "backward")),
+    ("llama3-405b", 16384, 53248, ("forward", "backward"),
+     ("forward", "backward")))
+
+
+def hybrid_dense_cases(torch, timer, gen, k8=True, k9=True):
+    """K8 and K9 (or only the one asked for) at each of
+    HYBRID_DENSE_CASES's shapes; those past N 16384 (the wide union maps)
+    none on an earlier port without them."""
+    from repro_torch.kernels import hybrid_matmul as hm
+    out = {"hybrid_to_dense": [], "dense_to_hybrid": []}
+    for arch, k, n, k8s, k9s in HYBRID_DENSE_CASES:
+        if n > 16384 and not hasattr(hm, "NARROW_MAX_N"):
+            continue
+        hybrid = hybrid_inputs(torch, gen, n=n, scattered=False, k=k)
+        tag = {"arch": arch, "N": n}
+        out["hybrid_to_dense"] += [
+            {**check_k8(torch, timer, hybrid, orient), **tag}
+            for orient in k8s if k8]
+        out["dense_to_hybrid"] += [
+            {**check_k9(torch, timer, hybrid, orient), **tag}
+            for orient in k9s if k9]
+        del hybrid
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def k5_cases(torch, timer, gen):
@@ -1466,9 +1603,9 @@ SERVE_KERNELS = ("twell_gate_matmul", "twell_fused_ffn",
 SPEC_KERNELS = SERVE_KERNELS + ("tile_skip_ffn",)
 
 
-def serving_engine(cfg, params, new_tokens, **kw):
+def serving_engine(cfg, params, new_tokens, backend="gather", **kw):
     from repro_torch.serving import ServingEngine
-    return ServingEngine(params, cfg, backend="gather", block_size=16,
+    return ServingEngine(params, cfg, backend=backend, block_size=16,
                          max_batch=4, max_seq_len=512 + new_tokens,
                          prefill_chunk=64, device="cuda", **kw)
 
@@ -3040,6 +3177,240 @@ def phase_serve_moe(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 6c. the remaining dense configs at full width through the engine
+# --------------------------------------------------------------------------- #
+
+# (arch, layers, witness tolerance): phi3-mini-3.8b at all 32 layers (4.63
+# B parameters with wu_t), deepseek-67b and llama3-405b at 2 of 95 and 126
+# (3.42 B, 12.32 B; depth cut to fit one card beside the engine's graphs).
+# The tolerance holds each bf16 path's served logits against float32's
+# beyond one bf16 step (``dense_gather_check``): 1.5x the larger path's
+# reading on the H100 (0.0606, 0.1991, 0.4313: gather and dense within 7%
+# of each other), as the logits grow with d_model (llama3's reach 16-32)
+DENSE_SERVE = (("phi3-mini-3.8b", None, 0.1), ("deepseek-67b", 2, 0.3),
+               ("llama3-405b", 2, 0.65))
+DENSE_CHECK_PROMPTS = (2, 5)       # the 64- and 96-token prompts
+DENSE_GEN = 32                     # greedy tokens a request
+
+
+def dense_model(torch, arch, layers, keep=KEEP):
+    """``arch`` at full width (and ``layers`` layers, or all) in bfloat16,
+    random weights from SEED (lm.init), all but ``keep`` of every layer's
+    W_g columns zeroed, as ``model_and_prompts`` does for paper-0.5b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = lm.init(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for w in params["blocks"]["ffn"]["wg"]:
+        w *= (torch.rand((1, cfg.d_ff), generator=gen, device="cuda")
+              < keep).to(w)
+    return cfg, params
+
+
+def dense_run_numbers(engine, outs, wall):
+    decode_ms = [s.wall_ms for s in engine.stats
+                 if s.decode_batch and not s.prefill_tokens]
+    ttft = sorted(o.ttft for o in outs)
+    return {"wall_s": wall,
+            "tokens_per_s": sum(len(o.token_ids) for o in outs) / wall,
+            "decode_step_ms_mean": (sum(decode_ms) / len(decode_ms)
+                                    if decode_ms else None),
+            "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
+            "warmup_seconds": engine.warmup_seconds,
+            "steps": len(engine.stats)}
+
+
+def bf16_step(torch, v):
+    """The spacing of bf16 values at |v|: 2^(floor(log2 |v|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2 ** -126)))
+                      - 7)
+
+
+def dense_gather_check(torch, cfg, params, prompts, dense_outs,
+                       witness_tol):
+    """K1-K4 inside the served model, held numerically as
+    ``moe_gather_check`` holds K1 + K2: each of DENSE_CHECK_PROMPTS
+    prefilled, then the dense engine's greedy tokens teacher-forced
+    through ``lm.paged_decode_step`` (``run_paged``) under the gather FFN
+    (K1 + K2, K3, K4) and under the dense FFN (K3, K4) -- the same
+    attention kernels on both; the FFNs round differently -- on the
+    model's first layer (``layers_1``) and on all it serves. The caller
+    asserts: on one layer the two within LOGIT_TOL beyond one bf16 step of
+    the logit itself (the logits are bf16; at llama3-405b's largest, 16-32,
+    one step is 0.125, above LOGIT_TOL). At the served depth the two
+    paths' rounding compounds through each gated FFN, so each is held
+    against a witness, ``f32_rows``: the same weights and tokens through
+    ``lm.forward`` in float32 on the CPU (the plain dense FFN), each path
+    within ``witness_tol`` of it beyond one bf16 step, and gather no
+    farther from it than dense by more than LOGIT_TOL. Launches here are
+    not the main path's and are not counted."""
+    one = dataclasses.replace(cfg, num_layers=1)
+    first = paged_rows(torch, one, first_layers(params, 1), prompts,
+                       dense_outs)
+    served = paged_rows(torch, cfg, params, prompts, dense_outs)
+    t0 = time.perf_counter()
+    ref = f32_rows(torch, cfg, params, prompts, dense_outs)
+    return {"layers_1": logits_apart(torch, first["gather"],
+                                     first["dense"]),
+            f"layers_{cfg.num_layers}": logits_apart(
+                torch, served["gather"], served["dense"]),
+            "f32_witness": {
+                **{be: logits_apart(torch, served[be], ref)
+                   for be in ("gather", "dense")},
+                "tolerance": witness_tol,
+                "wall_s": time.perf_counter() - t0},
+            "prompts": list(DENSE_CHECK_PROMPTS),
+            "positions": len(ref) // len(DENSE_CHECK_PROMPTS),
+            "tolerance": LOGIT_TOL}
+
+
+def paged_rows(torch, cfg, params, prompts, dense_outs):
+    """The logits rows of ``dense_gather_check``'s prompts, the dense
+    run's tokens teacher-forced, under gather and under dense, on
+    ``cfg``'s layers of ``params`` (bf16, the card)."""
+    rows = {"gather": [], "dense": []}
+    with torch.no_grad():
+        for ridx in DENSE_CHECK_PROMPTS:
+            forced = dense_outs[ridx].token_ids[:-1]
+            for be in rows:
+                rows[be] += run_paged(torch, params, cfg, prompts[ridx],
+                                      len(forced), "cuda", forced=forced,
+                                      backend=be)
+    return rows
+
+
+def f32_rows(torch, cfg, params, prompts, dense_outs):
+    """``paged_rows``'s positions from ``lm.forward`` in float32 on the
+    CPU over each prompt and its teacher-forced tokens (causal: its row at
+    a position is the decode step's there), the plain dense FFN, on the
+    same weights."""
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg32 = dataclasses.replace(
+        cfg, dtype="float32", param_dtype="float32", remat="none",
+        sparsity=dataclasses.replace(cfg.sparsity, ffn_impl="dense"))
+    cpu = tree_map(lambda t: t.to("cpu").float(), lm.trainable(params))
+    rows = []
+    with torch.no_grad():
+        for ridx in DENSE_CHECK_PROMPTS:
+            prompt = prompts[ridx]
+            toks = prompt + dense_outs[ridx].token_ids[:-1]
+            logits, _ = lm.forward(
+                cpu, {"tokens": torch.tensor([toks], dtype=torch.int32)},
+                cfg32)
+            rows += list(logits[0, len(prompt) - 1:])
+    return rows
+
+
+def logits_apart(torch, rows_a, rows_b):
+    """How far two lists of logits rows are apart: the largest and the
+    median of the rows' largest differences, and the largest beyond one
+    bf16 step of the larger logit."""
+    diffs, beyond = [], []
+    for a, b in zip(rows_a, rows_b, strict=True):
+        d = (a - b).abs()
+        diffs.append(float(d.max()))
+        beyond.append(float((d - bf16_step(
+            torch, torch.maximum(a.abs(), b.abs()))).max()))
+    return {"max_abs_diff": max(diffs),
+            "median_abs_diff": statistics.median(diffs),
+            "max_beyond_one_bf16_step": max(beyond)}
+
+
+def phase_serve_dense(torch):
+    """phi3-mini-3.8b (32 layers: head dim 96), deepseek-67b (2 layers: 64
+    heads over 8 KV heads of 128, d_model 8192, d_ff 22016) and
+    llama3-405b (2 layers: 128 heads over 8, d_model 16384, d_ff 53248:
+    K2 past K 8192) at full width in bf16 with KEEP of every layer's gate
+    columns alive, through the engine with the serve phase's settings
+    (paged, block 16, 4 requests a batch, 64-token prefill chunks), warmed
+    (every program captured as a CUDA graph first) on the serve phase's
+    six prompts drawn over each config's vocabulary, DENSE_GEN greedy
+    tokens each: the gather FFN (K1-K4 each launched over exactly this
+    run, no TwELL overflow, the prefix cache hit, a clean pool), then the
+    dense FFN (``--ffn-impl dense``) on a fresh warmed engine, tokens equal
+    up to each request's first near-tie (LOGIT_TOL); ``dense_gather_check``
+    holds the gather logits against dense's on the first layer, and both
+    against float32 on the CPU at the served depth. Tokens/s, the decode
+    step
+    and TTFT of each. Returns the gather runs' launches and phi3's first 2
+    layers for ``check``."""
+    import numpy as np
+    from repro_torch.observability import accounting
+    from repro_torch.tree import leaves_with_path, tree_map
+    launches, runs, phi3 = {}, [], None
+    for arch, layers, witness_tol in DENSE_SERVE:
+        cfg, params = dense_model(torch, arch, layers)
+        prompts = serve_prompts(np.random.RandomState(SEED), cfg.vocab_size)
+        engine, outs, wall, counts = warm_run(torch, cfg, params, prompts,
+                                              DENSE_GEN)
+        assert all(counts[k] > 0 for k in SERVE_KERNELS), \
+            f"{arch}: a kernel of the gather path never launched: {counts}"
+        assert engine.cached_tokens_total > 0, \
+            f"{arch}: the prefix cache never hit"
+        gather = {**dense_run_numbers(engine, outs, wall),
+                  "launches": {k: counts[k] for k in SERVE_KERNELS}}
+        for k in SERVE_KERNELS:
+            launches[k] = launches.get(k, 0) + counts[k]
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        dengine, douts, dwall, _ = warm_run(torch, cfg, params, prompts,
+                                            DENSE_GEN, backend="dense",
+                                            record_logits=True)
+        dense = dense_run_numbers(dengine, douts, dwall)
+        del dengine
+        gc.collect()
+        torch.cuda.empty_cache()
+        ties = first_near_ties(torch, douts)
+        compared = equal_before(outs, [o.token_ids for o in douts], ties,
+                                f"{arch} gather against dense")
+        check = dense_gather_check(torch, cfg, params, prompts, douts,
+                                   witness_tol)
+        res = {"arch": arch, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads,
+               "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+               "vocab": cfg.padded_vocab,
+               "params": accounting.param_count(params),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for _, t in leaves_with_path(params)),
+               "requests": len(prompts), "new_tokens": DENSE_GEN,
+               "gather": gather, "dense": dense, "near_ties": ties,
+               "tokens_compared": compared,
+               "tokens_equal": [o.token_ids == w.token_ids
+                                for o, w in zip(outs, douts)],
+               "gather_vs_dense": check}
+        runs.append(res)
+        emit({"phase": "serve_dense", **res})
+        one = check["layers_1"]
+        assert one["max_beyond_one_bf16_step"] <= LOGIT_TOL, \
+            f"{arch}: on one layer gather's logits differ from dense's by " \
+            f"{one['max_abs_diff']}, {one['max_beyond_one_bf16_step']} " \
+            "beyond a bf16 step"
+        wit = check["f32_witness"]
+        for be in ("gather", "dense"):
+            assert wit[be]["max_beyond_one_bf16_step"] <= witness_tol, \
+                f"{arch}: {be}'s logits differ from float32's by " \
+                f"{wit[be]['max_abs_diff']}"
+        assert wit["gather"]["max_abs_diff"] <= \
+            wit["dense"]["max_abs_diff"] + LOGIT_TOL, \
+            f"{arch}: gather is farther from float32 than dense: {wit}"
+        if arch == "phi3-mini-3.8b":
+            p2 = first_layers(params, 2)
+            phi3 = (dataclasses.replace(cfg, num_layers=2),
+                    {**p2, "blocks": tree_map(lambda t: t.clone(),
+                                              p2["blocks"])}, prompts)
+        del params, outs, douts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, "phi3": phi3}
+
+
+# --------------------------------------------------------------------------- #
 # 7. training: full-width paper-0.5b through the hybrid FFN
 # --------------------------------------------------------------------------- #
 
@@ -3162,17 +3533,18 @@ def phase_train(torch):
     return hybrid
 
 
-def grad_check(torch):
-    """One full-width FFN layer in float32 (M 4096 rows, TRAIN_ALIVE gate
-    columns alive): the hybrid autograd.Function (K8 and K9) against
-    torch autograd of the dense formula, y = (x W_u * relu(x W_g)) W_d with
-    the L1 term mean|h| (``_dense_apply``). Tolerance: max |g - g_ref| <= GRAD_TOL max |g_ref|
+def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3):
+    """One full-width FFN layer in float32 (M rows, paper-0.5b's K 2048 and
+    N 5632 unless given, TRAIN_ALIVE gate columns alive): the hybrid
+    autograd.Function (K8 and K9) against torch autograd of the dense
+    formula, y = (x W_u * relu(x W_g)) W_d with the L1 term mean|h|
+    (``_dense_apply``). Tolerance: max |g - g_ref| <= GRAD_TOL max |g_ref|
     per gradient; both sides take float32 products summed in float32 in
     different orders (the kernels per row and slot, cuBLAS by tiles)."""
     from repro_torch.config import SparsityConfig
     from repro_torch.core import sparse_ffn
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    m, k, n, coeff = 4096, 2048, 5632, 0.5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    coeff = 0.5
 
     def r(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
@@ -3195,7 +3567,8 @@ def grad_check(torch):
         errs[name] = float((g - w).abs().max() / w.abs().max())
         assert errs[name] <= GRAD_TOL, \
             f"hybrid grad {name} off by {errs[name]} of its max"
-    return {"phase": "grad_check", "M": m, "dtype": "float32",
+    return {"phase": "grad_check", "M": m, "K": k, "N": n,
+            "dtype": "float32",
             "tolerance": GRAD_TOL,
             "rel_max_err": errs, "backup_rows": int((nnz > 128).sum()),
             "mean_nnz": float(nnz.mean())}
@@ -3546,6 +3919,64 @@ def phase_train_moe(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 7f. training the remaining dense configs at full width
+# --------------------------------------------------------------------------- #
+
+# (arch, layers, the FFN gradient check's rows): phi3-mini-3.8b at 8 of 32
+# layers (1.10 B parameters, f32 moments; K7 at head dim 96), deepseek-67b
+# at 1 of 95 (2.37 B, bf16 moments, its f32 logits over 102400 columns);
+# llama3-405b's one layer with its embedding and head (7.39 B) does not
+# fit beside AdamW's functional update and trains on the CPU only
+DENSE_TRAIN = (("phi3-mini-3.8b", 8, 2048), ("deepseek-67b", 1, 1024))
+DENSE_TRAIN_STEPS = 4
+
+
+def phase_train_dense(torch):
+    """phi3-mini-3.8b (8 layers) and deepseek-67b (1 layer) at full width
+    in bf16 under their own remat ("full") and AdamW moment dtype,
+    TRAIN_ALIVE of every layer's gate columns alive, TRAIN_BATCH x
+    TRAIN_SEQ tokens a step, hybrid then dense, DENSE_TRAIN_STEPS steps
+    each: K7 (head dim 96 and 128), K8 and K9 (N 8192; N 22016 on the wide
+    union maps) launched, rows on both sides of the format, no overflow, a
+    falling loss, step time, peak and MFU (``train_steps``); then the
+    config's FFN layer in float32, hybrid gradients against the dense
+    formula (``grad_check``). A fixed batch: an out-of-memory error fails
+    the phase."""
+    from repro_torch.configs import get_config
+    free, total = torch.cuda.mem_get_info()
+    runs = []
+    for arch, layers, rows in DENSE_TRAIN:
+        pair = []
+        for impl in ("hybrid", "dense"):
+            cfg = train_config(impl, layers=layers, arch=arch, remat=None)
+            pair.append(train_steps(torch, cfg, train_batches(
+                torch, cfg, TRAIN_BATCH, TRAIN_SEQ, DENSE_TRAIN_STEPS)))
+            gc.collect()
+            torch.cuda.empty_cache()
+        hybrid, dense = pair
+        full = get_config(arch)
+        check = grad_check(torch, m=rows, k=full.d_model, n=full.d_ff,
+                           seed=SEED + 8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "train_dense", "arch": arch, "layers": layers,
+              "remat": hybrid["remat"],
+              "opt_state_dtype": full.opt_state_dtype,
+              "batch": [TRAIN_BATCH, TRAIN_SEQ],
+              "alive_columns": TRAIN_ALIVE,
+              "card_free_bytes_before": free, "card_total_bytes": total,
+              "runs": pair,
+              "hybrid_over_dense_peak": {
+                  key: hybrid[key] / dense[key]
+                  for key in ("peak_mem_bytes", "grad_peak_mem_bytes")},
+              "grad_check": check})
+        assert_trained(hybrid, TRAIN_KERNELS)
+        assert_trained(dense, ("flash_attention",))
+        runs += pair
+    return {"launches": summed_launches(runs)}
+
+
+# --------------------------------------------------------------------------- #
 # 8. the same weights in float32 on the CPU
 # --------------------------------------------------------------------------- #
 
@@ -3585,36 +4016,41 @@ def first_layers(tree, n):
         for name, leaf in tree["blocks"].items()}}
 
 
-def phase_check(torch, serve, olmo):
+def phase_check(torch, serve, olmo, dense):
     """Tolerance: card logits (bf16 weights and activations, 8 layers) within
     LOGIT_TOL of the CPU's float32 logits, whose spread is about 1; a bf16
     value carries 8 significant bits, a relative rounding of 2^-9 per step.
     A token must match wherever the CPU's top-2 margin exceeds the tolerance.
-    paper-0.5b runs its 8 layers; olmo-1b runs its first 2 (at full width),
-    so that the CPU's float32 run stays short. Then one training step,
-    ``check_train``."""
+    paper-0.5b runs its 8 layers; olmo-1b and phi3-mini-3.8b (head dim 96
+    through K1-K4) run their first 2 (at full width), so that the CPU's
+    float32 run stays short. Then one training step, ``check_train``."""
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
     olmo_cfg = dataclasses.replace(olmo["cfg"], num_layers=2)
+    phi3_cfg, phi3_params, phi3_prompts = dense["phi3"]
     models = {}
     for arch, cfg, params in (
             ("paper-0.5b", serve["cfg"], serve["params"]),
-            ("olmo-1b", olmo_cfg, first_layers(olmo["params"], 2))):
+            ("olmo-1b", olmo_cfg, first_layers(olmo["params"], 2)),
+            ("phi3-mini-3.8b", phi3_cfg, phi3_params)):
         models[arch] = (cfg, params, dataclasses.replace(
             cfg, dtype="float32", param_dtype="float32"),
             tree_map(lambda t: t.float(), lm.params_to(params, "cpu")))
     report = []
     # the 64- and 96-token prompts through gather (paper-0.5b: K1 + K2;
-    # olmo-1b: K1 + K6), the 64-token one through tile_skip at threshold 0
-    # (K5)
+    # olmo-1b: K1 + K6; phi3-mini: K1 + K2, K3 and K4 at head dim 96), the
+    # 64-token one through tile_skip at threshold 0 (K5)
     for arch, ridx, backend in (("paper-0.5b", 2, "gather"),
                                 ("paper-0.5b", 5, "gather"),
                                 ("paper-0.5b", 2, "tile_skip"),
                                 ("olmo-1b", 2, "gather"),
-                                ("olmo-1b", 5, "gather")):
+                                ("olmo-1b", 5, "gather"),
+                                ("phi3-mini-3.8b", 2, "gather"),
+                                ("phi3-mini-3.8b", 5, "gather")):
         cfg, params, cfg32, cpu_params = models[arch]
         with torch.no_grad():
-            prompt = serve["prompts"][ridx]
+            prompt = (phi3_prompts if arch == "phi3-mini-3.8b"
+                      else serve["prompts"])[ridx]
             ref = run_paged(torch, cpu_params, cfg32, prompt, 4, "cpu",
                             backend=backend)
             forced = [int(r.argmax()) for r in ref[:-1]]
@@ -3704,11 +4140,13 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
 
 
 SERVE_PHASES = {"disagg": phase_disagg,
-                "serve_moe": lambda torch, *_: phase_serve_moe(torch)}
+                "serve_moe": lambda torch, *_: phase_serve_moe(torch),
+                "serve_dense": lambda torch, *_: phase_serve_dense(torch)}
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,
                 "train_moe": phase_train_moe,
+                "train_dense": phase_train_dense,
                 "check_train": lambda torch: emit({
                     "phase": "check_train",
                     "train_step": check_train(torch),

@@ -18,6 +18,9 @@ _REGISTRY: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
     "mixtral-8x22b": "mixtral_8x22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "deepseek-67b": "deepseek_67b",
+    "llama3-405b": "llama3_405b",
 }
 
 

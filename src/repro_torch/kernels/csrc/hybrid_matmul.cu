@@ -17,7 +17,15 @@
 // folds it into a bitmap a thread a word and scans the words' popcounts
 // over the block: the union's U columns in ascending order, and each
 // column's position among them (block_union, union_columns). All on the
-// card: the host never reads the pattern.
+// card: the host never reads the pattern. Those maps take 5.25 bytes a
+// column of N, which leaves no ring beside them past N ~19000. Past N
+// 16384 (deepseek's d_ff 22016, llama3's 53248) the host plan takes the
+// wide maps (the WIDE instantiations): only the bitmap and its prefix
+// (0.25 bytes a column) and the union's columns, sized by the most a
+// 128-row block can hold, min(N, 128 E) (16384 at E 128); the columns are
+// ORed into the bitmap with shared-memory atomics, and a column's
+// position is its word's prefix plus the popcount of the bits below it.
+// Every plan up to N 16384 keeps the narrow maps.
 //
 // K8 in bf16 (h2d_union_kernel: W bf16, slot values bf16 or f32). What
 // bounds it: at the training shape (M 8192, K 2048, N 5632, ELL width 128,
@@ -152,27 +160,40 @@ struct H2d {
   static constexpr uint32_t HPANEL = BM * PANEL_ROW;   // h: BM rows x 64
 };                                                     // positions
 
-// shared memory of a row block's union at N columns: the union's columns
-// and each column's position (u16) [N] each, the bitmap and its prefix
-// [NW] each, the byte map [32 NW], the rows' valid slot counts [BM] and U
-inline size_t union_bytes(int N) {
+// the most columns a row block's union can hold: min(N, BM x E)
+__host__ __device__ inline int union_cap(int N, int E) {
+  return N < BM * E ? N : BM * E;
+}
+
+// shared memory of a row block's union at N columns. Narrow maps (every
+// plan up to N 16384): the union's columns and each column's position
+// (u16) [N] each, the bitmap and its prefix [NW] each, the byte map
+// [32 NW], the rows' valid slot counts [BM] and U. Wide maps (where the
+// narrow ones leave no room for a ring): the bitmap and its prefix [NW]
+// each, the union's columns [union_cap] (u16, rounded up to even), the
+// rows' counts [BM], U and the warps' totals: a column's position is its
+// word's prefix plus the bits below it, and the columns are marked in the
+// bitmap directly (shared-memory atomicOr), with no byte map
+inline size_t union_bytes(int N, int E, bool wide) {
   const size_t nw = (N + 31) / 32;
+  if (wide) return 8 * nw + 4 * (size_t)((union_cap(N, E) + 1) / 2) +
+                   4 * BM + 48;
   return 4 * (size_t)N + 40 * nw + 4 * BM + 16;
 }
 
 // dynamic shared memory of d2h_union_kernel<nst> at N columns (the host
 // plan computes the same): 1 KB of alignment slack, the ring (the staged
 // accumulators are aliased over it), the union's maps
-inline size_t d2h_smem(int nst, int N) {
-  return 1024 + (size_t)nst * D2h::STAGE + union_bytes(N);
+inline size_t d2h_smem(int nst, int N, int E, bool wide) {
+  return 1024 + (size_t)nst * D2h::STAGE + union_bytes(N, E, wide);
 }
 
 // dynamic shared memory of h2d_union_kernel at N columns, a ring of nst
 // stages and an h tile of hc positions in `terms` bf16 parts (1: bf16
 // values, 2: f32 values as hi + lo): slack, ring, tiles, the union's maps
-inline size_t h2d_smem(int nst, int hc, int terms, int N) {
+inline size_t h2d_smem(int nst, int hc, int terms, int N, int E, bool wide) {
   return 1024 + (size_t)nst * H2d::STAGE +
-         (size_t)terms * (hc / US) * H2d::HPANEL + union_bytes(N);
+         (size_t)terms * (hc / US) * H2d::HPANEL + union_bytes(N, E, wide);
 }
 
 __device__ __forceinline__ void load8(const float* __restrict__ p, float* f) {
@@ -190,24 +211,53 @@ __device__ __forceinline__ int valid_slots(const int* __restrict__ row_nnz,
 
 // ---- a row block's column union (K8 and K9) ------------------------------
 
+// WIDE: the wide maps of union_bytes (no position table, no byte map)
+template <bool WIDE>
 struct UnionMaps {
-  uint16_t* cols;     // [N] the union's columns in ascending order
-  uint16_t* pos;      // [N] each column's position among them (N < 65536)
+  uint16_t* cols;     // [N] (wide: [union_cap]) the union's columns in
+                      // ascending order
+  uint16_t* pos;      // [N] each column's position among them (N < 65536);
+                      // narrow only
   uint32_t* bits;     // [NW] bit b of word w: column 32 w + b is in it
   int* pre;           // [NW] the union's columns below word w
-  uint32_t* flags32;  // [8 NW] the byte map of N, as words
+  uint32_t* flags32;  // [8 NW] the byte map of N, as words; narrow only
   int* nv;            // [BM] the rows' valid slots
   int* u_s;           // U
+  int* tot;           // [WARPS] the scan's warp totals (narrow: over the
+                      // byte map, read by then)
 
-  __device__ UnionMaps(uint8_t* base, int N) {
+  __device__ UnionMaps(uint8_t* base, int N, int E) {
     const int nw = (N + 31) / 32;
-    cols = reinterpret_cast<uint16_t*>(base);
-    pos = cols + N;
-    bits = reinterpret_cast<uint32_t*>(pos + N);
-    pre = reinterpret_cast<int*>(bits + nw);
-    flags32 = reinterpret_cast<uint32_t*>(pre + nw);
-    nv = reinterpret_cast<int*>(flags32 + 8 * nw);
-    u_s = nv + BM;
+    if constexpr (WIDE) {
+      bits = reinterpret_cast<uint32_t*>(base);
+      pre = reinterpret_cast<int*>(bits + nw);
+      cols = reinterpret_cast<uint16_t*>(pre + nw);
+      nv = reinterpret_cast<int*>(cols + 2 * ((union_cap(N, E) + 1) / 2));
+      u_s = nv + BM;
+      tot = u_s + 4;
+      pos = nullptr;
+      flags32 = nullptr;
+    } else {
+      cols = reinterpret_cast<uint16_t*>(base);
+      pos = cols + N;
+      bits = reinterpret_cast<uint32_t*>(pos + N);
+      pre = reinterpret_cast<int*>(bits + nw);
+      flags32 = reinterpret_cast<uint32_t*>(pre + nw);
+      nv = reinterpret_cast<int*>(flags32 + 8 * nw);
+      u_s = nv + BM;
+      tot = reinterpret_cast<int*>(flags32);
+    }
+  }
+
+  // the union position of column col (in the union): the table's entry,
+  // or (wide) its word's prefix plus the bits below it
+  __device__ __forceinline__ int position(int col) const {
+    if constexpr (WIDE) {
+      const int w = col >> 5;
+      return pre[w] + __popc(bits[w] & ((1u << (col & 31)) - 1u));
+    } else {
+      return pos[col];
+    }
   }
 };
 
@@ -269,14 +319,15 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t n, int t,
 // indices to L2 and call early(t) as thread t of 128), the columns marked
 // in the byte map through buf (cap ints, at least one row of MAX_E),
 // folded into u.bits a thread a word, u.pre the words' prefix popcount (a
-// scan over the block). other(r, e) is called for every slot that is not
-// valid (past row_nnz, a backup row, an index outside [0, N)). Returns U.
-// Every thread of the block calls it.
-template <typename F, typename G>
+// scan over the block). With the wide maps the columns are ORed into
+// u.bits directly. other(r, e) is called for every slot that is not valid
+// (past row_nnz, a backup row, an index outside [0, N)). Returns U. Every
+// thread of the block calls it.
+template <bool WIDE, typename F, typename G>
 __device__ int block_union(const int* __restrict__ idx,
                            const int* __restrict__ row_nnz,
                            const uint8_t* __restrict__ sparse, int m0, int rv,
-                           int E, int N, const UnionMaps& u, int* buf,
+                           int E, int N, const UnionMaps<WIDE>& u, int* buf,
                            int cap, F&& other, G&& early) {
   static_assert(THREADS == 2 * BM, "a thread a row's count, then the rest");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -291,13 +342,21 @@ __device__ int block_union(const int* __restrict__ idx,
     prefetch_l2(bidx, (size_t)rv * E * 4, tid - BM, THREADS - BM);
     early(tid - BM);
   }
-  for (int w = tid; w < 8 * NW; w += THREADS) u.flags32[w] = 0u;
+  if constexpr (WIDE) {
+    for (int w = tid; w < NW; w += THREADS) u.bits[w] = 0u;
+  } else {
+    for (int w = tid; w < 8 * NW; w += THREADS) u.flags32[w] = 0u;
+  }
   __syncthreads();
   each_slot(bidx, vec, rv, E, u.nv, buf, cap, [&](int r, int e, int col) {
-    if ((unsigned)col < (unsigned)N)
-      flags[col] = 1;
-    else
+    if ((unsigned)col < (unsigned)N) {
+      if constexpr (WIDE)
+        atomicOr(&u.bits[col >> 5], 1u << (col & 31));
+      else
+        flags[col] = 1;
+    } else {
       other(r, e);
+    }
   });
   // the bitmap (bit b of word w: column 32 w + b) from the byte map's 0/1
   // bytes, a thread taking a run of words, and their popcount
@@ -306,24 +365,28 @@ __device__ int block_union(const int* __restrict__ idx,
   int cnt = 0;
   for (int w = lo; w < hi; ++w) {
     uint32_t b = 0;
+    if constexpr (WIDE) {
+      b = u.bits[w];
+    } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint32_t f = u.flags32[8 * w + q];  // columns 32 w + 4 q + 0..3
-      b |= ((f & 1u) | ((f >> 7) & 2u) | ((f >> 14) & 4u) | ((f >> 21) & 8u))
-           << (4 * q);
+      for (int q = 0; q < 8; ++q) {
+        const uint32_t f = u.flags32[8 * w + q];  // columns 32 w + 4 q + 0..3
+        b |= ((f & 1u) | ((f >> 7) & 2u) | ((f >> 14) & 4u) |
+              ((f >> 21) & 8u))
+             << (4 * q);
+      }
+      u.bits[w] = b;
     }
-    u.bits[w] = b;
     cnt += __popc(b);
   }
   // the runs' exclusive prefix: a scan in each warp, then the warps' totals
-  // (kept in the byte map, read by now)
   int inc = cnt;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int t = __shfl_up_sync(0xffffffffu, inc, o);
     if (lane >= o) inc += t;
   }
-  int* tot = reinterpret_cast<int*>(u.flags32);  // [WARPS]
+  int* tot = u.tot;  // [WARPS]
   __syncthreads();
   if (lane == 31) tot[warp] = inc;
   __syncthreads();
@@ -338,9 +401,10 @@ __device__ int block_union(const int* __restrict__ idx,
   return *u.u_s;
 }
 
-// the union's columns in ascending order into u.cols, and each one's
-// position into u.pos
-__device__ void union_columns(const UnionMaps& u, int N) {
+// the union's columns in ascending order into u.cols, and (narrow) each
+// one's position into u.pos
+template <bool WIDE>
+__device__ void union_columns(const UnionMaps<WIDE>& u, int N) {
   const int NW = (N + 31) / 32;
   for (int w = threadIdx.x; w < NW; w += THREADS) {
     uint32_t b = u.bits[w];
@@ -348,7 +412,8 @@ __device__ void union_columns(const UnionMaps& u, int N) {
     while (b) {
       const int col = 32 * w + __ffs(b) - 1;
       u.cols[p] = (uint16_t)col;
-      u.pos[col] = (uint16_t)p++;
+      if constexpr (!WIDE) u.pos[col] = (uint16_t)p;
+      ++p;
       b &= b - 1;
     }
   }
@@ -413,7 +478,7 @@ __device__ __forceinline__ void put(uint8_t* a, float v, uint32_t lo_off) {
       __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
-template <typename TV, int NST>
+template <typename TV, int NST, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     h2d_union_kernel(const TV* __restrict__ vals, const int* __restrict__ idx,
                      const int* __restrict__ row_nnz,
@@ -428,7 +493,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint8_t* ring = smem_aligned(smem_h2d);          // [NST] stages
   uint8_t* tile = ring + NST * L::STAGE;           // [TERMS][hc / US] panels
   const uint32_t tile_bytes = (hc / US) * L::HPANEL;  // one term's tile
-  const UnionMaps u(tile + TERMS * tile_bytes, N);
+  const UnionMaps<WIDE> u(tile + TERMS * tile_bytes, N, E);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.x * BM, s = blockIdx.y, S = gridDim.y;
@@ -539,7 +604,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int i = 0; i < 8; ++i) {
             const bool in = (unsigned)cl[i] < (unsigned)N;
             const unsigned p =
-                (unsigned)((in ? (int)u.pos[cl[i]] : 0) - c * hc);
+                (unsigned)((in ? u.position(cl[i]) : 0) - c * hc);
             const int r = r_lo + rr[i / 4];
             // sw128_off(r, (p % 64) / 8) + (p % 8) * 2 in panel p / 64
             off[i] = in && p < (unsigned)hc
@@ -623,7 +688,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---- K9 ------------------------------------------------------------------
 
-template <int NST>
+template <int NST, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     d2h_union_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                      const int* __restrict__ idx,
@@ -633,7 +698,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   typedef D2h L;
   extern __shared__ __align__(1024) uint8_t smem_d2h[];
   uint8_t* ring = smem_aligned(smem_d2h);               // [NST] stages
-  const UnionMaps u(ring + NST * L::STAGE, N);
+  const UnionMaps<WIDE> u(ring + NST * L::STAGE, N, E);
   float* stg = reinterpret_cast<float*>(ring);  // [P][BM][SROW] after a pass
 
   const int tid = threadIdx.x, lane = tid % 32;
@@ -761,7 +826,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               (NST * L::STAGE - P * BM * SROW * 4) / 4,
               [&](int r, int e, int col) {
                 if ((unsigned)col >= (unsigned)N) return;
-                const int p = u.pos[col];
+                const int p = u.position(col);
 #pragma unroll
                 for (int q = 0; q < P; ++q)
                   if (p / UN == c0 + q * S)
@@ -815,32 +880,32 @@ __global__ void __launch_bounds__(D2H_WARPS * 32)
   }
 }
 
-template <typename TV, int NST>
+template <typename TV, int NST, bool WIDE>
 int launch_h2d(const void* vals, const void* idx, const void* row_nnz,
                const void* sparse, const void* w, void* y, int M, int E,
                int K, int N, int splits, int hc, size_t smem,
                cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      h2d_union_kernel<TV, NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      h2d_union_kernel<TV, NST, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  h2d_union_kernel<TV, NST>
+  h2d_union_kernel<TV, NST, WIDE>
       <<<dim3((M + BM - 1) / BM, splits), THREADS, smem, st>>>(
           (const TV*)vals, (const int*)idx, (const int*)row_nnz,
           (const uint8_t*)sparse, (const bf16*)w, (float*)y, M, E, K, N, hc);
   return (int)cudaGetLastError();
 }
 
-template <int NST>
+template <int NST, bool WIDE>
 int launch_union(const void* x, const void* wt, const void* idx,
                  const void* row_nnz, const void* sparse, void* vals, int M,
                  int E, int K, int N, int splits, size_t smem,
                  cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      d2h_union_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      d2h_union_kernel<NST, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  d2h_union_kernel<NST>
+  d2h_union_kernel<NST, WIDE>
       <<<dim3((M + BM - 1) / BM, splits), THREADS, smem, st>>>(
           (const bf16*)x, (const bf16*)wt, (const int*)idx,
           (const int*)row_nnz, (const uint8_t*)sparse, (float*)vals, M, E, K,
@@ -853,14 +918,15 @@ int launch_union(const void* x, const void* wt, const void* idx,
 // vals (M, E) bf16 (vals_bf16 != 0) or f32, idx (M, E) int32, row_nnz (M,)
 // int32, sparse (M,) uint8 (bool), w (N, K) bf16 (w_bf16 != 0) or f32 ->
 // y (M, K) f32. Requires K % 8 == 0 and E <= 1024. bf16 w: the plan's
-// splits S, ring depth (4-6), tile width hc (a multiple of 64) and dynamic
-// shared memory (at least h2d_smem). f32 w takes f32 values and ignores
-// the plan.
+// splits S, ring depth (4-6), tile width hc (a multiple of 64), union maps
+// (wide != 0: the wide ones) and dynamic shared memory (at least
+// h2d_smem). f32 w takes f32 values and ignores the plan.
 extern "C" int hybrid_to_dense(const void* vals, const void* idx,
                                const void* row_nnz, const void* sparse,
                                const void* w, void* y, int M, int E, int K,
                                int N, int w_bf16, int vals_bf16, int splits,
-                               int stages, int hc, int smem, void* stream) {
+                               int stages, int hc, int wide, int smem,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!w_bf16) {
     if (vals_bf16) return (int)cudaErrorInvalidValue;
@@ -870,32 +936,38 @@ extern "C" int hybrid_to_dense(const void* vals, const void* idx,
                           (const float*)w, (float*)y, E, K);
     return (int)cudaGetLastError();
   }
-  if (splits < 1 || N < 1 || N > 65535 || hc < US || hc % US || smem < 0 ||
-      (size_t)smem < h2d_smem(stages, hc, vals_bf16 ? 1 : 2, N))
+  if (splits < 1 || N < 1 || N > 65535 || E < 1 || hc < US || hc % US ||
+      smem < 0 ||
+      (size_t)smem < h2d_smem(stages, hc, vals_bf16 ? 1 : 2, N, E, wide))
     return (int)cudaErrorInvalidValue;
-#define H2D_UNION(NST_)                                                     \
-  if (stages == NST_)                                                       \
-    return vals_bf16                                                        \
-               ? launch_h2d<bf16, NST_>(vals, idx, row_nnz, sparse, w, y, M, \
-                                        E, K, N, splits, hc, smem, s)       \
-               : launch_h2d<float, NST_>(vals, idx, row_nnz, sparse, w, y,  \
-                                         M, E, K, N, splits, hc, smem, s);
-  H2D_UNION(4)
-  H2D_UNION(5)
-  H2D_UNION(6)
+#define H2D_UNION(NST_, WIDE_)                                               \
+  if (stages == NST_ && (wide != 0) == WIDE_)                                \
+    return vals_bf16 ? launch_h2d<bf16, NST_, WIDE_>(vals, idx, row_nnz,     \
+                                                     sparse, w, y, M, E, K,  \
+                                                     N, splits, hc, smem, s) \
+                     : launch_h2d<float, NST_, WIDE_>(                       \
+                           vals, idx, row_nnz, sparse, w, y, M, E, K, N,     \
+                           splits, hc, smem, s);
+  H2D_UNION(4, false)
+  H2D_UNION(5, false)
+  H2D_UNION(6, false)
+  H2D_UNION(4, true)
+  H2D_UNION(5, true)
+  H2D_UNION(6, true)
 #undef H2D_UNION
   return (int)cudaErrorInvalidValue;
 }
 
 // x (M, K), wt (N, K) both bf16 (bf16_in != 0) or both f32; idx (M, E)
 // int32, row_nnz (M,) int32, sparse (M,) uint8 -> vals (M, E) f32.
-// Requires K % 8 == 0. bf16: the plan's splits S, ring depth (4-6) and
-// dynamic shared memory (at least d2h_smem); float32 ignores them.
+// Requires K % 8 == 0. bf16: the plan's splits S, ring depth (4-6), union
+// maps (wide != 0: the wide ones) and dynamic shared memory (at least
+// d2h_smem); float32 ignores them.
 extern "C" int dense_to_hybrid(const void* x, const void* wt, const void* idx,
                                const void* row_nnz, const void* sparse,
                                void* vals, int M, int E, int K, int N,
-                               int bf16_in, int splits, int stages, int smem,
-                               void* stream) {
+                               int bf16_in, int splits, int stages, int wide,
+                               int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16_in) {
     const size_t bytes = (size_t)K * 4;
@@ -910,16 +982,19 @@ extern "C" int dense_to_hybrid(const void* x, const void* wt, const void* idx,
         (const int*)row_nnz, (const uint8_t*)sparse, (float*)vals, E, K);
     return (int)cudaGetLastError();
   }
-  if (splits < 1 || N < 1 || N > 65535 || smem < 0 ||
-      (size_t)smem < d2h_smem(stages, N))
+  if (splits < 1 || N < 1 || N > 65535 || E < 1 || smem < 0 ||
+      (size_t)smem < d2h_smem(stages, N, E, wide))
     return (int)cudaErrorInvalidValue;
-#define D2H_UNION(NST_)                                                   \
-  if (stages == NST_)                                                     \
-    return launch_union<NST_>(x, wt, idx, row_nnz, sparse, vals, M, E, K, \
-                              N, splits, smem, s);
-  D2H_UNION(4)
-  D2H_UNION(5)
-  D2H_UNION(6)
+#define D2H_UNION(NST_, WIDE_)                                          \
+  if (stages == NST_ && (wide != 0) == WIDE_)                           \
+    return launch_union<NST_, WIDE_>(x, wt, idx, row_nnz, sparse, vals, \
+                                     M, E, K, N, splits, smem, s);
+  D2H_UNION(4, false)
+  D2H_UNION(5, false)
+  D2H_UNION(6, false)
+  D2H_UNION(4, true)
+  D2H_UNION(5, true)
+  D2H_UNION(6, true)
 #undef D2H_UNION
   return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,9 @@
 //     depth come from the host plan (kernels/sparse_ffn.py: fused_ffn_plan,
 //     from shapes and the SM count; every cluster resident at once). Up to
 //     K 4096 a rank holds at most 8 stages (4 slices of y); past it up to
-//     16 (6 or 8 slices, narrower row blocks), up to K 8192;
+//     16 (6 or 8 slices, narrower row blocks), up to K 8192; past that up
+//     to 32 (16 slices, 8-row blocks: 64 accumulators a thread), up to K
+//     16384 (llama3-405b's d_model);
 //   * the union, built on the card (the host never reads the pattern):
 //     each (row, tile)'s count read in the same round as its first 8 slot
 //     indices (one 32-byte sector; slot s of tile t is valid iff s <
@@ -68,7 +70,7 @@
 //     then its down stages: one barrier and one wgmma wait a phase) and
 //     refilled as far ahead as it holds, so the W_d rows land while the up
 //     product and the scatter run. Where the ring holds less than a phase
-//     (past K 4096 the rank's 9-16 stages and x's tile leave room for 3-8)
+//     (past K 4096 the rank's 9-32 stages and x's tile leave room for 3-8)
 //     a phase lands in groups of half the ring, the other half in flight;
 //   * y is stored straight from the accumulators: each element has one
 //     writer and a fixed summation order, so a repeated call gives the same
@@ -536,10 +538,10 @@ int resident(int ks, size_t smem, int* out) {
 
 // the (width, slices) pairs built: the accumulators of both products,
 // (slices + 1) x width / 2 floats a thread, stay within 128; 6 and 8
-// slices only past K 4096
+// slices only past K 4096, 16 only past K 8192
 #define FUSED_FFN_CONFIGS(X)                                           \
   X(8, 2) X(8, 4) X(16, 2) X(16, 4) X(32, 2) X(32, 4) X(64, 2) X(8, 6) \
-  X(16, 6) X(32, 6) X(8, 8) X(16, 8)
+  X(16, 6) X(32, 6) X(8, 8) X(16, 8) X(8, 16)
 
 // checks the launch, its shared memory into *smem; 0 or a cudaError_t
 int plan_smem(int M, int K, int N, int T, int C, int width, int ks,
@@ -564,8 +566,8 @@ int plan_smem(int M, int K, int N, int T, int C, int width, int ks,
 // (= W_u transposed), wd (N, K) bf16, all contiguous; x, wu_t and wd
 // 16-byte aligned; y (M, K) float32. Requires K % 8 == 0, N % T == 0,
 // T % C == 0, N < 65536. width (rows a block: 8, 16, 32 or 64), slices
-// (128-column slices of y a rank holds: 2, 4, 6 or 8, at least half the
-// rank's stages; K up to 8192 at ks 8), ks (blocks a cluster, 1..8, at
+// (128-column slices of y a rank holds: 2, 4, 6, 8 or 16, at least half
+// the rank's stages; K up to 16384 at ks 8), ks (blocks a cluster, 1..8, at
 // most K's 64-deep stages), stages (ring depth, 2..8; below a phase, the
 // rank's stages rounded up to even, a phase lands in groups) and split (1: each rank marks only its rows' columns and the
 // ranks OR their bitmaps through DSMEM; 0: each rank marks all the block's)

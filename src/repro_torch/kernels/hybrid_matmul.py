@@ -21,6 +21,14 @@ union, computes x's rows against that union's W rows in chunks of
 cores, which keeps the products exact in f32. Both plans are plain
 functions of Python ints: they never read the pattern.
 
+A block's union maps are N-sized up to N 16384 (``NARROW_MAX_N``): 5.25
+bytes a column, which past N ~19000 leave no room for a ring. Past 16384
+(deepseek-67b's d_ff 22016, llama3-405b's 53248) both plans take the wide
+maps (``wide``): the bitmap and its prefix and the union's columns, at
+most min(N, 128 E) of them, 0.25 bytes a column of N plus 2 a union
+column; the kernel then finds a column's position by a popcount over the
+prefix. Every plan up to N 16384 keeps the narrow maps, as before.
+
 Both cover the ELL side only: slot e of row m is valid when
 ``e < row_nnz[m]`` and ``is_sparse[m]``; a row in the dense backup gives 0
 (K8) or all-zero slots (K9), and ``core/hybrid.py`` adds the backup rows'
@@ -32,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -74,6 +82,7 @@ class D2hPlan:
     max_chunks: int          # chunks of the largest union a block can meet,
     #                          min(N, min(M, D2H_ROWS) x E) columns
     smem: int                # dynamic shared memory of a block (bytes)
+    wide: bool = False       # the wide union maps (``_union_bytes``)
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -95,22 +104,56 @@ class D2hPlan:
                 + [(c,) for c in mine[2 * pairs:]])
 
 
-def _union_bytes(n: int) -> int:
+MAX_N = 65535                  # columns held as u16 union positions
+NARROW_MAX_N = 16384           # the widest N on the N-sized union maps
+
+
+def union_cap(n: int, e: int) -> int:
+    """The most columns a 128-row block's union can hold: min(N, 128 E)."""
+    return min(n, D2H_ROWS * e)
+
+
+def _union_bytes(n: int, e: int = 0) -> int:
     """Shared memory of a 128-row block's union of n columns (``union_bytes``
-    of the kernels): its columns and each column's position (n 16-bit
-    values each), the bitmap and its prefix (an int each per 32 columns),
-    the byte map (32 bytes per 32 columns), the rows' valid slot counts and
-    the union's size."""
+    of the kernels). ``e`` 0, the narrow maps: its columns and each
+    column's position (n 16-bit values each), the bitmap and its prefix
+    (an int each per 32 columns), the byte map (32 bytes per 32 columns),
+    the rows' valid slot counts and the union's size. ``e`` the ELL width,
+    the wide maps: the bitmap and its prefix, the union's columns (u16,
+    ``union_cap`` of them rounded up to even), the rows' counts, the
+    union's size and the warps' totals."""
+    if e:
+        return (8 * tp.cdiv(n, 32) + 4 * tp.cdiv(union_cap(n, e), 2)
+                + 4 * D2H_ROWS + 48)
     return 4 * n + 40 * tp.cdiv(n, 32) + 4 * D2H_ROWS + 16
 
 
-def d2h_smem(n: int, stages: int) -> int:
+def _widest_n(fits) -> int:
+    """The largest N <= MAX_N at which ``fits(n)`` holds (monotone: true up
+    to some N), 0 if none."""
+    lo, hi = 0, MAX_N
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def d2h_smem(n: int, stages: int, e: int = 0) -> int:
     """K9's dynamic shared memory (``d2h_smem`` of the kernel): 1 KB of
     alignment slack, the ring (``stages`` of 128 rows of x and 128 Wt
     rows, 64 of K each, bf16; the staged f32 accumulators alias it) and
-    the union's maps."""
-    tp.check_ints(n, stages)
-    return 1024 + stages * D2H_STAGE_BYTES + _union_bytes(n)
+    the union's maps (``e`` > 0: the wide ones at ELL width e)."""
+    tp.check_ints(n, stages, e)
+    return 1024 + stages * D2H_STAGE_BYTES + _union_bytes(n, e)
+
+
+def _d2h_stages(n: int, e: int) -> List[int]:
+    """The ring depths of D2H_STAGES that fit beside the union maps (``e``
+    as ``d2h_smem``'s)."""
+    return [st for st in D2H_STAGES if d2h_smem(n, st, e) <= tp.SMEM_BYTES]
 
 
 @functools.lru_cache(maxsize=None, typed=True)
@@ -119,23 +162,29 @@ def d2h_plan(m: int, k: int, n: int, e: int, sms: int) -> D2hPlan:
     keep row blocks x S within one block an SM, at most the chunks of the
     largest union a block can meet, min(N, min(M, D2H_ROWS) x E) columns
     (at M 8192, 64 row blocks: S = 2); the deepest ring that fits the shared
-    memory beside the N-sized maps. Never reads the pattern: the union is
-    found on the card. Raises ValueError when no ring fits beside the maps
-    (too large an N). Cached: a training step calls it twice a layer."""
+    memory beside the N-sized maps, past NARROW_MAX_N beside the wide maps
+    (``wide``). Never reads the pattern: the union is found on the card.
+    Raises ValueError when no ring fits beside the maps (too large an N,
+    or N past MAX_N); the message states the widest N at this E.
+    Cached: a training step calls it twice a layer."""
     tp.check_ints(m, k, n, e, sms)
     if min(m, k, n, e, sms) < 1:
         raise ValueError(f"d2h_plan: unsupported M {m}, K {k}, N {n}, E {e}")
     row_blocks = tp.cdiv(m, D2H_ROWS)
     max_chunks = tp.cdiv(min(n, min(m, D2H_ROWS) * e), D2H_COLS)
     splits = max(1, min(max_chunks, sms // row_blocks))
-    fit = [st for st in D2H_STAGES if d2h_smem(n, st) <= tp.SMEM_BYTES]
+    wide = n > NARROW_MAX_N
+    ue = e if wide else 0
+    fit = _d2h_stages(n, ue) if n <= MAX_N else []
     if not fit:
-        raise ValueError(f"d2h_plan: N {n} is too wide: its maps and a ring "
-                         f"of {D2H_STAGES[0]} stages take "
-                         f"{d2h_smem(n, D2H_STAGES[0])} bytes of shared "
-                         f"memory, over {tp.SMEM_BYTES}")
+        raise ValueError(
+            f"d2h_plan: N {n} is too wide: its maps and a ring of "
+            f"{D2H_STAGES[0]} stages take {d2h_smem(n, D2H_STAGES[0], e)} "
+            f"bytes of shared memory, over {tp.SMEM_BYTES}, or N is past "
+            f"{MAX_N} (at E {e}: N up to "
+            f"{_widest_n(lambda nn: bool(_d2h_stages(nn, e)))})")
     return D2hPlan(splits, fit[-1], row_blocks, max_chunks,
-                   d2h_smem(n, fit[-1]))
+                   d2h_smem(n, fit[-1], ue), wide)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +198,7 @@ class H2dPlan:
     row_blocks: int
     k_slices: int            # slices of H2D_KS columns of y
     smem: int                # dynamic shared memory of a block (bytes)
+    wide: bool = False       # the wide union maps (``_union_bytes``)
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -171,15 +221,34 @@ class H2dPlan:
                 for lo in range(0, end, self.cols)]
 
 
-def h2d_smem(n: int, stages: int, cols: int, terms: int) -> int:
+def h2d_smem(n: int, stages: int, cols: int, terms: int, e: int = 0) -> int:
     """K8's dynamic shared memory (``h2d_smem`` of the kernel): 1 KB of
     alignment slack, the ring (``stages`` of 64 gathered W rows, 128 y
     columns each, bf16), the h tile (``terms`` bf16 parts -- 2 for f32
     values, hi and lo -- of 128 rows x ``cols`` positions) and the union's
-    maps."""
-    tp.check_ints(n, stages, cols, terms)
+    maps (``e`` > 0: the wide ones at ELL width e)."""
+    tp.check_ints(n, stages, cols, terms, e)
     return (1024 + stages * H2D_STAGE_BYTES
-            + terms * (cols // H2D_US) * H2D_PANEL_BYTES + _union_bytes(n))
+            + terms * (cols // H2D_US) * H2D_PANEL_BYTES
+            + _union_bytes(n, e))
+
+
+def _h2d_fit(n: int, terms: int, widest: int, e: int
+             ) -> Optional[Tuple[int, int]]:
+    """(tile positions, ring depth) of ``h2d_plan`` beside the union maps
+    (``e`` as ``h2d_smem``'s), or None where no tile of H2D_US positions
+    and ring of H2D_STAGES[0] fit."""
+    def fits(cols, stages):
+        return h2d_smem(n, stages, cols, terms, e) <= tp.SMEM_BYTES
+    cols = min(widest, H2D_RESIDENT)
+    while cols > H2D_US and not fits(cols, H2D_STAGES[0]):
+        cols -= H2D_US
+    if not fits(cols, H2D_STAGES[0]):
+        return None
+    stages = max(st for st in H2D_STAGES if fits(cols, st))
+    while cols + H2D_US <= widest and fits(cols + H2D_US, stages):
+        cols += H2D_US
+    return cols, stages
 
 
 @functools.lru_cache(maxsize=None, typed=True)
@@ -191,10 +260,12 @@ def h2d_plan(m: int, k: int, n: int, e: int, sms: int,
     slices (at M 8192, 64 row blocks: S = 2). The tile first holds
     ``H2D_RESIDENT`` positions (or the widest union a block can meet,
     min(N, min(M, H2D_ROWS) x E), if fewer), the ring then as deep as fits,
-    the tile then as wide as fits. Never reads the pattern: the union is
-    found on the card. Raises ValueError when no tile of 64 positions and
-    ring of 4 fit beside the maps (too large an N). Cached: a training step
-    calls it three times a layer."""
+    the tile then as wide as fits; beside the N-sized maps, past
+    NARROW_MAX_N beside the wide maps (``wide``). Never reads the pattern:
+    the union is found on the card. Raises ValueError when no tile of 64
+    positions and ring of 4 fit beside the maps (too large an N, or N past
+    MAX_N); the message states the widest N at this E. Cached: a training
+    step calls it three times a layer."""
     tp.check_ints(m, k, n, e, sms, terms)
     if min(m, k, n, e, sms) < 1 or terms not in (1, 2):
         raise ValueError(f"h2d_plan: unsupported M {m}, K {k}, N {n}, E {e}, "
@@ -203,22 +274,21 @@ def h2d_plan(m: int, k: int, n: int, e: int, sms: int,
     k_slices = tp.cdiv(k, H2D_KS)
     splits = max(1, min(k_slices, sms // row_blocks))
     widest = tp.cdiv(min(n, min(m, H2D_ROWS) * e), H2D_US) * H2D_US
-
-    def fits(cols, stages):
-        return h2d_smem(n, stages, cols, terms) <= tp.SMEM_BYTES
-    cols = min(widest, H2D_RESIDENT)
-    while cols > H2D_US and not fits(cols, H2D_STAGES[0]):
-        cols -= H2D_US
-    if not fits(cols, H2D_STAGES[0]):
-        raise ValueError(f"h2d_plan: N {n} is too wide: its maps, a tile of "
-                         f"{H2D_US} positions and a ring of {H2D_STAGES[0]} "
-                         f"stages take {h2d_smem(n, H2D_STAGES[0], cols, terms)}"
-                         f" bytes of shared memory, over {tp.SMEM_BYTES}")
-    stages = max(st for st in H2D_STAGES if fits(cols, st))
-    while cols + H2D_US <= widest and fits(cols + H2D_US, stages):
-        cols += H2D_US
+    wide = n > NARROW_MAX_N
+    ue = e if wide else 0
+    fit = _h2d_fit(n, terms, widest, ue) if n <= MAX_N else None
+    if fit is None:
+        least = H2D_US, H2D_STAGES[0], terms
+        raise ValueError(
+            f"h2d_plan: N {n} is too wide: its maps, a tile of {H2D_US} "
+            f"positions and a ring of {H2D_STAGES[0]} stages take "
+            f"{h2d_smem(n, least[1], least[0], terms, e)} bytes of shared "
+            f"memory, over {tp.SMEM_BYTES}, or N is past {MAX_N} (at E {e},"
+            f" terms {terms}: N up to "
+            f"{_widest_n(lambda nn: h2d_smem(nn, least[1], least[0], terms, e) <= tp.SMEM_BYTES)})")
+    cols, stages = fit
     return H2dPlan(splits, stages, cols, row_blocks, k_slices,
-                   h2d_smem(n, stages, cols, terms))
+                   h2d_smem(n, stages, cols, terms, ue), wide)
 
 
 def _valid(ell_idx, row_nnz, is_sparse):
@@ -288,13 +358,13 @@ def hybrid_to_dense_cuda(ell_vals, ell_idx, row_nnz, is_sparse, w):
     if _H2D is None:
         P, I = build.P, build.I
         _H2D = build.bind("hybrid_matmul", "hybrid_to_dense",
-                          [P] * 6 + [I] * 10 + [P])
+                          [P] * 6 + [I] * 11 + [P])
     with torch.cuda.device(w.device):
         err = _H2D(vals.data_ptr(), ell_idx.data_ptr(), row_nnz.data_ptr(),
                    is_sparse.data_ptr(), w.data_ptr(), y.data_ptr(), m, e, k,
                    n, int(bf16), int(vals_bf16),
-                   *((plan.splits, plan.stages, plan.cols, plan.smem) if bf16
-                     else (0, 0, 0, 0)),
+                   *((plan.splits, plan.stages, plan.cols, int(plan.wide),
+                      plan.smem) if bf16 else (0, 0, 0, 0, 0)),
                    build.stream_ptr(w))
     build.check(err, "hybrid_to_dense")
     build.count_launch("hybrid_to_dense")
@@ -323,13 +393,13 @@ def dense_to_hybrid_cuda(x, wt, ell_idx, row_nnz, is_sparse):
     if _D2H is None:
         P, I = build.P, build.I
         _D2H = build.bind("hybrid_matmul", "dense_to_hybrid",
-                          [P, P, P, P, P, P] + [I] * 8 + [P])
+                          [P, P, P, P, P, P] + [I] * 9 + [P])
     with torch.cuda.device(x.device):
         err = _D2H(x.data_ptr(), wt.data_ptr(), ell_idx.data_ptr(),
                    row_nnz.data_ptr(), is_sparse.data_ptr(), vals.data_ptr(),
                    m, e, k, n, int(bf16),
-                   *((plan.splits, plan.stages, plan.smem) if bf16
-                     else (0, 0, 0)),
+                   *((plan.splits, plan.stages, int(plan.wide), plan.smem)
+                     if bf16 else (0, 0, 0, 0)),
                    build.stream_ptr(x))
     build.check(err, "dense_to_hybrid")
     build.count_launch("dense_to_hybrid")

@@ -15,9 +15,10 @@ shared memory, rounds h = h_u * g once to bf16 and multiplies it by the
 union's W_d rows into each rank's share of y's columns (wgmma again, f32
 accumulators stored as y). ``fused_ffn_plan`` is its launch plan, a plain
 function of shapes that reuses K1's residency model; from 32 rows a block
-it has the ranks split the union's rows (``split``). It takes K up to 8192
-(``FUSED_FFN_MAX_K``): past 4096 a rank's share of K outgrows the ring,
-which then lands each phase in groups.
+it has the ranks split the union's rows (``split``). It takes K up to
+16384 (``FUSED_FFN_MAX_K``, llama3-405b's d_model): past 4096 a rank's
+share of K outgrows the ring, which then lands each phase in groups; past
+8192 a rank holds up to 16 slices of y, in 8-row blocks.
 
 K5, the gated FFN end to end with (row block x tile) skipping:
 ``tile_skip_ffn_cuda`` launches ``csrc/tile_skip_ffn.cu``, the Hopper
@@ -85,6 +86,7 @@ FUSED_FFN_WIDTHS = (8, 16, 32, 64)   # rows a block (wgmma N)
 FUSED_FFN_SLICES = (2, 4)            # 128-column slices of y a rank holds
 FUSED_FFN_WIDE_SLICES = (6, 8)       # the same past K 4096 (the ring then
 #                                      holds less than a rank's stages)
+FUSED_FFN_WIDEST_SLICES = (16,)      # the same past K 8192 (8-row blocks)
 FUSED_FFN_UC = 128                   # union positions a chunk
 FUSED_FFN_UNIT = 128 * 128           # a ring stage: 128 rows x 64 bf16
 FUSED_FFN_STAGES = (3, 8)            # ring depth, least and most
@@ -92,7 +94,7 @@ FUSED_FFN_ACC = 128                  # accumulator floats a thread, at most
 FUSED_FFN_MAX_N = 65535              # columns held as u16 positions
 FUSED_FFN_SPLIT_WIDTH = 32           # rows a block from which the ranks
 #                                      split the union's rows
-FUSED_FFN_MAX_K = tp.MAX_KS * 2 * FUSED_FFN_WIDE_SLICES[-1] * tp.GATE_BK
+FUSED_FFN_MAX_K = tp.MAX_KS * 2 * FUSED_FFN_WIDEST_SLICES[-1] * tp.GATE_BK
 _FUSED_FFN_TYPES = (torch.bfloat16, torch.bfloat16, torch.int32, torch.int32,
                     torch.bfloat16, torch.bfloat16)
 
@@ -195,14 +197,19 @@ def fused_ffn_plan(m: int, k: int, n: int, tile: int, c: int, sms: int
     up to 4096 (8 ranks of 8 stages). Only where it finds nothing does a
     rank take FUSED_FFN_WIDE_SLICES (up to 16 stages) with a ring shorter
     than a phase, which then lands in groups (``up_groups``,
-    ``down_groups``): K up to FUSED_FFN_MAX_K = 8192. Cached: the serving
-    path calls it every launch with a few shapes."""
+    ``down_groups``): K up to 8192; and only where that finds nothing
+    FUSED_FFN_WIDEST_SLICES (up to 32 stages; the accumulators then hold 8
+    rows a block): K up to FUSED_FFN_MAX_K = 16384, the byte map of N and
+    the u16 columns within the shared memory beside them (N up to 53248 at
+    K 16384). Cached: the serving path calls it every launch with a few
+    shapes."""
     tp.check_ints(m, k, n, tile, c, sms)
     _twell_check("twell_fused_ffn", m, k, n, tile, c)
     if sms < 1:
         raise ValueError(f"fused_ffn_plan: {sms} SMs")
     plan = _fused_ffn_search(m, k, n, sms, FUSED_FFN_SLICES, True) or \
-        _fused_ffn_search(m, k, n, sms, FUSED_FFN_WIDE_SLICES, False)
+        _fused_ffn_search(m, k, n, sms, FUSED_FFN_WIDE_SLICES, False) or \
+        _fused_ffn_search(m, k, n, sms, FUSED_FFN_WIDEST_SLICES, False)
     if plan is None:
         raise ValueError(f"fused_ffn_plan: M {m}, K {k}, N {n}, tile {tile} "
                          "does not fit a block's registers and shared memory"

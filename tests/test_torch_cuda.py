@@ -4,7 +4,8 @@ K1 at its launch plan's row-block boundaries and at olmo-1b's N 8192, K1's
 plan against the runtime's resident clusters and its refusal of pointers
 TMA cannot take, K2 at its plan's boundaries, on an all-empty gate and on
 unions wider than one chunk, as one launch, with its plan's clusters
-resident, the non-gated down projection past one column slice, at
+resident, past K 4096 and past K 8192 (llama3-405b's K 16384 at its N
+53248), the non-gated down projection past one column slice, at
 every row-block width of its plan, on empty rows and row blocks and on
 unions wider than one chunk, as one launch, with its plan's clusters
 resident, head dims 16..128, GQA groups up to 16, block sizes up to
@@ -18,7 +19,8 @@ launch with its plan's clusters resident, and the hybrid products over both
 sides of the format, bf16 and float32 (K8 and K9 at the train phase's
 batch with 216 columns alive, on a pattern scattered over all N, on a row
 block with no ELL row, each as one launch; K8 with f32 values on a bf16 W
-and, on an f32 W, in the per-row kernel's f32 FMA order), and one
+and, on an f32 W, in the per-row kernel's f32 FMA order; past N 16384 on
+the wide union maps, at deepseek-67b's and llama3-405b's d_ff), and one
 training step of a 4-layer paper-0.5b under ``remat="full"`` against
 ``"none"``: the same gradients bit for bit, a lower peak. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
@@ -213,6 +215,76 @@ def test_fused_ffn_wide_k_matches_plain(card, shape):
     assert smem == plan.smem
     if tp.one_wave(plan.row_blocks, plan.ks, 1, sms):
         assert plan.row_blocks <= held
+
+
+def _fused_case_on_card(m, k, n, keep, seed, dev, scale=0.08):
+    """``_fused_case`` (T 256, C 8) with the operands drawn on the card from
+    a seeded generator (llama3-405b's W_u and W_d are 872 M entries each),
+    the weights at std ``scale``."""
+    from repro_torch.core import twell
+    from repro_torch.kernels.twell_pack import twell_gate_matmul_plain
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).bfloat16()
+    x = r(m, k, scale=0.5)
+    col = torch.rand((n,), generator=gen, device=dev) < keep
+    wg = (r(k, n, scale=scale) * col[None]).bfloat16()
+    wu_t, wd = r(n, k, scale=scale), r(n, k, scale=scale)
+    v, i, z = twell_gate_matmul_plain(x, wg, 256, 8, "relu")
+    del wg
+    tw = twell.TwellActs(v, i, torch.clamp(z, max=32), (z > 32).any(), 256,
+                         8, n)
+    return x, tw, wu_t, wd
+
+
+@pytest.mark.parametrize("shape", [  # (M, K, N) past K 8192: llama3-405b
+    (4, 16384, 53248), (64, 16384, 53248), (256, 16384, 53248),
+    (4, 12288, 53248), (64, 12288, 53248), (256, 12288, 53248)], ids=str)
+def test_fused_ffn_widest_k_matches_plain(card, shape):
+    """K2 past K 8192 (a rank of up to 32 K stages, 16 slices of y in
+    8-row blocks, the ring landing each phase in groups) at llama3-405b's
+    FFN with 2% of the gate columns alive, the same bits on a second call.
+    With the weights' std 0.08 scaled by sqrt(2048 / K) (h_u and h of the
+    magnitudes of the K-2048 cases): within bf16 tolerance of the plain
+    version. At std 0.08 itself h is ~2.8x larger (~25), and its one bf16
+    rounding (ulp 0.125 there) flips where the kernel's and cuBLAS's f32
+    sums of h_u differ in the last bits: y moves by up to ~0.13 (measured
+    on the H100), past 2e-2 on the elements of y near zero. There the
+    kernel and the plain version are each held within the bound of that
+    rounding (``_h_rounding_bound``) of y with h unrounded."""
+    from repro_torch.kernels import sparse_ffn as sf
+    m, k, n = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = sf.fused_ffn_plan(m, k, n, 256, 8, sms)
+    assert plan.slices in sf.FUSED_FFN_WIDEST_SLICES and plan.width == 8
+    args = _fused_case_on_card(m, k, n, 0.02, 13, card,
+                               scale=0.08 * (2048 / k) ** 0.5)
+    y = sf.twell_fused_ffn_cuda(*args)
+    torch.testing.assert_close(y, sf.twell_fused_ffn_plain(*args).float(),
+                               **TOL)
+    assert torch.equal(y, sf.twell_fused_ffn_cuda(*args))
+    del args, y
+    args = _fused_case_on_card(m, k, n, 0.02, 13, card)
+    exact, bound = _h_rounding_bound(*args)
+    for got in (sf.twell_fused_ffn_cuda(*args),
+                sf.twell_fused_ffn_plain(*args).float()):
+        assert bool(((got - exact).abs() <= bound).all()), \
+            float(((got - exact).abs() - bound).max())
+
+
+def _h_rounding_bound(x, tw, wu_t, wd):
+    """(y with h = h_u * g unrounded, in f32; per element of y the most
+    that rounding every h entry once to bf16 moves it, sum_j ulp(h_j) / 2
+    |W_d[j, k]|, plus 1e-5 sum_j |h_j W_d[j, k]| for the f32 sums' own
+    order)."""
+    from repro_torch.core import twell
+    h = (x.float() @ wu_t.float().t()) * twell.unpack(tw).float()
+    half_ulp = torch.where(h != 0, torch.exp2(torch.floor(torch.log2(
+        h.abs().clamp(min=1e-30))) - 8), torch.zeros((), device=h.device))
+    wdf = wd.float()
+    return h @ wdf, half_ulp @ wdf.abs() + 1e-5 * (h.abs() @ wdf.abs())
 
 
 def test_fused_ffn_is_one_launch(card):
@@ -479,6 +551,8 @@ ATTN_SHAPES = [  # (B, Hkv, G, hd, bs, width)
     (5, 3, 3, 48, 2, 11),
     (3, 3, 1, 96, 16, 10),        # hd 96 (two panels, the second half zero)
     (3, 2, 4, 96, 8, 9),          # hd 96, GQA
+    (2, 8, 8, 128, 16, 9),        # deepseek-67b's GQA: 8 KV heads, G 8
+    (2, 8, 16, 128, 16, 9),       # llama3-405b's: 8 KV heads, G 16
     (4, 2, 2, 64, 16, 128),       # 2048 keys: K3 at CL 8, 4 tiles a rank
     (2, 2, 2, 64, 16, 1),         # a one-page table
 ]
@@ -606,6 +680,8 @@ FLASH_SHAPES = [  # (B, S, H, hd)
     (1, 200, 2, 40),          # head dim padded to 64
     (2, 1024, 4, 64),
     (2, 1024, 4, 128),        # olmo-1b's training shape: hd 128, S 1024
+    (8, 1024, 32, 96),        # phi3-mini's training shape: hd 96 padded
+    (1, 200, 2, 96),          # hd 96, S ragged
 ]
 
 
@@ -669,6 +745,8 @@ CHUNK_SPLIT_CASES = [  # (Hkv, G, hd, bs, width, S, seq_lens, num_new)
     (2, 8, 64, 16, 64, 64, [900, 0, 0], [64, 64, 0]),
     # olmo-1b's head dim, 4 splits
     (4, 1, 128, 16, 64, 64, [900, 100, 0], [64, 40, 0]),
+    # phi3-mini's head dim 96 (padded to 128), 4 splits
+    (4, 1, 96, 16, 64, 64, [900, 100, 0], [64, 40, 0]),
     # 8-key pages, hd 32 padded to 64, cluster capped at 8 (2400 keys)
     (4, 1, 32, 8, 300, 16, [2380, 7, 0], [16, 3, 0]),
 ]
@@ -745,6 +823,11 @@ HYBRID_SHAPES = [  # (M, N, K, E, dense rows[, kind])
     (8192, 5632, 2048, 128, 8, "alive216"),
     (8192, 5632, 2048, 128, 8, "scattered"),   # K9's worst case
     (300, 512, 136, 32, 128, "backup_block"),  # a row block all backup
+    # past N 16384, the wide union maps: deepseek-67b's and llama3-405b's
+    # d_ff, 216 columns alive, and a random pattern over all of N
+    (2048, 22016, 1024, 128, 8, "alive216"),
+    (2048, 53248, 1024, 128, 8, "alive216"),
+    (300, 53248, 136, 32, 10),
 ]
 
 

@@ -17,9 +17,15 @@ every (row, position) entry of h at most once, on gates packed by K1's
 plain version. Plans up to K 4096 are pinned as they were before the wide
 plans; past it (llama4-scout's K 5120, mixtral-8x22b's 6144, up to 8192) a
 rank holds up to 16 stages with a ring shorter than a phase, and the ring's
-groups are replayed too. The wrapper refuses bad shapes, types and alignment
-before anything is built.
+groups are replayed too. Every plan up to K 8192 is pinned (a digest of a
+grid of 1320) as it was before the widest slices: past K 8192
+(llama3-405b's K 16384 at its N 53248) a rank holds up to 32 stages, 16
+slices of y in 8-row blocks. The wrapper refuses bad shapes, types and
+alignment before anything is built.
 """
+import dataclasses
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -141,19 +147,50 @@ def test_fused_ffn_plan_refuses(bad):
 def test_fused_ffn_plan_narrows_rows_for_a_wide_k():
     """A K whose share a rank cannot hold at 64 rows (more than 4 stages a
     rank) takes narrower row blocks; one past 8 stages a rank takes the
-    wide slices, narrower still; one past 16 stages a rank (K above
-    FUSED_FFN_MAX_K) is refused."""
+    wide slices, narrower still; one past 16 stages a rank the widest, at
+    8 rows a block; one past 32 stages a rank (K above FUSED_FFN_MAX_K) is
+    refused, and so is an N whose maps leave no ring at K 16384."""
     plan = sf.fused_ffn_plan(256, 4096, 5632, 256, 8, SMS)
     assert plan.width < 64 and plan.ks == tp.MAX_KS
     assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
     plan = sf.fused_ffn_plan(256, 64 * 8 * 9, 5632, 256, 8, SMS)
     assert plan.width < 64 and plan.slices in sf.FUSED_FFN_WIDE_SLICES
     assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
-    assert sf.FUSED_FFN_MAX_K == 8192
+    plan = sf.fused_ffn_plan(256, 64 * 8 * 17, 5632, 256, 8, SMS)
+    assert plan.width == 8 and plan.slices in sf.FUSED_FFN_WIDEST_SLICES
+    assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
+    assert sf.FUSED_FFN_MAX_K == 16384
     sf.fused_ffn_plan(4, sf.FUSED_FFN_MAX_K, 5632, 256, 8, SMS)
-    for k in (sf.FUSED_FFN_MAX_K + 8, 64 * 8 * 17):
-        with pytest.raises(ValueError, match="K up to 8192"):
-            sf.fused_ffn_plan(4, k, 5632, 256, 8, SMS)
+    for k, n in ((sf.FUSED_FFN_MAX_K + 8, 5632), (64 * 8 * 33, 5632),
+                 (sf.FUSED_FFN_MAX_K, 53248 + 256)):
+        with pytest.raises(ValueError, match="K up to 16384"):
+            sf.fused_ffn_plan(4, k, n, 256, 8, SMS)
+
+
+def _k2_grid():
+    """(M, K, N, T, C, SMs) of 1320 plans up to K 8192: decode to a 4096-row
+    step, K 64-8192, N 256-22016, on 132 and 5 SMs."""
+    for m in (1, 4, 8, 9, 20, 33, 64, 65, 256, 300, 4096):
+        for k in (64, 200, 1024, 2048, 3072, 4096, 4608, 5120, 6144, 8192):
+            for n in (256, 5632, 8192, 14336, 16384, 22016):
+                for sms in (SMS, 5):
+                    yield m, k, n, 256, 8, sms
+
+
+# the digest of _k2_grid's plans (every field) before the widest slices
+K8192_DIGEST = "09ccc5bdf2fc61a9"
+
+
+def test_fused_ffn_plan_up_to_k8192_is_unchanged():
+    """Every plan up to K 8192, field for field, as before K2 took K past
+    8192 (paper-0.5b's, olmo-1b's, phi3-mini's, deepseek-67b's and the MoE
+    experts' K2 times stand on them)."""
+    rows = [(s, dataclasses.astuple(sf.fused_ffn_plan(*s)))
+            for s in _k2_grid()]
+    assert len(rows) == 1320
+    assert all(p[5] not in sf.FUSED_FFN_WIDEST_SLICES for _, p in rows)
+    assert hashlib.sha256(repr(rows).encode()).hexdigest()[:16] == \
+        K8192_DIGEST
 
 
 # (M, K, N, T, C) -> (width, ks, slices, stages, split): the plans up to K
@@ -233,6 +270,44 @@ def test_fused_ffn_wide_plan_fits_and_groups_the_ring(shape):
                    for a, b in downs)
 
 
+# past K 8192: llama3-405b's FFN (K 16384, N 53248) at decode, the spec
+# verify, a 64-row chunk and the prefill step; K 12288; K 16384 at a
+# narrow N; the first K past 8192
+WIDEST = [(m, 16384, 53248, 256, 8) for m in (4, 20, 64, 256)] + \
+    [(m, 12288, 53248, 256, 8) for m in (4, 64, 256)] + \
+    [(4, 16384, 5632, 256, 8), (9, 8200, 512, 64, 4)]
+
+
+@pytest.mark.parametrize("shape", WIDEST, ids=str)
+def test_fused_ffn_widest_plan_fits_and_groups_the_ring(shape):
+    """A rank past 16 stages holds FUSED_FFN_WIDEST_SLICES at 8 rows a
+    block within the register rule, a ring of at least 3 stages and the
+    byte map of N within a block's shared memory; its groups cover its up
+    stages and its slices' down stages each once, in order, within half
+    the ring."""
+    m, k, n, t, c = shape
+    plan = sf.fused_ffn_plan(m, k, n, t, c, SMS)
+    assert plan.k_per_rank > 16 and plan.width == 8
+    assert plan.slices in sf.FUSED_FFN_WIDEST_SLICES
+    assert 2 * plan.slices >= plan.k_per_rank
+    assert (plan.slices + 1) * plan.width // 2 <= sf.FUSED_FFN_ACC
+    assert plan.smem == sf.fused_ffn_smem(plan.width, plan.k_per_rank,
+                                          plan.stages, n) <= tp.SMEM_BYTES
+    assert sf.fused_ffn_staging(n) <= plan.stages * sf.FUSED_FFN_UNIT
+    assert sf.FUSED_FFN_STAGES[0] <= plan.stages <= sf.FUSED_FFN_STAGES[1]
+    assert plan.row_blocks == tp.cdiv(m, 8) and not plan.whole
+    assert _covered_once(plan.k_splits(), plan.k_stages)
+    for lo, hi in plan.k_splits():
+        ns = hi - lo
+        ups = plan.up_groups(ns)
+        assert _covered_once(ups, ns)
+        assert all(0 < b - a <= plan.stages // 2 for a, b in ups)
+        downs = plan.down_groups(tp.cdiv(ns, 2))
+        assert _covered_once(downs, tp.cdiv(ns, 2))
+        assert all(0 < 2 * (b - a) <= plan.stages // 2 or b - a == 1
+                   for a, b in downs)
+
+
 def ring_replay(plan, ns, chunks):
     """The cp.async ring of one rank over ``chunks`` union chunks as the
     kernel runs it: before each group ``land`` refills every slot whose
@@ -273,7 +348,7 @@ def ring_replay(plan, ns, chunks):
 
 @pytest.mark.parametrize("shape", [(4, 2048, 5632, 256, 8),
                                    (64, 4096, 5632, 256, 8)] + WIDE[:4] +
-                         WIDE[-4:], ids=str)
+                         WIDE[-4:] + WIDEST[::2], ids=str)
 def test_fused_ffn_ring_schedule_reads_every_stage_once(shape):
     """Whole phases (up to K 4096) and grouped ones (past it): every ring
     stage of every chunk is read once, in order, after it landed and
@@ -386,6 +461,9 @@ CASES = {
     # 10 and 12 stages, the ring in groups) at a narrow N
     "k5120": (6, 5120, 512, 128, 4, 0.3, torch.bfloat16, None),
     "k6144": (33, 6144, 256, 64, 2, 0.3, torch.bfloat16, None),
+    # past K 8192: llama3-405b's d_model (a rank of 32 stages, 16 slices
+    # of y, 8-row blocks) at a narrow N
+    "k16384": (10, 16384, 256, 64, 2, 0.3, torch.bfloat16, None),
 }
 
 
@@ -463,10 +541,13 @@ def test_replay_cases_reach_their_corners():
     assert block_union("all_empty") == 0
     assert sf.fused_ffn_plan(70, 192, 768, 256, 2, SMS).row_blocks == 2
     assert 0 < block_union("verify") <= UC
-    for name in ("k5120", "k6144"):
+    for name in ("k5120", "k6144", "k16384"):
         m, k, n, t, c = CASES[name][:5]
         assert not sf.fused_ffn_plan(m, k, n, t, c, SMS).whole
     assert block_union("k6144", 1) > 0
+    plan = sf.fused_ffn_plan(*CASES["k16384"][:5], SMS)
+    assert plan.slices == 16 and plan.row_blocks == 2
+    assert block_union("k16384", 1) > 0
 
 
 def test_replay_counts_a_repeated_column():

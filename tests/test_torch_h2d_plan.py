@@ -10,9 +10,14 @@ scattered by position (f32 values as bf16 hi + lo, cast by torch), the
 K slices dealt over the splits, the union's tile chunks and their 64-deep
 stages of gathered W rows -- and held against the plain version at 1e-4
 (the tolerance of the card test), with every y element written exactly
-once and every tile entry at most once on ``pack``'s output. The wrapper
+once and every tile entry at most once on ``pack``'s output. Every plan
+up to N 16384 is pinned (a digest of a grid of 420) as it was before the
+wide union maps; past it (deepseek-67b's d_ff 22016, llama3-405b's 53248)
+the plan takes them, and the schedule is replayed there too. The wrapper
 refuses what the kernel does not take before anything is built.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -115,10 +120,77 @@ def test_h2d_plan_blocks_fill_the_sms_or_the_slices(m):
         plan.blocks + plan.row_blocks > SMS
 
 
-@pytest.mark.parametrize("n", [30000, 65536])
-def test_h2d_plan_refuses_too_wide_n(n):
-    with pytest.raises(ValueError, match="too wide"):
-        hm.h2d_plan(8192, 2048, n, 128, SMS)
+@pytest.mark.parametrize("n,e,widest", [(65536, 128, 65535),
+                                        (60000, 1024, 58912)])
+def test_h2d_plan_refuses_too_wide_n(n, e, widest):
+    """Past u16 positions, or where even the wide maps leave no tile of 64
+    positions and ring of 4 (f32 values): refused, naming the widest N."""
+    with pytest.raises(ValueError, match=f"too wide.*N up to {widest}"):
+        hm.h2d_plan(8192, 2048, n, e, SMS, 2)
+    hm.h2d_plan(8192, 2048, widest, e, SMS, 2)
+
+
+def _hybrid_grid():
+    """(M, K, N, E, SMs) of 210 shapes up to N 16384, each at terms 1 and
+    2."""
+    for m in (1, 64, 300, 2048, 8192):
+        for n in (64, 512, 5632, 8192, 11008, 14336, 16384):
+            for e in (8, 128, 1024):
+                for sms in (SMS, 3):
+                    yield m, 2048, n, e, sms
+
+
+# the digest of _hybrid_grid's plans (their fields before ``wide``) before
+# the wide union maps
+N16384_DIGEST = "d9b488b3c48eb1e9"
+
+
+def test_h2d_plan_up_to_n16384_is_unchanged():
+    """Every plan up to N 16384, field for field, on the narrow maps, as
+    before the wide maps (paper-0.5b's, olmo-1b's and phi3-mini's K8 times
+    stand on them)."""
+    fields = ("splits", "stages", "cols", "row_blocks", "k_slices", "smem")
+    rows, wide = [], []
+    for shape in _hybrid_grid():
+        for terms in (1, 2):
+            plan = hm.h2d_plan(*shape, terms)
+            rows.append((shape, terms,
+                         tuple(getattr(plan, f) for f in fields)))
+            wide.append(plan.wide)
+    assert len(rows) == 420 and not any(wide)
+    assert hashlib.sha256(repr(rows).encode()).hexdigest()[:16] == \
+        N16384_DIGEST
+
+
+# deepseek-67b's (K 8192, N 22016) and llama3-405b's (K 16384, N 53248)
+# FFN at the train phase's M and E, the first N past 16384, a narrow E
+WIDE = [(8192, 8192, 22016, 128), (8192, 16384, 53248, 128),
+        (8192, 2048, 16416, 128), (300, 64, 53248, 16)]
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("shape", WIDE, ids=str)
+def test_h2d_wide_plan_fits_shared_memory(shape, terms):
+    """Past N 16384 the wide maps: the ring, the tile's parts, the bitmap
+    and its prefix and the union's columns within a block's 227 KB; the
+    tile as the narrow rule sets it (the resident union first, the ring,
+    then the tile); at the train shape 64 row blocks of two splits and the
+    train phase's ~216-column union in at most two chunks."""
+    m, k, n, e = shape
+    plan = hm.h2d_plan(m, k, n, e, SMS, terms)
+    assert plan.wide and plan.stages in hm.H2D_STAGES
+    assert plan.smem == hm.h2d_smem(n, plan.stages, plan.cols, terms, e) \
+        <= tp.SMEM_BYTES
+    widest = tp.cdiv(min(n, min(m, ROWS) * e), US) * US
+    assert plan.cols % US == 0 and US <= plan.cols <= widest
+    deeper = [st for st in hm.H2D_STAGES if st > plan.stages]
+    assert all(hm.h2d_smem(n, st, plan.cols, terms, e) > tp.SMEM_BYTES
+               for st in deeper)
+    assert plan.cols == widest or hm.h2d_smem(
+        n, plan.stages, plan.cols + US, terms, e) > tp.SMEM_BYTES
+    if m == 8192:
+        assert (plan.row_blocks, plan.splits) == (64, 2)
+        assert len(plan.chunks(216)) <= 2
 
 
 @pytest.mark.parametrize("shape", [(0, 2048, 5632, 128, SMS, 1),
@@ -229,6 +301,10 @@ CASES = {
     "empty_union": (70, 256, 72, 16, 0, "empty"),
     "backup_block": (300, 512, 136, 32, 128, "backup_block"),
     "alive216": (256, 5632, 264, 128, 2, "alive216"),
+    # past N 16384 (the wide maps): a random pattern, and the train
+    # phase's at deepseek-67b's N
+    "wide_n": (150, 22016, 72, 16, 4, "random"),
+    "alive216_wide": (256, 22016, 136, 128, 2, "alive216"),
 }
 
 
@@ -323,6 +399,11 @@ def test_replay_cases_reach_their_corners():
     assert 150 <= union_of("alive216") <= 216
     assert hm.h2d_plan(5, 2056, 128, 8, SMS).k_slices == 17
     assert hm.h2d_plan(300, 136, 512, 32, 3).splits == 1
+    for name in ("wide_n", "alive216_wide"):
+        m, n, k, e = CASES[name][:4]
+        plan = hm.h2d_plan(m, k, n, e, SMS)
+        assert plan.wide and union_of(name) <= hm.union_cap(n, e)
+    assert 150 <= union_of("alive216_wide") <= 216
 
 
 def test_replay_counts_a_repeated_column():

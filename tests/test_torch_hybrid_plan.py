@@ -9,9 +9,15 @@ slots' columns, its bitmap and prefix popcount, the union's chunks dealt
 over the splits in passes of one or two, each chunk's product in 64-deep
 stages and the pick by position, split 0 writing the zeros -- and held
 against the plain version at 1e-5 (the same f32 products summed in
-another order), with every slot written exactly once. The wrapper refuses
-what the kernel does not take before anything is built.
+another order), with every slot written exactly once. Every plan up to N
+16384 is pinned (a digest of a grid of 210) as it was before the wide
+union maps; past it (deepseek-67b's d_ff 22016, llama3-405b's 53248) the
+plan takes them, and their columns and popcount positions are replayed.
+The wrapper refuses what the kernel does not take before anything is
+built.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -112,10 +118,71 @@ def test_d2h_passes_pair_chunks_where_the_ring_holds_three(stages, paired):
     assert plan.passes(0, UN) == [(0,)] and plan.passes(1, UN) == []
 
 
-@pytest.mark.parametrize("n", [20000, 65536])
-def test_d2h_plan_refuses_too_wide_n(n):
-    with pytest.raises(ValueError, match="too wide"):
-        hm.d2h_plan(8192, 2048, n, 128, SMS)
+@pytest.mark.parametrize("n,e,widest", [(65536, 128, 65535),
+                                        (60000, 1024, 44352)])
+def test_d2h_plan_refuses_too_wide_n(n, e, widest):
+    """Past u16 positions, or where even the wide maps (the union's columns
+    min(N, 128 E)) leave no ring: refused, naming the widest N at E."""
+    with pytest.raises(ValueError, match=f"too wide.*N up to {widest}"):
+        hm.d2h_plan(8192, 2048, n, e, SMS)
+    hm.d2h_plan(8192, 2048, widest, e, SMS)
+
+
+def _hybrid_grid():
+    """(M, K, N, E, SMs) of 210 plans up to N 16384."""
+    for m in (1, 64, 300, 2048, 8192):
+        for n in (64, 512, 5632, 8192, 11008, 14336, 16384):
+            for e in (8, 128, 1024):
+                for sms in (SMS, 3):
+                    yield m, 2048, n, e, sms
+
+
+# the digest of _hybrid_grid's plans (their fields before ``wide``) before
+# the wide union maps
+N16384_DIGEST = "e2badd4893e19785"
+
+
+def test_d2h_plan_up_to_n16384_is_unchanged():
+    """Every plan up to N 16384, field for field, on the narrow maps, as
+    before the wide maps (paper-0.5b's, olmo-1b's and phi3-mini's K9 times
+    stand on them)."""
+    fields = ("splits", "stages", "row_blocks", "max_chunks", "smem")
+    rows, wide = [], []
+    for shape in _hybrid_grid():
+        plan = hm.d2h_plan(*shape)
+        rows.append((shape, tuple(getattr(plan, f) for f in fields)))
+        wide.append(plan.wide)
+    assert len(rows) == 210 and not any(wide)
+    assert hashlib.sha256(repr(rows).encode()).hexdigest()[:16] == \
+        N16384_DIGEST
+
+
+# the dense configs' FFN widths past N 16384 at the train phase's M and E
+# (both orientations read a (d_ff, d_model) matrix by rows): deepseek-67b
+# (K 8192, N 22016) and llama3-405b (K 16384, N 53248); the first N past
+# 16384; a narrow E
+WIDE = [(8192, 8192, 22016, 128), (8192, 16384, 53248, 128),
+        (8192, 2048, 16416, 128), (300, 64, 53248, 16)]
+
+
+@pytest.mark.parametrize("shape", WIDE, ids=str)
+def test_d2h_wide_plan_fits_shared_memory(shape):
+    """Past N 16384 the wide maps: the ring, the bitmap and its prefix and
+    the union's columns (at most min(N, 128 E)) within a block's 227 KB,
+    the deepest ring that fits, the staged accumulators within the ring;
+    at the train shape 64 row blocks of two splits."""
+    m, k, n, e = shape
+    plan = hm.d2h_plan(m, k, n, e, SMS)
+    assert plan.wide and plan.stages in hm.D2H_STAGES
+    assert plan.smem == hm.d2h_smem(n, plan.stages, e) <= tp.SMEM_BYTES
+    assert hm.d2h_smem(n, plan.stages) > tp.SMEM_BYTES or n < 19000
+    deeper = [st for st in hm.D2H_STAGES if st > plan.stages]
+    assert all(hm.d2h_smem(n, st, e) > tp.SMEM_BYTES for st in deeper)
+    assert hm.D2H_ROWS * (UN + 8) * 4 + 4 * 1024 <= \
+        plan.stages * (hm.D2H_ROWS + UN) * 128
+    assert hm.union_cap(n, e) == min(n, hm.D2H_ROWS * e)
+    if m == 8192:
+        assert (plan.row_blocks, plan.splits) == (64, 2)
 
 
 def test_d2h_plan_refuses_empty_shapes():
@@ -150,6 +217,34 @@ def _union(idx, nv, n):
 def _position(col, words, prefix):
     w, b = col >> 5, col & 31
     return prefix[w] + bin(words[w] & ((1 << b) - 1)).count("1")
+
+
+def wide_maps(idx, nv, n, e):
+    """One row block's wide maps as the kernel builds them: each valid
+    slot's column ORed into its bitmap word (no byte map), the words'
+    prefix, the union's columns into a table of ``union_cap(n, e)``
+    entries. Returns (U, the table, the words, the prefix); asserts the
+    table holds the union and each column is written once."""
+    words = [0] * tp.cdiv(n, 32)
+    for r, cnt in enumerate(nv):
+        for c in map(int, idx[r, :cnt]):
+            if 0 <= c < n:
+                words[c >> 5] |= 1 << (c & 31)
+    prefix, run = [], 0
+    for wd in words:
+        prefix.append(run)
+        run += bin(wd).count("1")
+    cap = hm.union_cap(n, e)
+    assert run <= cap, "the union outgrows the wide column table"
+    table = [-1] * cap
+    for w, wd in enumerate(words):
+        p = prefix[w]
+        for b in range(32):
+            if wd >> b & 1:
+                assert table[p] == -1
+                table[p] = 32 * w + b
+                p += 1
+    return run, table, words, prefix
 
 
 def d2h_replay(x, wt, idx, row_nnz, sparse, plan):
@@ -224,7 +319,8 @@ def _case(name):
                   "union_all_n": (128, 64, 256, 32),
                   "backup_block": (200, 64, 512, 16),
                   "empty_rows": (90, 64, 384, 16),
-                  "shuffled": (130, 64, 1024, 64)}[name]
+                  "shuffled": (130, 64, 1024, 64),
+                  "wide_n": (150, 64, 22016, 16)}[name]
     counts = list(rng.randint(0, e + 1, size=m))
     sparse = [True] * m
     if name == "e1024":                       # ~900 columns a row
@@ -246,7 +342,7 @@ def _case(name):
 
 
 REPLAY = ["ragged_m", "k8", "k136", "k2056", "e1024", "union_all_n",
-          "backup_block", "empty_rows", "shuffled"]
+          "backup_block", "empty_rows", "shuffled", "wide_n"]
 
 
 @pytest.mark.parametrize("sms", [SMS, 3])
@@ -280,6 +376,32 @@ def test_replay_cases_reach_their_corners():
     assert (nnz == 0).any() and live.all()
     assert 200 % hm.D2H_ROWS and hm.d2h_plan(200, 64, 512, 16,
                                              SMS).row_blocks == 2
+    x, wt, idx, nnz, live = _case("wide_n")
+    assert hm.d2h_plan(150, 64, 22016, 16, SMS).wide
+
+
+@pytest.mark.parametrize("block", [0, 1])
+def test_d2h_wide_maps_read_every_union_column_once(block):
+    """The wide maps of a row block of the ``wide_n`` case: the columns
+    table holds the union (within min(N, 128 E)) in ascending order, and
+    each valid slot's popcount position finds its own column there: every
+    union column is named, each at one position."""
+    x, wt, idx, nnz, live = _case("wide_n")
+    n, e = wt.shape[0], idx.shape[1]
+    r0 = block * hm.D2H_ROWS
+    rv = min(hm.D2H_ROWS, idx.shape[0] - r0)
+    nv = [int(nnz[r0 + r]) for r in range(rv)]
+    block_idx = idx.numpy()[r0:r0 + rv]
+    u, table, words, prefix = wide_maps(block_idx, nv, n, e)
+    assert u > UN and table[:u] == sorted(table[:u])
+    assert table[:u] == _union(block_idx, nv, n)[3]
+    seen = set()
+    for r in range(rv):
+        for c in block_idx[r, :nv[r]]:
+            p = _position(int(c), words, prefix)
+            assert table[p] == c
+            seen.add(p)
+    assert seen == set(range(u))
 
 
 def _no_build(monkeypatch):
