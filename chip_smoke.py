@@ -29,7 +29,10 @@ JAX package) and runs these phases, each printing one JSON line:
                  shapes (K 5120, N 8192; K 6144, N 16384) at M 4 and 64,
                  at llama3-405b's FFN (K 16384, N 53248: K2 past K 8192)
                  at M 4 and 64 and at deepseek-67b's (K 8192, N 22016) at
-                 M 4,
+                 M 4, K1 with relu^2 and K6 at rwkv6-7b's channel mix (K
+                 4096, N 14336) and K1 + K2 at zamba2-1.2b's shared FFN
+                 (K 2048, N 8192) at M 4, K8 and K9 at rwkv6-7b's
+                 training shape (K 4096, N 14336),
                  K6 at M 4 and 256 (with K1 + K6
                  beside the dense non-gated FFN) and on a pattern with every
                  column alive, with its union a row block and its launch
@@ -162,6 +165,25 @@ JAX package) and runs these phases, each printing one JSON line:
                  weights and tokens in float32 on the CPU, gather no
                  farther from it than dense by more than LOGIT_TOL;
                  tokens/s, decode step, TTFT
+  6d. serve_ssm -- zamba2-1.2b (hybrid: Mamba2 layers and one shared
+                 attention block after every 6th; all 38 layers) and
+                 rwkv6-7b (ssm: RWKV-6 time and channel mixes, affine
+                 LayerNorm; all 32 layers) at full width, KEEP of the FFN
+                 pattern's columns alive, through the serve CLI's static
+                 loop, greedy: gather (zamba2: K1 + K2 at each of the
+                 shared block's 6 applications a step; rwkv6: K1 with
+                 relu^2, then K6, in every layer a step; counted exactly),
+                 then dense, no overflow, the dense run's tokens
+                 teacher-forced through gather and dense (logits within
+                 LOGIT_TOL on the first 6 / 2 layers) and at the served
+                 depth through both and float32 (each path within
+                 SSM_SERVED_TOL of float32), tokens equal up to each
+                 request's first near-tie (LOGIT_TOL, or twice the served
+                 gather-to-dense gap), tokens/s and the step time; then
+                 in float32 zamba2's first 6 layers and rwkv6's first 2,
+                 SSM_RECUR_LEN tokens teacher-forced through decode, the
+                 logits at every position held against ``lm.forward``'s
+                 (the chunked SSD and WKV)
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -203,12 +225,24 @@ JAX package) and runs these phases, each printing one JSON line:
                  sides of the hybrid format, no overflow, a falling loss,
                  step time, peak, MFU; then each config's FFN layer in
                  float32, hybrid gradients against the dense formula
+  7g. train_ssm -- zamba2-1.2b (all 38 layers) and rwkv6-7b (8 of 32) at
+                 full width under remat full, TRAIN_ALIVE of the pattern's
+                 columns alive, hybrid then dense, SSM_TRAIN_STEPS steps of
+                 TRAIN_BATCH x TRAIN_SEQ tokens each: K8 and K9 (rwkv6
+                 non-gated, relu^2) and K7 (zamba2's shared block)
+                 launched, both sides of the hybrid format, no overflow, a
+                 falling loss, step time, peak, MFU, a traced hybrid step;
+                 then each config's FFN layer in float32, hybrid
+                 gradients against the dense formula
   8. check    -- the same weights in float32 on the CPU (plain versions)
                  against the card: prefill plus 4 decode steps of two prompts
                  through the gather path and one through tile_skip, logits
                  within a stated tolerance; the same for two prompts through
                  olmo-1b's first 2 layers (K1 + K6) and through
                  phi3-mini-3.8b's first 2 (head dim 96 through K1-K4);
+                 rwkv6-7b's first 2 layers (affine LayerNorm, K1 + K6)
+                 and zamba2-1.2b's first 6 (K1 + K2) through the static
+                 loop's decode, prefill plus 4 steps;
                  and one training step
                  (2 layers, 1 x 256 tokens, hybrid) of paper-0.5b and of
                  olmo-1b (under its remat, full): loss and every gradient
@@ -217,8 +251,9 @@ JAX package) and runs these phases, each printing one JSON line:
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
      spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, dense
-     configs' serve (gather), hybrid train, remat, paper-1.5b, olmo
-     train, MoE train and dense configs' train runs; a
+     configs' serve (gather), zamba2/rwkv6 serve (gather), hybrid train,
+     remat, paper-1.5b, olmo train, MoE train, dense configs' train and
+     zamba2/rwkv6 train runs; a
      recomputed layer's kernels count again), then the
      last
      line ``{"ok": true, "device": {...}}``.
@@ -241,7 +276,8 @@ port under ``--src`` if given, without the last line.
 ``--phases serve_moe`` and ``--train-phases train_moe`` run phases 1-2
 and the MoE serving or training phase; ``--phases serve_dense`` and
 ``--train-phases train_dense`` the dense configs' (phi3-mini-3.8b,
-deepseek-67b, llama3-405b).
+deepseek-67b, llama3-405b); ``--phases serve_ssm`` and ``--train-phases
+train_ssm`` the attention-free families' (zamba2-1.2b, rwkv6-7b).
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -308,13 +344,13 @@ def parse_args(argv):
     ap.add_argument("--train-phases", default=None,
                     help="comma-separated training phases (train, remat, "
                          "train_1p5b, train_olmo, train_moe, train_dense, "
-                         "check_train): "
+                         "train_ssm, check_train): "
                          "run only the device and build phases and those, "
                          "on the port under --src (no last line); for A/B "
                          "timing of the training step")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases (disagg, serve_moe, "
-                         "serve_dense): "
+                         "serve_dense, serve_ssm): "
                          "run only the device and build phases "
                          "and those (disagg on the serve phase's model and "
                          "prompts), each comparing against references it "
@@ -375,7 +411,7 @@ def main(argv=None) -> int:
                   f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
             return 2
         serve = None
-        if "disagg" in names:       # serve_moe, serve_dense make their own
+        if "disagg" in names:       # the others make their own models
             cfg, params, prompts = model_and_prompts(torch)
             serve = {"cfg": cfg, "params": params, "prompts": prompts,
                      "new_tokens": 32}
@@ -408,21 +444,24 @@ def main(argv=None) -> int:
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
     serve_moe = timed("serve_moe", phase_serve_moe)
     serve_dense = timed("serve_dense", phase_serve_dense)
+    serve_ssm = timed("serve_ssm", phase_serve_ssm)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
     olmo_train = timed("train_olmo", phase_train_olmo)
     train_moe = timed("train_moe", phase_train_moe)
     train_dense = timed("train_dense", phase_train_dense)
-    timed("check", phase_check, serve, olmo, serve_dense)
+    train_ssm = timed("train_ssm", phase_train_ssm)
+    timed("check", phase_check, serve, olmo, serve_dense, serve_ssm)
     timed("k5_splits", k5_splits)
     emit({"phase": "seconds", "seconds": seconds,
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
                             (serve, spec, pipe, http, disagg, olmo,
-                             serve_moe, serve_dense, train, remat, p15,
-                             olmo_train, train_moe, train_dense))
+                             serve_moe, serve_dense, serve_ssm, train,
+                             remat, p15, olmo_train, train_moe, train_dense,
+                             train_ssm))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -557,15 +596,16 @@ def gate_inputs(torch, m, k, n, gen, scale=0.08):
     return x, wg, wu, wd
 
 
-def k1_agrees(torch, x, wg, t, c, case):
-    """K1 on x, wg (relu) against the plain version: nnz and indices equal
-    on the rows with no pre-activation near zero, values within BF16_TOL,
-    and the same bits from run to run. Returns (max abs error, near-zero
-    rows, the plain version's outputs)."""
+def k1_agrees(torch, x, wg, t, c, case, act="relu"):
+    """K1 on x, wg (``act``: relu, or relu^2 as rwkv6's channel mix) against
+    the plain version: nnz and indices equal on the rows with no
+    pre-activation near zero, values within BF16_TOL, and the same bits
+    from run to run. Returns (max abs error, near-zero rows, the plain
+    version's outputs)."""
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
-    v, i, z = twell_gate_matmul_cuda(x, wg, t, c, "relu")
-    pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, "relu")
+    v, i, z = twell_gate_matmul_cuda(x, wg, t, c, act)
+    pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, act)
     torch.cuda.synchronize()
     pre = x.float() @ wg.float()
     # a pre-activation within 1e-3 max|pre| of zero may round either way
@@ -576,34 +616,37 @@ def k1_agrees(torch, x, wg, t, c, case):
     assert int(z.max()) <= t // c, f"K1 geometry overflows ({case})"
     err, ok = close_err(torch, v[rows], pv[rows])
     assert ok, f"K1 values disagree with the plain version ({case}): {err}"
-    v2, i2, z2 = twell_gate_matmul_cuda(x, wg, t, c, "relu")
+    v2, i2, z2 = twell_gate_matmul_cuda(x, wg, t, c, act)
     assert torch.equal(v, v2) and torch.equal(i, i2) and \
         torch.equal(z, z2), f"K1 is not run-to-run deterministic ({case})"
     return err, int(near.sum()), (pv, pi, pz)
 
 
-def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048, scale=0.08):
+def check_k1(torch, timer, m, n, gen, t=256, c=8, k=2048, scale=0.08,
+             act="relu"):
     """K1 on a KEEP-masked gate weight (K 2048; N 5632 is paper-0.5b's W_g,
-    8192 olmo-1b's W_u; K 5120 and 6144 the MoE experts'; the weights at
-    std ``scale``), held by ``k1_agrees`` and timed. Returns the case and
-    the inputs with the plain version's outputs."""
+    8192 olmo-1b's W_u and zamba2-1.2b's shared W_g; K 5120 and 6144 the
+    MoE experts'; K 4096, N 14336 with relu^2 rwkv6-7b's channel-mix W_u;
+    the weights at std ``scale``), held by ``k1_agrees`` and timed.
+    Returns the case and the inputs with the plain version's outputs."""
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
     x, wg, wu, wd = gate_inputs(torch, m, k, n, gen, scale)
     err1, near, (pv, pi, pz) = k1_agrees(torch, x, wg, t, c,
-                                         f"M={m}, N={n}")
+                                         f"M={m}, K={k}, N={n}, {act}", act)
     # x and W read once, the packed values, indices and counts written
     out_bytes = m * n // c * (2 + 4) + m * n // t * 4
     b1, by1 = bound_ms(2 * (m * k + k * n) + out_bytes, 2 * m * k * n)
-    k1 = {"ms": timer.ms(lambda: twell_gate_matmul_cuda(x, wg, t, c)),
-          "plain_ms": timer.ms(lambda: twell_gate_matmul_plain(x, wg, t, c),
+    k1 = {"ms": timer.ms(lambda: twell_gate_matmul_cuda(x, wg, t, c, act)),
+          "plain_ms": timer.ms(lambda: twell_gate_matmul_plain(x, wg, t, c,
+                                                               act),
                                iters=5),
           "library_ms": timer.ms(lambda: torch.matmul(x, wg)),
           "bound_ms": b1, "bound_by": by1, "max_abs_err": err1,
           "host_us": host_us(torch, lambda: twell_gate_matmul_cuda(
-              x, wg, t, c)),
+              x, wg, t, c, act)),
           "library_host_us": host_us(torch, lambda: torch.matmul(x, wg)),
-          "near_zero_rows": near, "M": m, "K": k, "N": n,
+          "near_zero_rows": near, "M": m, "K": k, "N": n, "act": act,
           "weight_std": scale}
     return k1, (x, wg, wu, wd, pv, pi, pz)
 
@@ -758,9 +801,10 @@ def k2_dense_cases(torch, timer, gen):
     return k1s, k2s
 
 
-def check_k6(torch, timer, m, gen, keep=KEEP):
-    """K6 at olmo-1b's FFN shape (K 2048, N 8192, T 256, C 8) with ``keep``
-    of the W_u columns alive, on the pattern of relu(x @ W_u) packed by the
+def check_k6(torch, timer, m, gen, keep=KEEP, k=2048, n=8192, act="relu"):
+    """K6 at olmo-1b's FFN shape (K 2048, N 8192, T 256, C 8; or rwkv6-7b's
+    channel mix, K 4096, N 14336, act relu^2) with ``keep``
+    of the W_u columns alive, on the pattern of act(x @ W_u) packed by the
     plain version (the same input for both; counts clipped to T/C as ops
     clips them), the same bits on a second call, timed beside the plain
     version and ``unpack(h) @ W_d`` (the library call), with the host time
@@ -773,12 +817,13 @@ def check_k6(torch, timer, m, gen, keep=KEEP):
     its T/C slots, so every row fills all N/C slots and a row block's union
     is near all of N; reported, not held to the library time."""
     from repro_torch.core import twell
+    from repro_torch.core.sparsity import activation
     from repro_torch.kernels import sparse_ffn as sf
     from repro_torch.kernels.sparse_ffn import (twell_down_proj_cuda,
                                                 twell_down_proj_plain)
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
-    k, n, t, c = 2048, 8192, 256, 8
+    t, c = 256, 8
     tc = t // c
     if keep == KEEP:
         # gate_inputs' KEEP-masked gate weight stands in for olmo's W_u (its
@@ -790,12 +835,12 @@ def check_k6(torch, timer, m, gen, keep=KEEP):
              ).bfloat16()
         wg, wd = ((torch.randn(shape, generator=gen, device="cuda") * 0.08)
                   .bfloat16() for shape in ((k, n), (n, k)))
-    v, i, z = twell_gate_matmul_plain(x, wg, t, c, "relu")
+    v, i, z = twell_gate_matmul_plain(x, wg, t, c, act)
     overflow = bool((z > tc).any())
     assert overflow == (keep == 1.0), f"K6 inputs overflow T/C (M={m})"
     z = torch.clamp(z, max=tc)
     args = (v, i, z, wd, t)
-    case = f"M={m}, keep {keep}"
+    case = f"M={m}, K={k}, N={n}, {act}, keep {keep}"
     y = twell_down_proj_cuda(*args)
     py = twell_down_proj_plain(*args)
     torch.cuda.synchronize()
@@ -845,18 +890,36 @@ def check_k6(torch, timer, m, gen, keep=KEEP):
            "host_us": host_us(torch, k6),
            "library_host_us": host_us(torch, lambda: torch.matmul(h, wd)),
            "bound_ms": bnd, "bound_by": by, "max_abs_err": err, "M": m,
-           "keep": keep, "overflow": overflow,
+           "K": k, "N": n, "act": act, "keep": keep, "overflow": overflow,
            "valid_slots_per_row": slots / m, "distinct_rows": rows,
            "union_per_row_block": unions, "plan": plan}
     if keep == KEEP:
         def k1_k6():
-            pv, pi, pz = twell_gate_matmul_cuda(x, wg, t, c, "relu")
+            pv, pi, pz = twell_gate_matmul_cuda(x, wg, t, c, act)
             return twell_down_proj_cuda(pv, pi, torch.clamp(pz, max=tc), wd,
                                         t)
         out["k1_k6_ms"] = timer.ms(k1_k6)
         out["dense_ffn_ms"] = timer.ms(lambda: torch.matmul(
-            torch.relu(torch.matmul(x, wg)), wd))
+            activation(act)(torch.matmul(x, wg)), wd))
     return out
+
+
+def ssm_cases(torch, timer):
+    """The attention-free families' serving shapes at decode (M 4), on a
+    generator of their own (the kernels timed before see the inputs they
+    saw before these were added): K1 with relu^2 and K6 at rwkv6-7b's
+    channel mix (K 4096, N 14336), K1 then K2 at zamba2-1.2b's shared FFN
+    (K 2048, N 8192), each with KEEP of its pattern's columns alive."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    k1_rwkv, _ = check_k1(torch, timer, 4, 14336, gen, k=4096, act="relu2")
+    k6_rwkv = check_k6(torch, timer, 4, gen, k=4096, n=14336, act="relu2")
+    k1_zamba, inputs = check_k1(torch, timer, 4, 8192, gen)
+    k2_zamba = check_k2(torch, timer, *inputs)
+    tag = {"arch": "rwkv6-7b"}
+    return {"twell_gate_matmul": [{**k1_rwkv, **tag},
+                                  {**k1_zamba, "arch": "zamba2-1.2b"}],
+            "twell_down_proj": [{**k6_rwkv, **tag}],
+            "twell_fused_ffn": [{**k2_zamba, "arch": "zamba2-1.2b"}]}
 
 
 def k6_cases(torch, timer, gen):
@@ -1456,7 +1519,8 @@ def phase_kernels(torch, only=None):
         checks = {
             "twell_gate_matmul": lambda: [
                 check_k1(torch, timer, m, n, gen)[0]
-                for n, m in K1_SHAPES],
+                for n, m in K1_SHAPES] +
+            ssm_cases(torch, timer)["twell_gate_matmul"],
             "paged_chunk_attention": lambda: [
                 check_k4(torch, timer, h, hkv, gen, hd=hd)
                 for h, hkv, hd in ATTN_CASES],
@@ -1475,8 +1539,10 @@ def phase_kernels(torch, only=None):
                 "hybrid_to_dense"],
             "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1] +
             k2_wide_cases(torch, timer, gen)[1] +
-            k2_dense_cases(torch, timer, gen)[1],
-            "twell_down_proj": lambda: k6_cases(torch, timer, gen),
+            k2_dense_cases(torch, timer, gen)[1] +
+            ssm_cases(torch, timer)["twell_fused_ffn"],
+            "twell_down_proj": lambda: k6_cases(torch, timer, gen) +
+            ssm_cases(torch, timer)["twell_down_proj"],
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1s, k2s = k2_cases(torch, timer, gen)
@@ -1504,6 +1570,8 @@ def phase_kernels(torch, only=None):
     cases["twell_fused_ffn"] += k2d
     for name, runs in hybrid_dense_cases(torch, timer, gen).items():
         cases[name] += runs
+    for name, runs in ssm_cases(torch, timer).items():
+        cases[name] += runs
     return kernel_table(torch, cases)
 
 
@@ -1511,13 +1579,15 @@ def phase_kernels(torch, only=None):
 # train phase's M 8192, E 128 and TRAIN_ALIVE pattern: olmo-1b's non-gated
 # FFN (train_olmo: its forward packs relu(x @ W_u) directly, no K9
 # forward), deepseek-67b's (train_dense) and llama3-405b's (trained on the
-# CPU only; its widest N held here) on the wide union maps
+# CPU only; its widest N held here) on the wide union maps, and rwkv6-7b's
+# non-gated channel mix (train_ssm; relu^2 has relu's support)
 HYBRID_DENSE_CASES = (
     ("olmo-1b", 2048, 8192, ("forward", "backward"), ("backward",)),
     ("deepseek-67b", 8192, 22016, ("forward", "backward"),
      ("forward", "backward")),
     ("llama3-405b", 16384, 53248, ("forward", "backward"),
-     ("forward", "backward")))
+     ("forward", "backward")),
+    ("rwkv6-7b", 4096, 14336, ("forward", "backward"), ("backward",)))
 
 
 def hybrid_dense_cases(torch, timer, gen, k8=True, k9=True):
@@ -1726,6 +1796,7 @@ def profile_fn(torch, fn):
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     return {"phase": "profile", "wall_ms": wall_ms,
+            "kernel_calls": sum(k[1] for k in kernels),
             "device_kernel_ms": busy_ms if kernels else "not measured",
             "device_busy_share": busy_ms / wall_ms if kernels else None,
             "top_kernels": [{"ms": ms, "calls": n, "name": name}
@@ -2970,10 +3041,11 @@ def moe_model(torch, arch, layers, impl, keep=KEEP, alive=None):
     return cfg, params
 
 
-def moe_static_run(torch, cfg, params, prompt, impl):
-    """The serve CLI's static loop (``launch/serve.py:generate``, greedy)
-    with the FFN as ``impl``: tokens, each generated step's logits, wall
-    seconds and the kernel launches over exactly this run."""
+def moe_static_run(torch, cfg, params, prompt, impl, gen=MOE_GEN):
+    """The serve CLI's static loop (``launch/serve.py:generate``, greedy,
+    ``gen`` new tokens) with the FFN as ``impl``: tokens, each generated
+    step's logits, wall seconds and the kernel launches over exactly this
+    run."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
@@ -2983,8 +3055,8 @@ def moe_static_run(torch, cfg, params, prompt, impl):
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks = serve.generate(params, cfg, prompt, MOE_GEN,
-                          prompt.shape[1] + MOE_GEN + 1, logits_out=logits)
+    toks = serve.generate(params, cfg, prompt, gen,
+                          prompt.shape[1] + gen + 1, logits_out=logits)
     torch.cuda.synchronize()
     return toks, logits, time.perf_counter() - t0, ops.launch_counts()
 
@@ -3059,30 +3131,32 @@ def moe_forced_logits(torch, cfg, params, toks, first):
     return torch.stack(out, dim=1)
 
 
-def moe_gather_check(torch, cfg, params, toks, plen):
+def moe_gather_check(torch, cfg, params, toks, plen, layers=1,
+                     tol=MOE_GATHER_TOL):
     """K1 + K2 inside the static decode, held numerically: ``params``'
-    first layer in bf16, the dense run's tokens ``toks`` teacher-forced
+    first layer (or ``layers``) in bf16, the dense run's tokens ``toks`` teacher-forced
     through decode (``moe_forced_logits``) with the gather FFN and with the
     dense FFN, logits at every generated position (mixtral's all past the
     window, so the ring has wrapped). With one layer the router sees the
     same bits under both (embedding and attention do not depend on the
     FFN), so it picks the same experts and the logits differ only by the
-    FFNs' rounding: within MOE_GATHER_TOL. Launches here are not the
+    FFNs' rounding: within ``tol``. Launches here are not the
     main path's and are not counted."""
     from repro_torch.tree import tree_map
-    p1 = {**params, "blocks": tree_map(lambda t: t[:1], params["blocks"])}
+    p1 = {**params, "blocks": tree_map(lambda t: t[:layers],
+                                       params["blocks"])}
     got = {}
     t0 = time.perf_counter()
     for impl in ("gather", "dense"):
-        c1 = dataclasses.replace(cfg, num_layers=1, sparsity=dataclasses.
+        c1 = dataclasses.replace(cfg, num_layers=layers, sparsity=dataclasses.
                                  replace(cfg.sparsity, ffn_impl=impl))
         got[impl] = moe_forced_logits(torch, c1, p1, toks[:, :-1], plen - 1)
     torch.cuda.synchronize()
     err = (got["gather"] - got["dense"]).abs().amax(dim=-1)      # (B, P)
-    return {"layers": 1, "dtype": cfg.param_dtype, "max_abs_diff":
+    return {"layers": layers, "dtype": cfg.param_dtype, "max_abs_diff":
             float(err.max()), "median_abs_diff": float(err.median()),
             "positions": [plen - 1, toks.shape[1] - 2],
-            "rows": toks.shape[0], "tolerance": MOE_GATHER_TOL,
+            "rows": toks.shape[0], "tolerance": tol,
             "wall_s": time.perf_counter() - t0}
 
 
@@ -3411,6 +3485,256 @@ def phase_serve_dense(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 6d. the attention-free families at full width: zamba2-1.2b and rwkv6-7b
+# --------------------------------------------------------------------------- #
+
+# (arch, requests, prompt tokens): every layer (zamba2's 38, 1.17 B
+# parameters; rwkv6's 32, 7.0 B) through the serve CLI's static loop
+SSM_SERVE = (("zamba2-1.2b", 4, 64), ("rwkv6-7b", 4, 64))
+SSM_GEN = 32                       # greedy tokens a request
+# the FFN kernels of each config's gather path (the gated shared block's
+# K1 + K2; the non-gated channel mix's K1 with relu^2, then K6)
+SSM_KERNELS = {"zamba2-1.2b": ("twell_gate_matmul", "twell_fused_ffn"),
+               "rwkv6-7b": ("twell_gate_matmul", "twell_down_proj")}
+# layers of the float32 recurrence check and of the card-against-CPU
+# check: zamba2's first 6 (the shared block runs once), rwkv6's first 2
+SSM_CHECK_LAYERS = {"zamba2-1.2b": 6, "rwkv6-7b": 2}
+# each bf16 path's logits against float32's at the served depth, the
+# dense run's tokens teacher-forced through all three: 1.5x the larger
+# path's reading on the H100 (0.2076 zamba2, 5.3404 rwkv6). On random
+# weights bf16 rounding grows through the depth and the recurrent state;
+# rwkv6's 32 layers end as far from float32 as its logits spread (std
+# 1.28), gather and dense alike, as the JAX package's bf16 forward does
+# (tests/test_torch_ssm.py::test_bf16_gap_to_float32_grows_as_in_jax)
+SSM_SERVED_TOL = {"zamba2-1.2b": 0.3, "rwkv6-7b": 8.0}
+SSM_RECUR_LEN = 512                # tokens: 2 SSD chunks, 2 WKV chunks
+SSM_RECUR_TOL = 1e-3               # float32 decode against the chunked
+#                                    forward: sums in other orders (the
+#                                    chunks' products against the per-token
+#                                    states), logits of order 1
+
+
+def ssm_pattern(params):
+    """The weights whose columns the FFN's pattern follows, as views:
+    zamba2's shared block's W_g, or each rwkv6 layer's channel-mix W_u."""
+    if "shared_attn" in params:
+        return [params["shared_attn"]["ffn"]["wg"]]
+    return list(params["blocks"]["cm"]["wu"])
+
+
+def ssm_model(torch, arch, layers=None, impl="gather", alive=None):
+    """``arch`` at full width (``layers`` layers, all unless given) in
+    bfloat16 with the FFN as ``impl``, random weights from SEED
+    (lm.init), and all but KEEP of the pattern's columns zeroed (or
+    exactly ``alive`` columns alive): the counterpart of
+    ``model_and_prompts``'s gate sparsity."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl=impl))
+    params = lm.init(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for w in ssm_pattern(params):
+        if alive is None:
+            w *= (torch.rand((1, cfg.d_ff), generator=gen, device="cuda")
+                  < KEEP).to(w)
+        else:
+            w *= alive_columns(torch, gen, cfg.d_ff).to(w)
+    return cfg, params
+
+
+def ssm_first_layers(params, n):
+    """``params`` with its stacked layers cut to the first n (zamba2's
+    shared block kept whole)."""
+    from repro_torch.tree import tree_map
+    return {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+
+
+def ssm_recurrence_check(torch, cfg, params, arch):
+    """The recurrent decode against the chunked training forward, in
+    float32 on the card: the first SSM_CHECK_LAYERS of ``params`` widened
+    to float32, SSM_RECUR_LEN random tokens teacher-forced through
+    ``decode_step`` (the per-token Mamba2 state and WKV scan), their logits
+    at every position held within SSM_RECUR_TOL of ``lm.forward``'s (the
+    chunked SSD and WKV, 2 chunks of 256 each) on the same tokens, dense
+    FFN."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    n = SSM_CHECK_LAYERS[arch]
+    cfg32 = dataclasses.replace(cfg, num_layers=n, dtype="float32",
+                                param_dtype="float32",
+                                sparsity=dataclasses.replace(
+                                    cfg.sparsity, ffn_impl="dense"))
+    p32 = tree_map(lambda t: t.float(), ssm_first_layers(params, n))
+    rng = np.random.RandomState(SEED + 1)
+    toks = torch.tensor(rng.randint(0, cfg.vocab_size, (1, SSM_RECUR_LEN)),
+                        dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    got = moe_forced_logits(torch, cfg32, p32, toks, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd, _ = lm.forward(p32, {"tokens": toks}, cfg32)
+    err = (got - fwd.float()).abs().amax(dim=-1)[0]
+    del p32, got, fwd
+    return {"layers": n, "dtype": "float32", "tokens": SSM_RECUR_LEN,
+            "max_abs_diff": float(err.max()),
+            "median_abs_diff": float(err.median()),
+            "max_abs_diff_first_chunk": float(err[:256].max()),
+            "max_abs_diff_second_chunk": float(err[256:].max()),
+            "tolerance": SSM_RECUR_TOL,
+            "decode_step_ms": wall / SSM_RECUR_LEN * 1e3}
+
+
+def ssm_served_check(torch, cfg, params, dtoks, dlogits, plen):
+    """The dense run's tokens ``dtoks`` teacher-forced at the served depth
+    through decode under gather (bf16) and in float32 (the bf16 weights
+    widened, dense FFN), beside the dense run's own logits ``dlogits`` (the
+    static loop teacher-forces the same tokens, so they are the forced
+    dense logits): each pair's max and median abs difference over the
+    generated positions, and the float32 logits' scale."""
+    from repro_torch.tree import tree_map
+    forced = {"dense": torch.stack(dlogits, dim=1)}
+    gcfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="gather"))
+    forced["gather"] = moe_forced_logits(torch, gcfg, params, dtoks[:, :-1],
+                                         plen - 1)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                sparsity=dataclasses.replace(
+                                    cfg.sparsity, ffn_impl="dense"))
+    p32 = tree_map(lambda t: t.float(), params)
+    forced["float32"] = moe_forced_logits(torch, cfg32, p32, dtoks[:, :-1],
+                                          plen - 1)
+    del p32
+    out = {"layers": cfg.num_layers,
+           "float32_logit_absmax": float(forced["float32"].abs().max()),
+           "float32_logit_std": float(forced["float32"].std())}
+    for a, b in (("gather", "dense"), ("gather", "float32"),
+                 ("dense", "float32")):
+        err = (forced[a] - forced[b]).abs().amax(dim=-1)
+        out[f"{a}_vs_{b}"] = {"max_abs_diff": float(err.max()),
+                              "median_abs_diff": float(err.median())}
+    return out
+
+
+def phase_serve_ssm(torch):
+    """zamba2-1.2b (all 38 layers) and rwkv6-7b (all 32) at full width in
+    bf16 through the serve CLI's static loop, greedy, KEEP of the FFN
+    pattern's columns alive: the gather FFN (zamba2: K1 + K2 at each of the
+    shared block's 6 applications a step; rwkv6: K1 with relu^2, then K6,
+    in every layer a step; counted exactly, and the other FFN kernel
+    never), then the dense FFN on the same prompts, no TwELL overflow. The
+    dense run's tokens teacher-forced through decode under gather and under
+    dense (``moe_gather_check``): on the first SSM_CHECK_LAYERS the logits
+    within LOGIT_TOL at every generated position (the kernels inside the
+    decode, held numerically); at the served depth each path within
+    SSM_SERVED_TOL of float32 on the same tokens (``ssm_served_check``).
+    Tokens equal up to each request's first near-tie: a top-2 margin of
+    dense's logits at most LOGIT_TOL or twice the served depth's
+    gather-to-dense gap, the most by which that gap can turn a token.
+    Tokens/s, the step time and a traced step of each; then
+    ``ssm_recurrence_check``. Keeps each
+    config's first SSM_CHECK_LAYERS and its first prompt on the CPU for
+    ``phase_check``."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.observability import accounting
+    runs, launches, check = [], {}, {}
+    ffn_kernels = ("twell_gate_matmul", "twell_fused_ffn", "twell_down_proj")
+    for arch, batch, plen in SSM_SERVE:
+        cfg, params = ssm_model(torch, arch)
+        steps = plen + SSM_GEN
+        apps = cfg.num_layers // cfg.shared_attn_every \
+            if cfg.family == "hybrid" else cfg.num_layers
+        rng = np.random.RandomState(SEED)
+        prompt = torch.tensor(rng.randint(0, cfg.vocab_size, (batch, plen)),
+                              dtype=torch.int64, device="cuda")
+        toks, logits, wall, counts = moe_static_run(
+            torch, cfg, params, prompt, "gather", gen=SSM_GEN)
+        overflow = ops.OverflowLog.seen()
+        dtoks, dlogits, dwall, _ = moe_static_run(
+            torch, cfg, params, prompt, "dense", gen=SSM_GEN)
+        # three gather decode steps (two prompt tokens, one new) traced
+        prof = profile_fn(torch, lambda: serve.generate(
+            params, cfg, prompt[:, :2], 1, 4))
+        few = moe_gather_check(torch, cfg, params, dtoks, plen,
+                               layers=SSM_CHECK_LAYERS[arch], tol=LOGIT_TOL)
+        served = ssm_served_check(torch, cfg, params, dtoks, dlogits, plen)
+        tie_tol = max(LOGIT_TOL,
+                      2 * served["gather_vs_dense"]["max_abs_diff"])
+        ties = serve.first_near_ties(dlogits, tie_tol)
+        res = {"arch": arch, "family": cfg.family,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "d_ff": cfg.d_ff, "norm": cfg.norm,
+               "params": accounting.param_count(lm.trainable(params)),
+               "requests": batch, "prompt_len": plen, "new_tokens": SSM_GEN,
+               "decode_steps": steps, "ffn_per_step": apps,
+               "gather": {"wall_s": wall, "step_ms": wall / steps * 1e3,
+                          "tokens_per_s": batch * SSM_GEN / wall,
+                          "launches": {k: counts.get(k, 0)
+                                       for k in ffn_kernels}},
+               "dense": {"wall_s": dwall, "step_ms": dwall / steps * 1e3,
+                         "tokens_per_s": batch * SSM_GEN / dwall},
+               "profiled_gather_step": {
+                   "kernels": prof["kernel_calls"] / 3,
+                   "wall_ms": prof["wall_ms"] / 3,
+                   "device_busy_share": prof["device_busy_share"],
+                   "top_kernels": prof["top_kernels"][:6]},
+               "gather_vs_dense_first_layers": few,
+               "gather_vs_dense_served": served,
+               "near_tie_tolerance": tie_tol, "near_ties": ties,
+               "near_ties_at_logit_tol": serve.first_near_ties(dlogits),
+               "tokens_equal_before": [
+                   int(next((j for j in range(SSM_GEN)
+                             if toks[r, plen + j] != dtoks[r, plen + j]),
+                            SSM_GEN)) for r in range(batch)],
+               "overflow": overflow,
+               "first_tokens": toks[:, plen].tolist(),
+               "decode_vs_forward_f32": ssm_recurrence_check(
+                   torch, cfg, params, arch)}
+        runs.append(res)
+        emit({"phase": "serve_ssm", **res})
+        for k in ffn_kernels:
+            want = steps * apps if k in SSM_KERNELS[arch] else 0
+            assert counts.get(k, 0) == want, \
+                f"{arch}: {k} launched {counts.get(k, 0)} times, not " \
+                f"{want} ({apps} FFNs a step, {steps} steps)"
+        for k in SSM_KERNELS[arch]:
+            launches[k] = launches.get(k, 0) + counts[k]
+        assert not overflow, f"{arch}: a TwELL tile overflowed"
+        assert few["max_abs_diff"] <= LOGIT_TOL, \
+            f"{arch}: gather's decode logits differ from dense's by " \
+            f"{few['max_abs_diff']} at {few['layers']} layers"
+        for path in ("gather", "dense"):
+            err = served[f"{path}_vs_float32"]["max_abs_diff"]
+            assert err <= SSM_SERVED_TOL[arch], \
+                f"{arch}: {path}'s served logits differ from float32's by " \
+                f"{err}"
+        for r, n in enumerate(ties):
+            assert torch.equal(toks[r, plen:plen + n],
+                               dtoks[r, plen:plen + n]), \
+                f"{arch} row {r}: gather and dense differ before the " \
+                f"first near-tie ({n})"
+        recur = res["decode_vs_forward_f32"]
+        assert recur["max_abs_diff"] <= SSM_RECUR_TOL, \
+            f"{arch}: float32 decode differs from the chunked forward by " \
+            f"{recur['max_abs_diff']}"
+        check[arch] = (cfg, lm.params_to(ssm_first_layers(
+            params, SSM_CHECK_LAYERS[arch]), "cpu"),
+            prompt[0].tolist())
+        del params, logits, dlogits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, "check": check}
+
+
+# --------------------------------------------------------------------------- #
 # 7. training: full-width paper-0.5b through the hybrid FFN
 # --------------------------------------------------------------------------- #
 
@@ -3533,11 +3857,13 @@ def phase_train(torch):
     return hybrid
 
 
-def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3):
+def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3, gated=True,
+               act="relu"):
     """One full-width FFN layer in float32 (M rows, paper-0.5b's K 2048 and
-    N 5632 unless given, TRAIN_ALIVE gate columns alive): the hybrid
+    N 5632 unless given, TRAIN_ALIVE pattern columns alive): the hybrid
     autograd.Function (K8 and K9) against torch autograd of the dense
-    formula, y = (x W_u * relu(x W_g)) W_d with the L1 term mean|h|
+    formula, y = (x W_u * act(x W_g)) W_d, or act(x W_u) W_d when not
+    ``gated`` (rwkv6-7b's channel mix: relu^2), with the L1 term mean|h|
     (``_dense_apply``). Tolerance: max |g - g_ref| <= GRAD_TOL max |g_ref|
     per gradient; both sides take float32 products summed in float32 in
     different orders (the kernels per row and slot, cuBLAS by tiles)."""
@@ -3549,26 +3875,30 @@ def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3):
     def r(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
     x, gy = r(m, k), r(m, k, scale=1e-2)
-    ws = {"wg": r(k, n, scale=0.02) * alive_columns(torch, gen, n),
-          "wu": r(k, n, scale=0.02),
-          "wd": r(n, k, scale=0.02)}
-    leaves = [x] + [ws[w] for w in ("wg", "wu", "wd")]
+    names = ("wg", "wu", "wd") if gated else ("wu", "wd")
+    ws = {}
+    for name in names:
+        shape = (n, k) if name == "wd" else (k, n)
+        ws[name] = r(*shape, scale=0.02)
+        if name == names[0]:        # the weight the pattern follows
+            ws[name] = ws[name] * alive_columns(torch, gen, n)
+    leaves = [x] + [ws[w] for w in names]
     live = [t.clone().requires_grad_(True) for t in leaves]
-    y, l1, nnz, _ = sparse_ffn._HybridGated.apply(*live, 128, m // 8, "relu")
+    fn = sparse_ffn._HybridGated if gated else sparse_ffn._HybridNongated
+    y, l1, nnz, _ = fn.apply(*live, 128, m // 8, act)
     got = torch.autograd.grad((y * gy).sum() + coeff * l1, live)
     ref = [t.clone().requires_grad_(True) for t in leaves]
-    scfg = SparsityConfig(enabled=True, activation="relu")
-    y_ref, aux = sparse_ffn._dense_apply(dict(zip(("wg", "wu", "wd"),
-                                                  ref[1:])),
-                                         ref[0], scfg, True, True)
+    scfg = SparsityConfig(enabled=True, activation=act)
+    y_ref, aux = sparse_ffn._dense_apply(dict(zip(names, ref[1:])), ref[0],
+                                         scfg, gated, True)
     want = torch.autograd.grad((y_ref * gy).sum() + coeff * aux["l1"], ref)
     errs = {}
-    for name, g, w in zip(("x", "wg", "wu", "wd"), got, want):
+    for name, g, w in zip(("x",) + names, got, want):
         errs[name] = float((g - w).abs().max() / w.abs().max())
         assert errs[name] <= GRAD_TOL, \
             f"hybrid grad {name} off by {errs[name]} of its max"
     return {"phase": "grad_check", "M": m, "K": k, "N": n,
-            "dtype": "float32",
+            "dtype": "float32", "gated": gated, "act": act,
             "tolerance": GRAD_TOL,
             "rel_max_err": errs, "backup_rows": int((nnz > 128).sum()),
             "mean_nnz": float(nnz.mean())}
@@ -3596,7 +3926,7 @@ def peak_of(torch, fn):
     return out, torch.cuda.max_memory_allocated()
 
 
-def train_steps(torch, cfg, batches, params=None):
+def train_steps(torch, cfg, batches, params=None, profile=False):
     """AdamW steps of ``cfg`` through the port's make_train_step, one a
     batch, from ``params`` (default: ``train_setup``'s; the update makes
     new tensors, so a caller's tree is left as it was). First one loss and
@@ -3606,7 +3936,8 @@ def train_steps(torch, cfg, batches, params=None):
     parameters, m and v, and float32 temporaries, before the old ones go).
     Launch counts, the hybrid log and the step peak (``peak_mem_bytes``,
     the parameters and optimizer state included) cover exactly the
-    steps."""
+    steps; with ``profile``, one more step on the first batch is traced
+    after them (``profile_fn``: wall, kernels, busy share, the top 8)."""
     from repro_torch import training
     from repro_torch.config import TrainConfig
     from repro_torch.kernels import ops
@@ -3633,21 +3964,29 @@ def train_steps(torch, cfg, batches, params=None):
     ell_rows, backup_rows = ops.HybridOverflowLog.rows()
     median = statistics.median(step_ms[1:] or step_ms)
     tokens = batches[0]["tokens"].numel()
-    return {"arch": cfg.name, "impl": cfg.sparsity.ffn_impl,
-            "remat": cfg.remat, "layers": cfg.num_layers,
-            "batch": list(batches[0]["tokens"].shape),
-            "losses": losses, "step_ms": step_ms,
-            "step_ms_median_after_first": median,
-            "tokens_per_s": tokens / median * 1e3,
-            # dense-equivalent 6 N D over the median step against the
-            # card's bf16 peak (observability/accounting.py)
-            "mfu": accounting.mfu(accounting.model_flops(
-                cfg, n_params, tokens, train=True), median / 1e3),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "grad_peak_mem_bytes": grad_peak,
-            "launches": ops.launch_counts(),
-            "hybrid_overflow": ops.HybridOverflowLog.seen(),
-            "ell_rows": ell_rows, "backup_rows": backup_rows}
+    res = {"arch": cfg.name, "impl": cfg.sparsity.ffn_impl,
+           "remat": cfg.remat, "layers": cfg.num_layers,
+           "batch": list(batches[0]["tokens"].shape),
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_median_after_first": median,
+           "tokens_per_s": tokens / median * 1e3,
+           # dense-equivalent 6 N D over the median step against the
+           # card's bf16 peak (observability/accounting.py)
+           "mfu": accounting.mfu(accounting.model_flops(
+               cfg, n_params, tokens, train=True), median / 1e3),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "grad_peak_mem_bytes": grad_peak,
+           "launches": ops.launch_counts(),
+           "hybrid_overflow": ops.HybridOverflowLog.seen(),
+           "ell_rows": ell_rows, "backup_rows": backup_rows}
+    if profile:
+        prof = profile_fn(torch, lambda: float(
+            step(params, opt, batches[0])[2]["loss"]))
+        res["profiled_step"] = {k: prof[k] for k in (
+            "wall_ms", "kernel_calls", "device_kernel_ms",
+            "device_busy_share")}
+        res["top_kernels"] = prof["top_kernels"][:8]
+    return res
 
 
 def summed_launches(runs):
@@ -3977,6 +4316,71 @@ def phase_train_dense(torch):
 
 
 # --------------------------------------------------------------------------- #
+# 7g. training the attention-free families at full width
+# --------------------------------------------------------------------------- #
+
+# (arch, layers (None: all), the FFN gradient check's rows): zamba2-1.2b at
+# all 38 layers (1.17 B parameters), rwkv6-7b at 8 of 32 (2.15 B, f32 AdamW
+# moments: about 22 bytes a parameter in the functional update)
+SSM_TRAIN = (("zamba2-1.2b", None, 2048), ("rwkv6-7b", 8, 1024))
+SSM_TRAIN_STEPS = 4
+
+
+def phase_train_ssm(torch):
+    """zamba2-1.2b (38 layers) and rwkv6-7b (8 layers) at full width in
+    bf16 under their own remat ("full") and AdamW moments (float32),
+    TRAIN_ALIVE of the pattern's columns alive (zamba2's shared W_g,
+    rwkv6's channel-mix W_u), TRAIN_BATCH x TRAIN_SEQ tokens a step (S
+    1024: the chunked SSD and WKV), hybrid then dense, SSM_TRAIN_STEPS
+    steps each: K8 and K9 launched (rwkv6 non-gated with relu^2), K7 for
+    zamba2's shared block, rows on both sides of the format, no overflow,
+    a falling loss, step time, peak and MFU (``train_steps``), one hybrid
+    step traced (busy share, kernels, the top 8); then each
+    config's FFN layer in float32, hybrid gradients against the dense
+    formula (``grad_check``). A fixed batch and depth: an out-of-memory
+    error fails the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    free, total = torch.cuda.mem_get_info()
+    runs = []
+    for arch, layers, rows in SSM_TRAIN:
+        pair = []
+        for impl in ("hybrid", "dense"):
+            cfg, params = ssm_model(torch, arch, layers, impl,
+                                    alive=TRAIN_ALIVE)
+            params = lm.trainable(params)
+            pair.append(train_steps(torch, cfg, train_batches(
+                torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SSM_TRAIN_STEPS),
+                params=params, profile=impl == "hybrid"))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        hybrid, dense = pair
+        full = get_config(arch)
+        check = grad_check(torch, m=rows, k=full.d_model, n=full.d_ff,
+                           seed=SEED + 9, gated=full.gated,
+                           act=full.sparsity.activation)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "train_ssm", "arch": arch, "family": full.family,
+              "layers": hybrid["layers"], "remat": hybrid["remat"],
+              "opt_state_dtype": full.opt_state_dtype,
+              "batch": [TRAIN_BATCH, TRAIN_SEQ],
+              "alive_columns": TRAIN_ALIVE,
+              "card_free_bytes_before": free, "card_total_bytes": total,
+              "runs": pair,
+              "hybrid_over_dense_peak": {
+                  key: hybrid[key] / dense[key]
+                  for key in ("peak_mem_bytes", "grad_peak_mem_bytes")},
+              "grad_check": check})
+        attn = ("flash_attention",) if full.family == "hybrid" else ()
+        assert_trained(hybrid, attn + TRAIN_KERNELS[1:])
+        assert_trained(dense, attn)
+        runs += pair
+    return {"launches": summed_launches(runs)}
+
+
+# --------------------------------------------------------------------------- #
 # 8. the same weights in float32 on the CPU
 # --------------------------------------------------------------------------- #
 
@@ -4016,7 +4420,46 @@ def first_layers(tree, n):
         for name, leaf in tree["blocks"].items()}}
 
 
-def phase_check(torch, serve, olmo, dense):
+def ssm_check(torch, arch, cfg, cpu_params, prompt, steps=4):
+    """The first SSM_CHECK_LAYERS of ``arch`` (bf16 weights kept on the
+    CPU by ``phase_serve_ssm``): the static loop in float32 on the CPU
+    (the plain versions) prefills ``prompt`` and decodes ``steps`` greedy
+    tokens; the card (bf16, the gather FFN: K1 + K2 or K1 + K6)
+    teacher-forces the CPU's tokens through ``decode_step``. Logits of the
+    prefill's last position and of each decode step within LOGIT_TOL,
+    tokens equal wherever the CPU's top-2 margin exceeds it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    n = SSM_CHECK_LAYERS[arch]
+    cfg = dataclasses.replace(cfg, num_layers=n, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="gather"))
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), cpu_params)
+    ref = []
+    toks = serve.generate(p32, cfg32, torch.tensor([prompt]), steps + 1,
+                          len(prompt) + steps + 2, logits_out=ref)
+    del p32
+    card = moe_forced_logits(torch, cfg, lm.params_to(cpu_params, "cuda"),
+                             toks[:, :-1].cuda(), len(prompt) - 1)[0].cpu()
+    diffs = []
+    for step, (a, b) in enumerate(zip(card, (r[0] for r in ref))):
+        assert bool(torch.isfinite(a).all()), f"{arch}: non-finite logits"
+        assert a.shape == (cfg.padded_vocab,)
+        diffs.append(float((a - b).abs().max()))
+        top2 = torch.topk(b, 2).values
+        if float(top2[0] - top2[1]) > LOGIT_TOL:
+            assert int(a.argmax()) == int(b.argmax()), \
+                f"{arch} step {step}: token differs"
+    assert max(diffs) <= LOGIT_TOL, \
+        f"{arch}: card vs CPU logits differ by {max(diffs)}"
+    return {"arch": arch, "layers": n, "len": len(prompt),
+            "backend": "gather", "norm": cfg.norm,
+            "max_abs_logit_diff": diffs,
+            "cpu_first_token": int(toks[0, len(prompt)])}
+
+
+def phase_check(torch, serve, olmo, dense, ssm):
     """Tolerance: card logits (bf16 weights and activations, 8 layers) within
     LOGIT_TOL of the CPU's float32 logits, whose spread is about 1; a bf16
     value carries 8 significant bits, a relative rounding of 2^-9 per step.
@@ -4081,6 +4524,12 @@ def phase_check(torch, serve, olmo, dense):
                        "cpu_top2_margin": float(top2[0] - top2[1]),
                        "engine_first_token": engine_first,
                        "cpu_first_token": int(ref[0].argmax())})
+    # rwkv6-7b's first 2 layers (affine LayerNorm, K1 with relu^2 + K6) and
+    # zamba2-1.2b's first 6 (the shared block once: K1 + K2) through the
+    # static loop's decode
+    for arch, (cfg, cpu_params, prompt) in ssm["check"].items():
+        with torch.no_grad():
+            report.append(ssm_check(torch, arch, cfg, cpu_params, prompt))
     emit({"phase": "check", "tolerance": LOGIT_TOL, "prompts": report,
           "train_step": check_train(torch),
           "train_step_olmo": check_train(torch, "olmo-1b", remat=None)})
@@ -4141,12 +4590,14 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
 
 SERVE_PHASES = {"disagg": phase_disagg,
                 "serve_moe": lambda torch, *_: phase_serve_moe(torch),
-                "serve_dense": lambda torch, *_: phase_serve_dense(torch)}
+                "serve_dense": lambda torch, *_: phase_serve_dense(torch),
+                "serve_ssm": lambda torch, *_: phase_serve_ssm(torch)}
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,
                 "train_moe": phase_train_moe,
                 "train_dense": phase_train_dense,
+                "train_ssm": phase_train_ssm,
                 "check_train": lambda torch: emit({
                     "phase": "check_train",
                     "train_step": check_train(torch),

@@ -21,6 +21,8 @@ _REGISTRY: Dict[str, str] = {
     "phi3-mini-3.8b": "phi3_mini_3p8b",
     "deepseek-67b": "deepseek_67b",
     "llama3-405b": "llama3_405b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

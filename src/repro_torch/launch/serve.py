@@ -35,6 +35,10 @@ Usage:
   # route to the static loop, as in the JAX package
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
       --reduced --device cpu --prompt-len 24 --gen 16
+  # the attention-free families (rwkv6-7b: ssm; zamba2-1.2b: hybrid) go
+  # to the static loop too; --http and --disagg refuse them
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --reduced --device cpu
 
 Weights are random (``lm.init``, ``--seed``) and so are the ``--batch``
 prompts of ``--prompt-len`` token ids (numpy, ``--seed``). The batch run
@@ -278,6 +282,10 @@ def main(argv=None):
     use_engine = uses_engine(cfg, args.static)
     if args.http and not use_engine:
         raise SystemExit("--http requires the continuous-batching engine "
+                         "(dense/moe family without a window or local "
+                         "chunk, no --static)")
+    if args.disagg and not use_engine:
+        raise SystemExit("--disagg requires the continuous-batching engine "
                          "(dense/moe family without a window or local "
                          "chunk, no --static)")
     cache_len = args.prompt_len + args.gen + 1

@@ -1,6 +1,6 @@
-"""Dense- and MoE-family LM for training and serving (ports ``forward``,
-``loss_fn``, the paged entry points and the static decode of
-``repro/models/lm.py``).
+"""LM of the dense, MoE, hybrid (zamba2) and ssm (rwkv6) families for
+training and serving (ports ``forward``, ``loss_fn``, the paged entry
+points and the static decode of ``repro/models/lm.py``).
 
 Public API:
   init(cfg, device=None, seed=0)             -> params
@@ -18,7 +18,10 @@ Public API:
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
 every per-layer leaf stacked on a leading L axis (a MoE block's ``moe``:
 ``router`` (L, D, E) and ``experts`` with (L, E, ...) leaves, in place of
-``ffn``), so ``bridge.py`` maps one onto the other leaf for leaf. The
+``ffn``; a hybrid layer's ``ln`` and ``mamba``, with the one shared
+transformer block unstacked in ``shared_attn``; an ssm layer's ``ln1``,
+``ln2``, time mix ``tm`` and channel mix ``cm``), so ``bridge.py`` maps
+one onto the other leaf for leaf. The
 layer stack is a Python loop (the JAX package scans); the training
 forward unbinds the stacked leaves once, so autograd sums each layer's
 gradient into one slice, not into a zero tensor the size of the whole
@@ -35,9 +38,10 @@ point asks the FFN for the serving probe only (``nnz_mean``, ``tile_frac``;
 static reference loop (``launch/serve.py:generate``): one (L, B, S, Hkv,
 hd) cache per K and V, one token a call; a window's cache is a ring of
 min(S, window) slots and a local chunk's one of min(S, attn_chunk) that
-restarts at each chunk (``layers._cache_slot``). The paged entry points
-take the dense and MoE families without a window or chunk, as the JAX
-package's engine does.
+restarts at each chunk (``layers._cache_slot``); the hybrid and ssm
+families carry their recurrent states (``init_cache``). The paged entry
+points take the dense and MoE families without a window or chunk, as the
+JAX package's engine does.
 
 Recomputation runs a layer's forward again in the backward, kernels
 included, so they count again in ``ops.launch_counts()`` and every hybrid
@@ -57,13 +61,13 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import sparse_ffn
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import (attention, attn_init, embed_init,
                                        embed_lookup, lm_logits, norm_apply,
                                        norm_init)
 
 _NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -81,6 +85,36 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _block_init(cfg: ModelConfig, dtype, gen, dev, use_moe: bool = False):
+    """A transformer block: norms, attention and the FFN (or MoE)."""
+    d = cfg.d_model
+    p = {"ln1": norm_init(cfg.norm, d, dtype, dev),
+         "ln2": norm_init(cfg.norm, d, dtype, dev),
+         "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, dtype, gen, dev)}
+    if use_moe:
+        p["moe"] = moe.moe_init(d, cfg.d_ff, cfg.num_experts, cfg.gated,
+                                dtype, gen, dev)
+    else:
+        p["ffn"] = sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen, dev)
+    return p
+
+
+def _layer_init(cfg: ModelConfig, dtype, gen, dev):
+    """One layer of the stack: a transformer block (dense, moe), a norm and
+    a Mamba2 block (hybrid), or the RWKV-6 time and channel mixes (ssm)."""
+    d = cfg.d_model
+    if cfg.family == "hybrid":
+        return {"ln": norm_init(cfg.norm, d, dtype, dev),
+                "mamba": mamba2.mamba2_init(cfg, dtype, gen, dev)}
+    if cfg.family == "ssm":
+        return {"ln1": norm_init(cfg.norm, d, dtype, dev),
+                "ln2": norm_init(cfg.norm, d, dtype, dev),
+                "tm": rwkv6.timemix_init(cfg, dtype, gen, dev),
+                "cm": rwkv6.channelmix_init(cfg, dtype, gen, dev)}
+    return _block_init(cfg, dtype, gen, dev, use_moe=cfg.family == "moe")
+
+
 def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     """Random parameters (normal, std 0.02) from a ``torch.Generator``
     seeded with ``seed`` on ``device`` (default: the card)."""
@@ -90,44 +124,42 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
 
-    layers = []
-    for _ in range(L):
-        p = {"ln1": norm_init(cfg.norm, d, dtype, dev),
-             "ln2": norm_init(cfg.norm, d, dtype, dev),
-             "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, dtype, gen, dev)}
-        if cfg.family == "moe":
-            p["moe"] = moe.moe_init(d, cfg.d_ff, cfg.num_experts, cfg.gated,
-                                    dtype, gen, dev)
-        else:
-            p["ffn"] = sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen,
-                                       dev)
-        layers.append(p)
+    layers = [_layer_init(cfg, dtype, gen, dev) for _ in range(L)]
     blocks = _stack(layers)
     del layers
-    params: Dict[str, Any] = {
+    params: Dict[str, Any] = {}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _block_init(cfg, dtype, gen, dev)
+    params.update({
         "embed": embed_init(cfg.padded_vocab, d, dtype, gen, dev),
         "final_ln": norm_init(cfg.norm, d, dtype, dev),
         "blocks": blocks,
-    }
+    })
     if not cfg.tied_embeddings:
         params["lm_head"] = embed_init(cfg.padded_vocab, d, dtype, gen, dev)
     return prepare_params(params)
 
 
-def _ffn_leaves(blocks: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The FFN weights of the stacked blocks: ``ffn`` (L, ...) leaves, or a
-    MoE block's ``moe.experts`` (L, E, ...)."""
-    return blocks["moe"]["experts"] if "moe" in blocks else blocks["ffn"]
+def _ffn_leaves(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The FFN weights: ``blocks.ffn`` (L, ...) leaves, a MoE block's
+    ``blocks.moe.experts`` (L, E, ...), the hybrid family's shared block's
+    ``shared_attn.ffn`` (no L axis) or the ssm family's channel mix
+    ``blocks.cm`` (its ``mix`` beside ``wu`` and ``wd``)."""
+    if "shared_attn" in params:
+        return params["shared_attn"]["ffn"]
+    blocks = params["blocks"]
+    if "moe" in blocks:
+        return blocks["moe"]["experts"]
+    return blocks["cm"] if "cm" in blocks else blocks["ffn"]
 
 
 def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Add the weights derived once at load time: for a gated FFN (one with
     ``wg``), ``wu_t`` beside it, W_u transposed to (..., N, K), which the
     TwELL fused kernel (K2), its only reader, takes by row (``blocks.ffn``,
-    or every expert's in ``blocks.moe.experts``); a non-gated FFN gets
-    none. Idempotent."""
-    ffn = _ffn_leaves(params["blocks"])
+    every expert's in ``blocks.moe.experts``, or ``shared_attn.ffn``); a
+    non-gated FFN gets none. Idempotent."""
+    ffn = _ffn_leaves(params)
     if "wg" in ffn and "wu_t" not in ffn:
         ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
     return params
@@ -137,13 +169,9 @@ def trainable(params: Dict[str, Any]) -> Dict[str, Any]:
     """The parameters an optimizer updates: the tree without the derived
     ``wu_t`` (re-derive it with ``prepare_params`` before serving trained
     weights)."""
-    blocks = params["blocks"]
-    ffn = {k: v for k, v in _ffn_leaves(blocks).items() if k != "wu_t"}
-    if "moe" in blocks:
-        blocks = {**blocks, "moe": {**blocks["moe"], "experts": ffn}}
-    else:
-        blocks = {**blocks, "ffn": ffn}
-    return {**params, "blocks": blocks}
+    if not isinstance(params, dict):
+        return params
+    return {k: trainable(v) for k, v in params.items() if k != "wu_t"}
 
 
 def params_to(params, device) -> Dict[str, Any]:
@@ -162,8 +190,12 @@ def _layer(tree, l: int):
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device=None) -> Dict[str, torch.Tensor]:
     """Block-paged KV pools, (L, num_blocks, block_size, Hkv, hd) each;
-    block 0 is the null block (see serving/kv_cache.py)."""
+    block 0 is the null block (see serving/kv_cache.py). The dense and MoE
+    families only, as the JAX package's engine."""
     _check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged KV serving supports dense/moe families, got {cfg.family}")
     if cfg.window or cfg.attn_chunk:
         raise NotImplementedError(
             "paged KV serving does not support windowed/chunked attention yet")
@@ -317,26 +349,78 @@ def stacked_layers(body, x, layers, cfg: ModelConfig):
     return x, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
 
 
+def _mark(aux: Dict, device) -> Dict:
+    """A block's FFN aux as the stack keeps it: ``ffn_present`` 1 and a
+    ``moe_balance`` (0 outside a MoE block)."""
+    aux["ffn_present"] = torch.ones((), device=device)
+    aux.setdefault("moe_balance", torch.zeros((), device=device))
+    return aux
+
+
+def _zero_aux(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    """The aux of a hybrid layer without the shared block (JAX's
+    ``_zero_aux``): ``ffn_present`` 0, so ``loss_fn`` averages over the
+    shared block's applications only."""
+    zero = torch.zeros((), device=device)
+    return {"l1": zero, "nnz_mean": zero,
+            "nnz_max": torch.zeros((), dtype=torch.int32, device=device),
+            "neuron_active": torch.zeros((cfg.d_ff,), dtype=torch.bool,
+                                         device=device),
+            "tile_frac": zero, "ffn_present": zero, "moe_balance": zero}
+
+
+def _has_shared_attn(cfg: ModelConfig, layer: int) -> bool:
+    """Whether the hybrid family's shared block runs after ``layer``."""
+    every = cfg.shared_attn_every
+    return layer % every == every - 1
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig):
-    """Training forward of the dense and MoE families: tokens (B, S) ->
-    (logits (B, S, V), aux), aux stacked per layer as the JAX package
-    stacks it (``l1``, ``nnz_mean``, ``nnz_max``, ``neuron_active``,
-    ``tile_frac``, ``ffn_present`` = 1, ``moe_balance``: the router's
-    balance loss, 0 in a dense block); the layers run under ``cfg.remat``
-    (``stacked_layers``)."""
+    """Training forward: tokens (B, S) -> (logits (B, S, V), aux), aux
+    stacked per layer as the JAX package stacks it (``l1``, ``nnz_mean``,
+    ``nnz_max``, ``neuron_active``, ``tile_frac``, ``ffn_present``,
+    ``moe_balance``: the router's balance loss, 0 outside a MoE block).
+    dense/moe: a transformer block a layer. hybrid: a Mamba2 block a layer
+    (``mamba2.mamba2_apply``), the one shared transformer block
+    (``params["shared_attn"]``) after every ``shared_attn_every``-th, the
+    other layers' aux zero with ``ffn_present`` 0. ssm: RWKV-6's time mix
+    and channel mix, each after its norm and added back. The layers run
+    under ``cfg.remat`` (``stacked_layers``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    kind = _attn_kind(cfg)
+    layers = _unstack(params["blocks"], cfg.num_layers)
 
-    def body(xc, p):
-        xc, aux = _block_apply(p, xc, cfg, positions, None, True, kind=kind)
-        aux["ffn_present"] = torch.ones((), device=xc.device)
-        aux.setdefault("moe_balance", torch.zeros((), device=xc.device))
-        return xc, aux
-    x, aux = stacked_layers(body, x, _unstack(params["blocks"],
-                                              cfg.num_layers), cfg)
+    if cfg.family == "hybrid":
+        shared = params["shared_attn"]
+
+        def body(xc, ip):
+            i, p = ip
+            xc = xc + mamba2.mamba2_apply(
+                p["mamba"], norm_apply(cfg.norm, p["ln"], xc), cfg)
+            if not _has_shared_attn(cfg, i):
+                return xc, _zero_aux(cfg, xc.device)
+            xc, aux = _block_apply(shared, xc, cfg, positions, None, True)
+            return xc, _mark(aux, xc.device)
+        layers = list(enumerate(layers))
+    elif cfg.family == "ssm":
+        def body(xc, p):
+            y, _ = rwkv6.timemix_apply(
+                p["tm"], norm_apply(cfg.norm, p["ln1"], xc), cfg)
+            xc = xc + y
+            y, _, aux = rwkv6.channelmix_apply(
+                p["cm"], norm_apply(cfg.norm, p["ln2"], xc), cfg,
+                cfg.sparsity, collect_aux=True)
+            return xc + y, _mark(aux, xc.device)
+    else:
+        kind = _attn_kind(cfg)
+
+        def body(xc, p):
+            xc, aux = _block_apply(p, xc, cfg, positions, None, True,
+                                   kind=kind)
+            return xc, _mark(aux, xc.device)
+    x, aux = stacked_layers(body, x, layers, cfg)
     x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     return lm_logits(x, head), aux
@@ -423,46 +507,117 @@ def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
                ) -> Dict[str, Any]:
-    """Zero monolithic KV cache of the dense and MoE families: ``k`` and
-    ``v`` of shape (L, batch, S_cache, Hkv, hd) and ``pos``, the tokens
-    written so far (a Python int; JAX's is an int32 scalar). ``cache_len``
-    is the capacity; a sliding window keeps a ring of min(cache_len,
-    window) slots, a local chunk min(cache_len, attn_chunk), as JAX's
-    ``init_cache`` sizes them."""
+    """Zero monolithic decode cache, with ``pos``, the tokens written so
+    far (a Python int; JAX's is an int32 scalar). dense/moe: ``k`` and
+    ``v`` of shape (L, batch, S_cache, Hkv, hd); ``cache_len`` is the
+    capacity, a sliding window keeps a ring of min(cache_len, window)
+    slots, a local chunk min(cache_len, attn_chunk), as JAX's
+    ``init_cache`` sizes them. hybrid: each Mamba2 layer's float32 SSM
+    ``state`` (L, batch, H, hd, N) and ``conv`` window (L, batch, W - 1,
+    C), and ``k``/``v`` for each of the L // shared_attn_every applications
+    of the shared block. ssm: each layer's float32 ``wkv`` state (L, batch,
+    H, hd, hd) and the time and channel mixes' token shifts ``shift_tm``,
+    ``shift_cm`` (L, batch, D)."""
     _check_family(cfg)
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family == "hybrid":
+        layer = mamba2.mamba2_cache_init(cfg, batch, dtype, dev)
+        napp = L // cfg.shared_attn_every
+        return {**{k: v.new_zeros((L, *v.shape)) for k, v in layer.items()},
+                "k": zeros(napp, batch, cache_len, hkv, hd),
+                "v": zeros(napp, batch, cache_len, hkv, hd), "pos": 0}
+    if cfg.family == "ssm":
+        h, hdr = rwkv6.rwkv_dims(cfg)
+        return {"wkv": zeros(L, batch, h, hdr, hdr, dt=torch.float32),
+                "shift_tm": zeros(L, batch, cfg.d_model),
+                "shift_cm": zeros(L, batch, cfg.d_model), "pos": 0}
     sc = min(cache_len, cfg.window) if cfg.window else cache_len
     if cfg.attn_chunk:
         sc = min(cache_len, cfg.attn_chunk)
-    shape = (cfg.num_layers, batch, sc, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+    return {"k": zeros(L, batch, sc, hkv, hd),
+            "v": zeros(L, batch, sc, hkv, hd), "pos": 0}
+
+
+def _hybrid_decode(params, cache, x, cfg, positions, pos):
+    """The hybrid family's layers for one token: each Mamba2 layer's state
+    and conv window, and after every ``shared_attn_every``-th layer the
+    shared block against its application's K/V, all updated in place."""
+    shared = params["shared_attn"]
+    for l in range(cfg.num_layers):
+        p = _layer(params["blocks"], l)
+        y, new = mamba2.mamba2_decode(
+            p["mamba"], norm_apply(cfg.norm, p["ln"], x), cfg,
+            {"state": cache["state"][l], "conv": cache["conv"][l]})
+        x = x + y
+        cache["state"][l] = new["state"]
+        cache["conv"][l] = new["conv"]
+        if _has_shared_attn(cfg, l):
+            app = l // cfg.shared_attn_every
+            x, _ = _block_apply(shared, x, cfg, positions,
+                                {"k": cache["k"][app], "v": cache["v"][app],
+                                 "pos": pos}, False)
+    return x
+
+
+def _ssm_decode(params, cache, x, cfg):
+    """The ssm family's layers for one token: each layer's WKV state and
+    token shifts, updated in place."""
+    for l in range(cfg.num_layers):
+        p = _layer(params["blocks"], l)
+        y, tm = rwkv6.timemix_apply(
+            p["tm"], norm_apply(cfg.norm, p["ln1"], x), cfg,
+            state={"wkv": cache["wkv"][l], "shift": cache["shift_tm"][l]})
+        x = x + y
+        y, cm, _ = rwkv6.channelmix_apply(
+            p["cm"], norm_apply(cfg.norm, p["ln2"], x), cfg, cfg.sparsity,
+            state={"shift": cache["shift_cm"][l]})
+        x = x + y
+        cache["wkv"][l] = tm["wkv"]
+        cache["shift_tm"][l] = tm["shift"]
+        cache["shift_cm"][l] = cm["shift"]
+    return x
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence through the monolithic cache: tokens
-    (B, 1) -> (logits (B, 1, V), cache). The K/V are written in place at
-    position ``cache["pos"]`` (its ring or chunk slot for a window or a
-    local chunk), which advances by one; attention is plain masked
-    attention over the cache (``layers.attention``), the FFN
-    ``sparse_ffn.apply`` under ``cfg.sparsity`` (K1 + K2 on the card for
-    ``gather``; each expert's in a MoE block). Raises "cache full" once
-    ``pos`` reaches the cache's slots, unless they hold a whole window or
-    chunk (the ring then wraps, the chunk restarts)."""
+    (B, 1) -> (logits (B, 1, V), cache), the cache updated in place and
+    ``pos`` advanced by one. dense/moe: the K/V are written at position
+    ``pos`` (its ring or chunk slot for a window or a local chunk);
+    attention is plain masked attention over the cache
+    (``layers.attention``), the FFN ``sparse_ffn.apply`` under
+    ``cfg.sparsity`` (K1 + K2 on the card for ``gather``; each expert's in
+    a MoE block). hybrid: ``mamba2.mamba2_decode`` a layer and the shared
+    block (K1 + K2) at its applications. ssm: RWKV-6's per-token WKV step
+    and the channel mix (K1 with relu^2, then K6). Raises "cache full" once
+    ``pos`` reaches the K/V slots, unless they hold a whole window or
+    chunk (the ring then wraps, the chunk restarts); the ssm family keeps
+    no K/V and has no such limit."""
     _check_family(cfg)
-    pos, slots = int(cache["pos"]), cache["k"].shape[2]
-    span = cfg.window or cfg.attn_chunk     # 0: causal, every key kept
-    if pos >= slots and not (span and slots >= span):
-        raise ValueError(f"cache full: pos {pos} of {slots}")
+    pos = int(cache["pos"])
+    if "k" in cache:
+        slots = cache["k"].shape[2]
+        span = cfg.window or cfg.attn_chunk     # 0: causal, every key kept
+        if pos >= slots and not (span and slots >= span):
+            raise ValueError(f"cache full: pos {pos} of {slots}")
     x = embed_lookup(params["embed"], tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    for l in range(cfg.num_layers):
-        layer_cache = {"k": cache["k"][l], "v": cache["v"][l], "pos": pos}
-        x, _ = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
-                            layer_cache, False, kind=_attn_kind(cfg))
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cache, x, cfg, positions, pos)
+    elif cfg.family == "ssm":
+        x = _ssm_decode(params, cache, x, cfg)
+    else:
+        for l in range(cfg.num_layers):
+            layer_cache = {"k": cache["k"][l], "v": cache["v"][l],
+                           "pos": pos}
+            x, _ = _block_apply(_layer(params["blocks"], l), x, cfg,
+                                positions, layer_cache, False,
+                                kind=_attn_kind(cfg))
     cache["pos"] = pos + 1
     x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]

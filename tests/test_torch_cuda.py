@@ -75,7 +75,8 @@ GATE_SHAPES = [  # (M, K, N, T, C, act, keep)
 ] + [  # K1's launch plan: M at the block-width and row-block boundaries
     (m, 2048, 5632, 256, 8, "relu", 0.02)
     for m in (8, 9, 20, 64, 65, 128, 129, 256)
-] + [  # olmo-1b's W_u, decode and prefill
+] + [  # olmo-1b's W_u and zamba2-1.2b's shared W_g (K2 at its K 2048, N
+    # 8192), decode and prefill
     (m, 2048, 8192, 256, 8, "relu", 0.02) for m in (4, 256)
 ]
 
@@ -460,6 +461,32 @@ def test_down_proj_matches_plain(card, shape):
     torch.testing.assert_close(y, py, **TOL)
     assert float(y[0].abs().max()) == 0.0
     assert torch.equal(y, twell_down_proj_cuda(v, i, z, wd, t))
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_relu2_gate_and_down_proj_at_rwkv6_shape(card, m):
+    """rwkv6-7b's channel mix as the gather path serves it (K 4096, N
+    14336, T 256, C 8, 2% of W_u's columns alive): K1 packs relu(x @
+    W_u)^2, then K6 projects the plain version's packed pattern down; each
+    within bf16 tolerance of its plain version, the same bits each run."""
+    from repro_torch.kernels.sparse_ffn import (twell_down_proj_cuda,
+                                                twell_down_proj_plain)
+    from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                                twell_gate_matmul_plain)
+    k, n, t, c = 4096, 14336, 256, 8
+    x, wu, _, wd = _gate(m, k, n, 0.02, m + k, card)
+    v, i, z = twell_gate_matmul_cuda(x, wu, t, c, "relu2")
+    pv, pi, pz = twell_gate_matmul_plain(x, wu, t, c, "relu2")
+    pre = x.float() @ wu.float()
+    rows = ~((pre != 0) & (pre.abs() < 1e-3 * pre.abs().max())).any(-1)
+    assert torch.equal(z[rows], pz[rows]) and torch.equal(i[rows], pi[rows])
+    torch.testing.assert_close(v[rows].float(), pv[rows].float(), **TOL)
+    assert torch.equal(v, twell_gate_matmul_cuda(x, wu, t, c, "relu2")[0])
+    pz = torch.clamp(pz, max=t // c)
+    y = twell_down_proj_cuda(pv, pi, pz, wd, t)
+    torch.testing.assert_close(y, twell_down_proj_plain(pv, pi, pz, wd, t),
+                               **TOL)
+    assert torch.equal(y, twell_down_proj_cuda(pv, pi, pz, wd, t))
 
 
 def _down_case(m, k, n, t, c, keep, seed, dev, dead_rows=0):

@@ -50,7 +50,8 @@ def test_walk_covers_the_package():
             "accounting.py", "runlog.py", "paper_1p5b.py", "telemetry.py",
             "trace.py", "engine_spec.py", "server.py", "coordinator.py",
             "transfer.py", "moe.py", "mixtral_8x22b.py",
-            "llama4_scout_17b_a16e.py"} <= names
+            "llama4_scout_17b_a16e.py", "mamba2.py", "rwkv6.py",
+            "zamba2_1p2b.py", "rwkv6_7b.py"} <= names
 
 
 @pytest.fixture
@@ -76,6 +77,11 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         lm.init_cache(moe_cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama4-scout-17b-a16e", "--reduced"])
+    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init_cache(get_config(arch).reduced(), 1, 8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--reduced"])
     params = lm.init(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(params, cfg)
