@@ -31,7 +31,10 @@ JAX package) and runs these phases, each printing one JSON line:
                  at M 4 and 64 and at deepseek-67b's (K 8192, N 22016) at
                  M 4, K1 with relu^2 and K6 at rwkv6-7b's channel mix (K
                  4096, N 14336) and K1 + K2 at zamba2-1.2b's shared FFN
-                 (K 2048, N 8192) at M 4, K8 and K9 at rwkv6-7b's
+                 (K 2048, N 8192) at M 4, K1 and K6 at whisper-large-v3's
+                 FFN (K 1280, N 5120) at M 4 and over the encoder's 6000
+                 frame rows, K1 + K2 at llama-3.2-vision-11b's (K 4096,
+                 N 14336) at M 4, K8 and K9 at rwkv6-7b's
                  training shape (K 4096, N 14336),
                  K6 at M 4 and 256 (with K1 + K6
                  beside the dense non-gated FFN) and on a pattern with every
@@ -52,7 +55,7 @@ JAX package) and runs these phases, each printing one JSON line:
                  wide union maps; K7 at
                  the train phase's batch with 32 heads of 64, one 4096-token
                  row, olmo-1b's 16 heads of 128, phi3-mini's 32 of 96 and
-                 deepseek-67b's 64 of 128
+                 deepseek-67b's 64 of 128 and whisper-large-v3's 20 of 64
   4. serve    -- the port's ``ServingEngine`` serves paper-0.5b at full width
                  (gather/TwELL backend, paged KV, chunked prefill, prefix
                  cache; every step entry a CUDA graph, captured at the first
@@ -133,8 +136,8 @@ JAX package) and runs these phases, each printing one JSON line:
                  attend; each launched over exactly this run, no overflow,
                  the prefix cache hit, the pool clean; then a profiled rerun
                  and the kernel launches of 4 decode-only steps
-  6b. serve_moe -- mixtral-8x22b and llama4-scout-17b-a16e at full width
-                 and MOE_LAYERS layers (KEEP of every expert's gate
+  6b. serve_moe -- mixtral-8x22b (1 layer) and llama4-scout-17b-a16e (2)
+                 at full width (KEEP of every expert's gate
                  columns alive) through the serve CLI's static loop,
                  greedy: gather (K1 + K2 once an expert a layer a step,
                  counted exactly; K2 past K 4096) then dense, tokens
@@ -147,7 +150,7 @@ JAX package) and runs these phases, each printing one JSON line:
                  dense, logits within MOE_GATHER_TOL at every generated
                  position (K1 + K2 checked inside the wrapped ring);
                  tokens/s and the step time
-  6c. serve_dense -- phi3-mini-3.8b (all 32 layers, head dim 96),
+  6c. serve_dense -- phi3-mini-3.8b (8 of its 32 layers, head dim 96),
                  deepseek-67b and llama3-405b (2 layers each, GQA 64/8
                  and 128/8 at head dim 128, d_model 8192 and 16384) at
                  full width, KEEP of every layer's gate columns alive,
@@ -166,24 +169,38 @@ JAX package) and runs these phases, each printing one JSON line:
                  farther from it than dense by more than LOGIT_TOL;
                  tokens/s, decode step, TTFT
   6d. serve_ssm -- zamba2-1.2b (hybrid: Mamba2 layers and one shared
-                 attention block after every 6th; all 38 layers) and
+                 attention block after every 6th; 12 of 38 layers) and
                  rwkv6-7b (ssm: RWKV-6 time and channel mixes, affine
-                 LayerNorm; all 32 layers) at full width, KEEP of the FFN
+                 LayerNorm; 8 of 32 layers) at full width, KEEP of the FFN
                  pattern's columns alive, through the serve CLI's static
                  loop, greedy: gather (zamba2: K1 + K2 at each of the
-                 shared block's 6 applications a step; rwkv6: K1 with
+                 shared block's 2 applications a step; rwkv6: K1 with
                  relu^2, then K6, in every layer a step; counted exactly),
                  then dense, no overflow, the dense run's tokens
                  teacher-forced through gather and dense (logits within
                  LOGIT_TOL on the first 6 / 2 layers) and at the served
                  depth through both and float32 (each path within
-                 SSM_SERVED_TOL of float32), tokens equal up to each
+                 STATIC_SERVED_TOL of float32), tokens equal up to each
                  request's first near-tie (LOGIT_TOL, or twice the served
                  gather-to-dense gap), tokens/s and the step time; then
                  in float32 zamba2's first 6 layers and rwkv6's first 2,
                  SSM_RECUR_LEN tokens teacher-forced through decode, the
                  logits at every position held against ``lm.forward``'s
                  (the chunked SSD and WKV)
+  6e. serve_xattn -- whisper-large-v3 (audio: 32 encoder and 32 decoder
+                 layers, 4 x XATTN_FRAMES frames) and llama-3.2-vision-11b
+                 (vlm: all 40 layers, 8 of them tanh-gated cross blocks
+                 with nonzero gates, 4 x 1024 patches) at full width, KEEP
+                 of the FFN pattern's columns alive: prefill_cross_cache
+                 (whisper's encoder: K1, then K6, over 6000 frame rows)
+                 and the serve CLI's static loop from that cache, greedy:
+                 gather (K1 + K6 / K1 + K2 in every layer a step, counted
+                 exactly) then dense, no overflow; the dense run's tokens
+                 teacher-forced through gather and dense on the first
+                 layers (within LOGIT_TOL) and at the served depth
+                 through both and float32 (STATIC_SERVED_TOL), tokens equal
+                 up to each request's first near-tie, the cross cache's
+                 seconds, tokens/s, the step time and a traced step
   7. train    -- TRAIN_STEPS AdamW steps of paper-0.5b at full width and
                  depth through the port's ``make_train_step`` with the hybrid
                  FFN (K8 + K9) and K7 attention, 8 x 1024 SyntheticLM tokens
@@ -225,15 +242,26 @@ JAX package) and runs these phases, each printing one JSON line:
                  sides of the hybrid format, no overflow, a falling loss,
                  step time, peak, MFU; then each config's FFN layer in
                  float32, hybrid gradients against the dense formula
-  7g. train_ssm -- zamba2-1.2b (all 38 layers) and rwkv6-7b (8 of 32) at
+  7g. train_ssm -- zamba2-1.2b (12 of 38 layers) and rwkv6-7b (8 of 32) at
                  full width under remat full, TRAIN_ALIVE of the pattern's
-                 columns alive, hybrid then dense, SSM_TRAIN_STEPS steps of
+                 columns alive, hybrid then dense, STATIC_TRAIN_STEPS steps of
                  TRAIN_BATCH x TRAIN_SEQ tokens each: K8 and K9 (rwkv6
                  non-gated, relu^2) and K7 (zamba2's shared block)
                  launched, both sides of the hybrid format, no overflow, a
                  falling loss, step time, peak, MFU, a traced hybrid step;
                  then each config's FFN layer in float32, hybrid
                  gradients against the dense formula
+  7h. train_xattn -- whisper-large-v3 (32 + 32 layers, the encoder over
+                 TRAIN_BATCH x XATTN_FRAMES frames) and
+                 llama-3.2-vision-11b (its first super-block: 4 self
+                 blocks and a cross block, with the 128256-row embedding
+                 and head, on TRAIN_BATCH / 2 rows) at full width under
+                 remat full, hybrid then dense, STATIC_TRAIN_STEPS steps of
+                 rows of TRAIN_SEQ tokens: K7, K8 and K9 launched, both
+                 sides of the hybrid format, no overflow, a falling loss,
+                 step time, peak, MFU, a traced hybrid step; then each
+                 FFN layer in float32, hybrid gradients against the dense
+                 formula
   8. check    -- the same weights in float32 on the CPU (plain versions)
                  against the card: prefill plus 4 decode steps of two prompts
                  through the gather path and one through tile_skip, logits
@@ -242,7 +270,11 @@ JAX package) and runs these phases, each printing one JSON line:
                  phi3-mini-3.8b's first 2 (head dim 96 through K1-K4);
                  rwkv6-7b's first 2 layers (affine LayerNorm, K1 + K6)
                  and zamba2-1.2b's first 6 (K1 + K2) through the static
-                 loop's decode, prefill plus 4 steps;
+                 loop's decode, prefill plus 4 steps; whisper-large-v3's
+                 first 2 + 2 layers (K1 + K6, one request's frames) and
+                 llama-3.2-vision-11b's first super-block (K1 + K2, one
+                 request's patches), from prefilled cross caches, prefill
+                 of XATTN_CHECK_PLEN tokens plus 4 steps;
                  and one training step
                  (2 layers, 1 x 256 tokens, hybrid) of paper-0.5b and of
                  olmo-1b (under its remat, full): loss and every gradient
@@ -251,9 +283,10 @@ JAX package) and runs these phases, each printing one JSON line:
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
      spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, dense
-     configs' serve (gather), zamba2/rwkv6 serve (gather), hybrid train,
-     remat, paper-1.5b, olmo train, MoE train, dense configs' train and
-     zamba2/rwkv6 train runs; a
+     configs' serve (gather), zamba2/rwkv6 serve (gather), whisper/vision
+     serve (gather), hybrid train, remat, paper-1.5b, olmo train, MoE
+     train, dense configs' train, zamba2/rwkv6 train and whisper/vision
+     train runs; a
      recomputed layer's kernels count again), then the
      last
      line ``{"ok": true, "device": {...}}``.
@@ -269,7 +302,8 @@ flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
 the last line. ``--train-phases train`` (or any of train, remat,
-train_1p5b, train_olmo, train_moe, train_dense and check_train,
+train_1p5b, train_olmo, train_moe, train_dense, train_ssm, train_xattn
+and check_train,
 comma-separated) runs
 phases 1-2 and those training phases (step times, peak memory), on the
 port under ``--src`` if given, without the last line.
@@ -277,7 +311,9 @@ port under ``--src`` if given, without the last line.
 and the MoE serving or training phase; ``--phases serve_dense`` and
 ``--train-phases train_dense`` the dense configs' (phi3-mini-3.8b,
 deepseek-67b, llama3-405b); ``--phases serve_ssm`` and ``--train-phases
-train_ssm`` the attention-free families' (zamba2-1.2b, rwkv6-7b).
+train_ssm`` the attention-free families' (zamba2-1.2b, rwkv6-7b);
+``--phases serve_xattn`` and ``--train-phases train_xattn`` the
+cross-attention families' (whisper-large-v3, llama-3.2-vision-11b).
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -344,13 +380,13 @@ def parse_args(argv):
     ap.add_argument("--train-phases", default=None,
                     help="comma-separated training phases (train, remat, "
                          "train_1p5b, train_olmo, train_moe, train_dense, "
-                         "train_ssm, check_train): "
+                         "train_ssm, train_xattn, check_train): "
                          "run only the device and build phases and those, "
                          "on the port under --src (no last line); for A/B "
                          "timing of the training step")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases (disagg, serve_moe, "
-                         "serve_dense, serve_ssm): "
+                         "serve_dense, serve_ssm, serve_xattn): "
                          "run only the device and build phases "
                          "and those (disagg on the serve phase's model and "
                          "prompts), each comparing against references it "
@@ -434,6 +470,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         out = fn(torch, *args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"chip_smoke: {name} took {seconds[name]} s", file=sys.stderr,
+              flush=True)
         return out
     kernels = timed("kernels", phase_kernels)
     serve = timed("serve", phase_serve)
@@ -445,6 +483,7 @@ def main(argv=None) -> int:
     serve_moe = timed("serve_moe", phase_serve_moe)
     serve_dense = timed("serve_dense", phase_serve_dense)
     serve_ssm = timed("serve_ssm", phase_serve_ssm)
+    serve_xattn = timed("serve_xattn", phase_serve_xattn)
     train = timed("train", phase_train)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
@@ -452,16 +491,19 @@ def main(argv=None) -> int:
     train_moe = timed("train_moe", phase_train_moe)
     train_dense = timed("train_dense", phase_train_dense)
     train_ssm = timed("train_ssm", phase_train_ssm)
-    timed("check", phase_check, serve, olmo, serve_dense, serve_ssm)
+    train_xattn = timed("train_xattn", phase_train_xattn)
+    timed("check", phase_check, serve, olmo, serve_dense, serve_ssm,
+          serve_xattn)
     timed("k5_splits", k5_splits)
     emit({"phase": "seconds", "seconds": seconds,
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
                             (serve, spec, pipe, http, disagg, olmo,
-                             serve_moe, serve_dense, serve_ssm, train,
-                             remat, p15, olmo_train, train_moe, train_dense,
-                             train_ssm))
+                             serve_moe, serve_dense, serve_ssm,
+                             serve_xattn, train, remat, p15, olmo_train,
+                             train_moe, train_dense, train_ssm,
+                             train_xattn))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -920,6 +962,32 @@ def ssm_cases(torch, timer):
                                   {**k1_zamba, "arch": "zamba2-1.2b"}],
             "twell_down_proj": [{**k6_rwkv, **tag}],
             "twell_fused_ffn": [{**k2_zamba, "arch": "zamba2-1.2b"}]}
+
+
+def xattn_cases(torch, timer):
+    """The cross-attention families' shapes, on a generator of their own
+    (the kernels timed before see the inputs they saw before these were
+    added): K1, then K6, at whisper-large-v3's FFN (K 1280, N 5120) at
+    decode (M 4) and over the encoder's rows of a 4-request batch (M 4 x
+    1500 = 6000); K1 then K2 at llama-3.2-vision-11b's (K 4096, N 14336)
+    at decode; each with KEEP of its pattern's columns alive; K7 at
+    whisper's training step, 20 heads of 64."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    k1s, k6s = [], []
+    for m in (4, 4 * XATTN_FRAMES):
+        k1, _ = check_k1(torch, timer, m, 5120, gen, k=1280)
+        k1s.append({**k1, "arch": "whisper-large-v3"})
+        k6 = check_k6(torch, timer, m, gen, k=1280, n=5120)
+        k6s.append({**k6, "arch": "whisper-large-v3"})
+    k1_vis, inputs = check_k1(torch, timer, 4, 14336, gen, k=4096)
+    k2_vis = check_k2(torch, timer, *inputs)
+    del inputs
+    k7 = check_k7(torch, timer, TRAIN_BATCH, TRAIN_SEQ, 20, 64, gen)
+    tag = {"arch": "llama-3.2-vision-11b"}
+    return {"twell_gate_matmul": k1s + [{**k1_vis, **tag}],
+            "twell_down_proj": k6s,
+            "twell_fused_ffn": [{**k2_vis, **tag}],
+            "flash_attention": [{**k7, "arch": "whisper-large-v3"}]}
 
 
 def k6_cases(torch, timer, gen):
@@ -1520,11 +1588,13 @@ def phase_kernels(torch, only=None):
             "twell_gate_matmul": lambda: [
                 check_k1(torch, timer, m, n, gen)[0]
                 for n, m in K1_SHAPES] +
-            ssm_cases(torch, timer)["twell_gate_matmul"],
+            ssm_cases(torch, timer)["twell_gate_matmul"] +
+            xattn_cases(torch, timer)["twell_gate_matmul"],
             "paged_chunk_attention": lambda: [
                 check_k4(torch, timer, h, hkv, gen, hd=hd)
                 for h, hkv, hd in ATTN_CASES],
-            "flash_attention": lambda: k7_cases(torch, timer, gen),
+            "flash_attention": lambda: k7_cases(torch, timer, gen) +
+            xattn_cases(torch, timer)["flash_attention"],
             "tile_skip_ffn": lambda: k5_cases(torch, timer, gen),
             "paged_decode_attention": lambda: [
                 check_k3(torch, timer, h, hkv, gen, hd=hd)
@@ -1540,9 +1610,11 @@ def phase_kernels(torch, only=None):
             "twell_fused_ffn": lambda: k2_cases(torch, timer, gen)[1] +
             k2_wide_cases(torch, timer, gen)[1] +
             k2_dense_cases(torch, timer, gen)[1] +
-            ssm_cases(torch, timer)["twell_fused_ffn"],
+            ssm_cases(torch, timer)["twell_fused_ffn"] +
+            xattn_cases(torch, timer)["twell_fused_ffn"],
             "twell_down_proj": lambda: k6_cases(torch, timer, gen) +
-            ssm_cases(torch, timer)["twell_down_proj"],
+            ssm_cases(torch, timer)["twell_down_proj"] +
+            xattn_cases(torch, timer)["twell_down_proj"],
         }
         return kernel_table(torch, {name: checks[name]() for name in only})
     k1s, k2s = k2_cases(torch, timer, gen)
@@ -1571,6 +1643,8 @@ def phase_kernels(torch, only=None):
     for name, runs in hybrid_dense_cases(torch, timer, gen).items():
         cases[name] += runs
     for name, runs in ssm_cases(torch, timer).items():
+        cases[name] += runs
+    for name, runs in xattn_cases(torch, timer).items():
         cases[name] += runs
     return kernel_table(torch, cases)
 
@@ -2162,8 +2236,10 @@ def phase_pipeline(torch, serve, spec):
 
 HTTP_TIMEOUT = 300           # seconds: the limit of every HTTP call
 HTTP_CANCEL_TOKENS = 400     # the dropped stream's max_tokens (never reached)
-HTTP_ROUNDS = 30             # timed rounds of each way of sending the wave
-INPROCESS_ROUNDS = 31        # in-process rounds an engine; the first unread
+# the rounds are halved from 30 and 31 so that the whole script stays well
+# inside its 1200 s limit
+HTTP_ROUNDS = 15             # timed rounds of each way of sending the wave
+INPROCESS_ROUNDS = 16        # in-process rounds an engine; the first unread
 
 
 class Http:
@@ -3002,7 +3078,6 @@ def phase_serve_olmo(torch, serve):
 # 6b. the MoE family at full width: mixtral-8x22b and llama4-scout, served
 # --------------------------------------------------------------------------- #
 
-MOE_LAYERS = 2                     # of mixtral's 56 and llama4's 48
 MOE_KERNELS = ("twell_gate_matmul", "twell_fused_ffn")
 MOE_GEN = 32                       # greedy tokens a request
 MOE_RING_TOL = 1e-3                # float32 decode against the forward:
@@ -3012,10 +3087,14 @@ MOE_GATHER_TOL = LOGIT_TOL         # bf16 gather against bf16 dense logits
 #                                    of one layer: the same router input
 #                                    bits, so the same experts; the FFNs
 #                                    round differently
-# (arch, requests, prompt tokens): mixtral's prompt runs 64 past its 4096
-# window, so the decode ring wraps before the first generated token
-MOE_SERVE = (("mixtral-8x22b", 2, 4096 + 64),
-             ("llama4-scout-17b-a16e", 2, 64))
+# (arch, layers, requests, prompt tokens): mixtral's prompt runs 64 past
+# its 4096 window, so the decode ring wraps before the first generated
+# token; mixtral serves 1 of its 56 layers (the depth of its gather and
+# ring checks), since its 4160 host-bound decode steps at 2 layers took
+# the whole script to 1098 s of its 1200 s limit on an H100 (80GB HBM3,
+# 700 W) with a slower host; llama4 2 of 48
+MOE_SERVE = (("mixtral-8x22b", 1, 2, 4096 + 64),
+             ("llama4-scout-17b-a16e", 2, 2, 64))
 
 
 def moe_model(torch, arch, layers, impl, keep=KEEP, alive=None):
@@ -3114,14 +3193,15 @@ def moe_ring_check(torch, cfg, params, prompt):
             "step_ms": wall / (prompt.shape[1] + MOE_GEN) * 1e3}
 
 
-def moe_forced_logits(torch, cfg, params, toks, first):
+def moe_forced_logits(torch, cfg, params, toks, first, cache=None):
     """``toks`` (B, T) teacher-forced through the static loop's decode
-    (``lm.init_cache`` and ``lm.decode_step``, as ``serve.generate``
-    prefills its prompt): the float32 logits of positions ``first`` to
-    T - 1, (B, T - first, V)."""
+    (``lm.init_cache``, or ``cache`` when given, and ``lm.decode_step``,
+    as ``serve.generate`` prefills its prompt): the float32 logits of
+    positions ``first`` to T - 1, (B, T - first, V)."""
     from repro_torch.models import lm
-    cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1] + 1,
-                          device="cuda")
+    if cache is None:
+        cache = lm.init_cache(cfg, toks.shape[0], toks.shape[1] + 1,
+                              device="cuda")
     out = []
     with torch.no_grad():
         for i in range(toks.shape[1]):
@@ -3161,7 +3241,7 @@ def moe_gather_check(torch, cfg, params, toks, plen, layers=1,
 
 
 def phase_serve_moe(torch):
-    """mixtral-8x22b and llama4-scout-17b-a16e at full width and MOE_LAYERS
+    """mixtral-8x22b and llama4-scout-17b-a16e at full width and MOE_SERVE's
     layers (bf16, KEEP of every expert's gate columns alive) through the
     serve CLI's static loop, greedy: the gather FFN (K1 + K2 for every
     expert at every step, K2 past K 4096: 6144 and 5120), then the dense
@@ -3178,8 +3258,8 @@ def phase_serve_moe(torch):
     from repro_torch.models import lm
     from repro_torch.observability import accounting
     runs, launches = [], {}
-    for arch, batch, plen in MOE_SERVE:
-        cfg, params = moe_model(torch, arch, MOE_LAYERS, "gather")
+    for arch, layers, batch, plen in MOE_SERVE:
+        cfg, params = moe_model(torch, arch, layers, "gather")
         e, steps = cfg.num_experts, plen + MOE_GEN
         rng = np.random.RandomState(SEED)
         prompt = torch.tensor(rng.randint(0, cfg.vocab_size, (batch, plen)),
@@ -3188,9 +3268,9 @@ def phase_serve_moe(torch):
                                                     prompt, "gather")
         overflow = ops.OverflowLog.seen()
         for k in MOE_KERNELS:
-            assert counts[k] == steps * MOE_LAYERS * e, \
+            assert counts[k] == steps * layers * e, \
                 f"{arch}: {k} launched {counts[k]} times, not once an " \
-                f"expert a layer a step ({steps * MOE_LAYERS * e})"
+                f"expert a layer a step ({steps * layers * e})"
             launches[k] = launches.get(k, 0) + counts[k]
         assert not overflow, f"{arch}: a TwELL tile overflowed"
         dtoks, dlogits, dwall, _ = moe_static_run(torch, cfg, params, prompt,
@@ -3201,7 +3281,7 @@ def phase_serve_moe(torch):
                                dtoks[r, plen:plen + n]), \
                 f"{arch} row {r}: gather and dense differ before the " \
                 f"first near-tie ({n})"
-        res = {"arch": arch, "layers": MOE_LAYERS, "experts": e,
+        res = {"arch": arch, "layers": layers, "experts": e,
                "top_k": cfg.top_k, "d_model": cfg.d_model,
                "d_ff": cfg.d_ff,
                "params": accounting.param_count(lm.trainable(params)),
@@ -3254,14 +3334,16 @@ def phase_serve_moe(torch):
 # 6c. the remaining dense configs at full width through the engine
 # --------------------------------------------------------------------------- #
 
-# (arch, layers, witness tolerance): phi3-mini-3.8b at all 32 layers (4.63
-# B parameters with wu_t), deepseek-67b and llama3-405b at 2 of 95 and 126
-# (3.42 B, 12.32 B; depth cut to fit one card beside the engine's graphs).
-# The tolerance holds each bf16 path's served logits against float32's
-# beyond one bf16 step (``dense_gather_check``): 1.5x the larger path's
-# reading on the H100 (0.0606, 0.1991, 0.4313: gather and dense within 7%
-# of each other), as the logits grow with d_model (llama3's reach 16-32)
-DENSE_SERVE = (("phi3-mini-3.8b", None, 0.1), ("deepseek-67b", 2, 0.3),
+# (arch, layers, witness tolerance): phi3-mini-3.8b at 8 of its 32 layers
+# (its 32 took the whole script to 1173 s of its 1200 s limit on an H100
+# (80GB HBM3, 700 W) with a slower host), deepseek-67b and llama3-405b at
+# 2 of 95 and 126 (3.42 B, 12.32 B; depth cut to fit one card beside the
+# engine's graphs). The tolerance holds each bf16 path's served logits
+# against float32's beyond one bf16 step (``dense_gather_check``): 1.5x
+# the larger path's reading on the H100 at these depths (0.0384, 0.1991,
+# 0.4313: gather and dense within 7% of each other; phi3 read 0.0606 at
+# 32 layers), as the logits grow with d_model (llama3's reach 16-32)
+DENSE_SERVE = (("phi3-mini-3.8b", 8, 0.06), ("deepseek-67b", 2, 0.3),
                ("llama3-405b", 2, 0.65))
 DENSE_CHECK_PROMPTS = (2, 5)       # the 64- and 96-token prompts
 DENSE_GEN = 32                     # greedy tokens a request
@@ -3395,7 +3477,7 @@ def logits_apart(torch, rows_a, rows_b):
 
 
 def phase_serve_dense(torch):
-    """phi3-mini-3.8b (32 layers: head dim 96), deepseek-67b (2 layers: 64
+    """phi3-mini-3.8b (8 layers: head dim 96), deepseek-67b (2 layers: 64
     heads over 8 KV heads of 128, d_model 8192, d_ff 22016) and
     llama3-405b (2 layers: 128 heads over 8, d_model 16384, d_ff 53248:
     K2 past K 8192) at full width in bf16 with KEEP of every layer's gate
@@ -3485,28 +3567,54 @@ def phase_serve_dense(torch):
 
 
 # --------------------------------------------------------------------------- #
-# 6d. the attention-free families at full width: zamba2-1.2b and rwkv6-7b
+# 6d-6e. the static-loop families at full width: zamba2-1.2b and rwkv6-7b
+# (attention-free), whisper-large-v3 and llama-3.2-vision-11b (cross
+# attention)
 # --------------------------------------------------------------------------- #
 
-# (arch, requests, prompt tokens): every layer (zamba2's 38, 1.17 B
-# parameters; rwkv6's 32, 7.0 B) through the serve CLI's static loop
-SSM_SERVE = (("zamba2-1.2b", 4, 64), ("rwkv6-7b", 4, 64))
-SSM_GEN = 32                       # greedy tokens a request
-# the FFN kernels of each config's gather path (the gated shared block's
-# K1 + K2; the non-gated channel mix's K1 with relu^2, then K6)
-SSM_KERNELS = {"zamba2-1.2b": ("twell_gate_matmul", "twell_fused_ffn"),
-               "rwkv6-7b": ("twell_gate_matmul", "twell_down_proj")}
-# layers of the float32 recurrence check and of the card-against-CPU
-# check: zamba2's first 6 (the shared block runs once), rwkv6's first 2
-SSM_CHECK_LAYERS = {"zamba2-1.2b": 6, "rwkv6-7b": 2}
-# each bf16 path's logits against float32's at the served depth, the
-# dense run's tokens teacher-forced through all three: 1.5x the larger
-# path's reading on the H100 (0.2076 zamba2, 5.3404 rwkv6). On random
-# weights bf16 rounding grows through the depth and the recurrent state;
-# rwkv6's 32 layers end as far from float32 as its logits spread (std
-# 1.28), gather and dense alike, as the JAX package's bf16 forward does
+# (arch, layers (None: all), requests, prompt tokens) through the serve
+# CLI's static loop. zamba2's first 12 of its 38 layers (the shared block
+# twice) and rwkv6's first 8 of 32: every layer here and in train_ssm
+# would add ~90 s on an H100 (80GB HBM3, 700 W), ~130 s where its host is
+# slower, to a script that must stay well inside its 1200 s limit
+SSM_SERVE = (("zamba2-1.2b", 12, 4, 64), ("rwkv6-7b", 8, 4, 64))
+# every layer: whisper's 32 encoder and 32 decoder layers (1.54 B
+# parameters), vision's 40, 8 of them tanh-gated cross blocks (9.78 B),
+# from a cross cache that ``lm.prefill_cross_cache`` filled
+XATTN_SERVE = (("whisper-large-v3", None, 4, 64),
+               ("llama-3.2-vision-11b", None, 4, 64))
+STATIC_GEN = 32                    # greedy tokens a request
+XATTN_FRAMES = 1500                # whisper's encoder frames (30 s of audio)
+# the FFN kernels of each config's gather path: a gated FFN's K1 + K2
+# (zamba2's shared block, vision's self and cross blocks), a non-gated
+# one's K1, then K6 (rwkv6's channel mix with relu^2, whisper's FFN)
+STATIC_KERNELS = {
+    "zamba2-1.2b": ("twell_gate_matmul", "twell_fused_ffn"),
+    "rwkv6-7b": ("twell_gate_matmul", "twell_down_proj"),
+    "whisper-large-v3": ("twell_gate_matmul", "twell_down_proj"),
+    "llama-3.2-vision-11b": ("twell_gate_matmul", "twell_fused_ffn")}
+# (encoder layers, layers) of the first-layers checks (gather against
+# dense in bf16, the float32 recurrence check, the card against the CPU):
+# zamba2's first 6 (the shared block once), rwkv6's first 2, whisper's
+# first 2 + 2, vision's first super-block (4 self blocks and its cross
+# block)
+STATIC_CHECK_DEPTH = {"zamba2-1.2b": (0, 6), "rwkv6-7b": (0, 2),
+                      "whisper-large-v3": (2, 2),
+                      "llama-3.2-vision-11b": (0, 5)}
+XATTN_CHECK_PLEN = 16              # prompt tokens of the cross families'
+#                                    CPU check (the attention-free ones
+#                                    take the whole prompt)
+# each bf16 path's logits against float32's at the served depth, the dense
+# run's tokens teacher-forced through all three: 1.5x the larger path's
+# reading on the H100 (80GB HBM3, 700 W) at SSM_SERVE's and XATTN_SERVE's
+# depths: 0.1075 zamba2 (12 layers), 1.2782 rwkv6 (8), 0.0512 whisper,
+# 0.1049 vision (logit std 0.91, 1.28, 0.72, 1.28). On random weights bf16
+# rounding grows through the depth and the recurrent state: rwkv6 at all
+# 32 layers ends as far from float32 as its logits spread, gather and
+# dense alike, as the JAX package's bf16 forward does
 # (tests/test_torch_ssm.py::test_bf16_gap_to_float32_grows_as_in_jax)
-SSM_SERVED_TOL = {"zamba2-1.2b": 0.3, "rwkv6-7b": 8.0}
+STATIC_SERVED_TOL = {"zamba2-1.2b": 0.16, "rwkv6-7b": 1.9,
+                     "whisper-large-v3": 0.08, "llama-3.2-vision-11b": 0.16}
 SSM_RECUR_LEN = 512                # tokens: 2 SSD chunks, 2 WKV chunks
 SSM_RECUR_TOL = 1e-3               # float32 decode against the chunked
 #                                    forward: sums in other orders (the
@@ -3514,20 +3622,29 @@ SSM_RECUR_TOL = 1e-3               # float32 decode against the chunked
 #                                    states), logits of order 1
 
 
-def ssm_pattern(params):
+def static_pattern(params):
     """The weights whose columns the FFN's pattern follows, as views:
-    zamba2's shared block's W_g, or each rwkv6 layer's channel-mix W_u."""
+    zamba2's shared block's W_g, each rwkv6 layer's channel-mix W_u,
+    whisper's encoder and decoder W_u, vision's self and cross W_g."""
+    if "enc_blocks" in params:
+        return list(params["enc_blocks"]["ffn"]["wu"]) + \
+            list(params["dec_blocks"]["ffn"]["wu"])
     if "shared_attn" in params:
         return [params["shared_attn"]["ffn"]["wg"]]
-    return list(params["blocks"]["cm"]["wu"])
+    blocks = params["blocks"]
+    if "cm" in blocks:
+        return list(blocks["cm"]["wu"])
+    return [w for ws in blocks["selfs"]["ffn"]["wg"] for w in ws] + \
+        list(blocks["cross"]["ffn"]["wg"])
 
 
-def ssm_model(torch, arch, layers=None, impl="gather", alive=None):
-    """``arch`` at full width (``layers`` layers, all unless given) in
-    bfloat16 with the FFN as ``impl``, random weights from SEED
-    (lm.init), and all but KEEP of the pattern's columns zeroed (or
-    exactly ``alive`` columns alive): the counterpart of
-    ``model_and_prompts``'s gate sparsity."""
+def static_model(torch, arch, layers=None, impl="gather", alive=None):
+    """``arch`` at full width (``layers`` decoder layers, all unless
+    given) in bfloat16 with the FFN as ``impl``, random weights from SEED
+    (lm.init), all but KEEP of the pattern's columns zeroed (or exactly
+    ``alive`` alive): the counterpart of ``model_and_prompts``'s gate
+    sparsity. Every vision cross block's gates are set nonzero, different
+    per block (at init's zeros the cross blocks add nothing)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     cfg = get_config(arch)
@@ -3537,79 +3654,151 @@ def ssm_model(torch, arch, layers=None, impl="gather", alive=None):
         cfg.sparsity, ffn_impl=impl))
     params = lm.init(cfg, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    for w in ssm_pattern(params):
+    for w in static_pattern(params):
         if alive is None:
             w *= (torch.rand((1, cfg.d_ff), generator=gen, device="cuda")
                   < KEEP).to(w)
         else:
             w *= alive_columns(torch, gen, cfg.d_ff).to(w)
+    if cfg.family == "vlm":
+        cross = params["blocks"]["cross"]
+        nb = cross["gate_attn"].shape[0]
+        cross["gate_attn"].copy_(torch.linspace(0.5, 1.0, nb))
+        cross["gate_ffn"].copy_(torch.linspace(-0.9, -0.4, nb))
     return cfg, params
 
 
-def ssm_first_layers(params, n):
-    """``params`` with its stacked layers cut to the first n (zamba2's
-    shared block kept whole)."""
-    from repro_torch.tree import tree_map
-    return {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+def static_extras(torch, cfg, batch, seed):
+    """The batch extra of a cross family from ``seed``, bf16 on the card:
+    whisper's frames (batch, XATTN_FRAMES, D), vision's patches (batch,
+    num_image_tokens, D), standard normal; {} for the other families."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    name, length = ("frames", XATTN_FRAMES) if cfg.family == "audio" \
+        else ("patches", cfg.num_image_tokens)
+    return {name: torch.randn((batch, length, cfg.d_model), generator=gen,
+                              device="cuda").bfloat16()}
 
 
-def ssm_recurrence_check(torch, cfg, params, arch):
-    """The recurrent decode against the chunked training forward, in
-    float32 on the card: the first SSM_CHECK_LAYERS of ``params`` widened
-    to float32, SSM_RECUR_LEN random tokens teacher-forced through
-    ``decode_step`` (the per-token Mamba2 state and WKV scan), their logits
-    at every position held within SSM_RECUR_TOL of ``lm.forward``'s (the
-    chunked SSD and WKV, 2 chunks of 256 each) on the same tokens, dense
-    FFN."""
-    import numpy as np
+def static_cache(torch, cfg, params, extras, batch, cache_len):
+    """``lm.init_cache`` sized from ``extras`` on the parameters' device,
+    then ``lm.prefill_cross_cache``; None without extras (the static loop
+    and ``moe_forced_logits`` then make their own)."""
     from repro_torch.models import lm
-    from repro_torch.tree import tree_map
-    n = SSM_CHECK_LAYERS[arch]
-    cfg32 = dataclasses.replace(cfg, num_layers=n, dtype="float32",
-                                param_dtype="float32",
-                                sparsity=dataclasses.replace(
-                                    cfg.sparsity, ffn_impl="dense"))
-    p32 = tree_map(lambda t: t.float(), ssm_first_layers(params, n))
-    rng = np.random.RandomState(SEED + 1)
-    toks = torch.tensor(rng.randint(0, cfg.vocab_size, (1, SSM_RECUR_LEN)),
-                        dtype=torch.int64, device="cuda")
-    t0 = time.perf_counter()
-    got = moe_forced_logits(torch, cfg32, p32, toks, 0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    if not extras:
+        return None
+    enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+    cache = lm.init_cache(cfg, batch, cache_len,
+                          device=params["embed"].device, enc_len=enc_len,
+                          num_patches=cfg.num_image_tokens)
     with torch.no_grad():
-        fwd, _ = lm.forward(p32, {"tokens": toks}, cfg32)
-    err = (got - fwd.float()).abs().amax(dim=-1)[0]
-    del p32, got, fwd
-    return {"layers": n, "dtype": "float32", "tokens": SSM_RECUR_LEN,
+        return lm.prefill_cross_cache(params, cache, extras, cfg)
+
+
+def static_run(torch, cfg, params, prompt, extras, impl):
+    """The cross cache of ``extras`` (``static_cache``), then the serve
+    CLI's static loop from it (``launch/serve.py:generate``, greedy,
+    STATIC_GEN new tokens) with the FFN as ``impl``: tokens, each
+    generated step's logits, the seconds of the two and the kernel
+    launches over exactly both."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl=impl))
+    cache_len = prompt.shape[1] + STATIC_GEN + 1
+    logits = []
+    ops.OverflowLog.reset()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = static_cache(torch, cfg, params, extras, prompt.shape[0],
+                         cache_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = serve.generate(params, cfg, prompt, STATIC_GEN, cache_len,
+                          logits_out=logits, cache=cache)
+    torch.cuda.synchronize()
+    return toks, logits, {"prefill_cross_s": t1 - t0,
+                          "wall_s": time.perf_counter() - t1}, \
+        ops.launch_counts()
+
+
+def static_first_layers(cfg, params, arch):
+    """``cfg`` and ``params`` cut to ``arch``'s STATIC_CHECK_DEPTH: the
+    first encoder and decoder layers (vision: whole super-blocks;
+    zamba2's shared block kept whole)."""
+    from repro_torch.tree import tree_map
+    enc, dec = STATIC_CHECK_DEPTH[arch]
+    if cfg.family == "audio":
+        cut = {"enc_blocks": tree_map(lambda t: t[:enc],
+                                      params["enc_blocks"]),
+               "dec_blocks": tree_map(lambda t: t[:dec],
+                                      params["dec_blocks"])}
+        return dataclasses.replace(cfg, encoder_layers=enc,
+                                   num_layers=dec), {**params, **cut}
+    n = dec // cfg.cross_every if cfg.family == "vlm" else dec
+    return dataclasses.replace(cfg, num_layers=dec), \
+        {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+
+
+def static_forced(torch, cfg, params, extras, toks, first, impl):
+    """``toks`` teacher-forced through decode (``moe_forced_logits``)
+    from a cross cache of ``extras`` (none without them), the FFN as
+    ``impl``."""
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl=impl))
+    cache = static_cache(torch, cfg, params, extras, toks.shape[0],
+                         toks.shape[1] + 1)
+    return moe_forced_logits(torch, cfg, params, toks, first, cache=cache)
+
+
+def static_gather_check(torch, arch, cfg, params, extras, toks, plen):
+    """The FFN kernels inside the decode and (whisper) the encoder, held
+    numerically: the first STATIC_CHECK_DEPTH layers in bf16, the dense
+    run's tokens teacher-forced under gather and under dense (the cross
+    cache made again under each), logits at every generated position
+    within LOGIT_TOL. Launches here are not the main path's."""
+    c1, p1 = static_first_layers(cfg, params, arch)
+    t0 = time.perf_counter()
+    got = {impl: static_forced(torch, c1, p1, extras, toks[:, :-1],
+                               plen - 1, impl)
+           for impl in ("gather", "dense")}
+    torch.cuda.synchronize()
+    err = (got["gather"] - got["dense"]).abs().amax(dim=-1)
+    return {"layers": list(STATIC_CHECK_DEPTH[arch]), "dtype": "bfloat16",
             "max_abs_diff": float(err.max()),
             "median_abs_diff": float(err.median()),
-            "max_abs_diff_first_chunk": float(err[:256].max()),
-            "max_abs_diff_second_chunk": float(err[256:].max()),
-            "tolerance": SSM_RECUR_TOL,
-            "decode_step_ms": wall / SSM_RECUR_LEN * 1e3}
+            "positions": [plen - 1, toks.shape[1] - 2],
+            "tolerance": LOGIT_TOL, "wall_s": time.perf_counter() - t0}
 
 
-def ssm_served_check(torch, cfg, params, dtoks, dlogits, plen):
+def static_served_check(torch, cfg, params, extras, dtoks, dlogits, plen):
     """The dense run's tokens ``dtoks`` teacher-forced at the served depth
-    through decode under gather (bf16) and in float32 (the bf16 weights
-    widened, dense FFN), beside the dense run's own logits ``dlogits`` (the
-    static loop teacher-forces the same tokens, so they are the forced
-    dense logits): each pair's max and median abs difference over the
-    generated positions, and the float32 logits' scale."""
+    through decode under gather (bf16, from a cross cache of ``extras``),
+    beside the dense run's own logits ``dlogits`` (the static loop
+    teacher-forces the same tokens, so they are the forced dense logits)
+    and float32's: the bf16 weights widened (``wu_t`` left out: the dense
+    FFN does not read it) through ``lm.forward`` over the same tokens and
+    extras (causal: its row at a position is the decode step's there; one
+    pass in place of a decode step a position). Each pair's max and
+    median abs difference over the generated positions, and the float32
+    logits' scale."""
+    from repro_torch.models import lm
     from repro_torch.tree import tree_map
-    forced = {"dense": torch.stack(dlogits, dim=1)}
-    gcfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
-        cfg.sparsity, ffn_impl="gather"))
-    forced["gather"] = moe_forced_logits(torch, gcfg, params, dtoks[:, :-1],
-                                         plen - 1)
+    forced = {"dense": torch.stack(dlogits, dim=1),
+              "gather": static_forced(torch, cfg, params, extras,
+                                      dtoks[:, :-1], plen - 1, "gather")}
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
                                 sparsity=dataclasses.replace(
                                     cfg.sparsity, ffn_impl="dense"))
-    p32 = tree_map(lambda t: t.float(), params)
-    forced["float32"] = moe_forced_logits(torch, cfg32, p32, dtoks[:, :-1],
-                                          plen - 1)
-    del p32
+    p32 = tree_map(lambda t: t.float(), lm.trainable(params))
+    with torch.no_grad():
+        fwd, _ = lm.forward(p32, {"tokens": dtoks[:, :-1], **extras}, cfg32)
+    forced["float32"] = fwd[:, plen - 1:].float()
+    del p32, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
     out = {"layers": cfg.num_layers,
            "float32_logit_absmax": float(forced["float32"].abs().max()),
            "float32_logit_std": float(forced["float32"].std())}
@@ -3621,24 +3810,63 @@ def ssm_served_check(torch, cfg, params, dtoks, dlogits, plen):
     return out
 
 
-def phase_serve_ssm(torch):
-    """zamba2-1.2b (all 38 layers) and rwkv6-7b (all 32) at full width in
-    bf16 through the serve CLI's static loop, greedy, KEEP of the FFN
-    pattern's columns alive: the gather FFN (zamba2: K1 + K2 at each of the
-    shared block's 6 applications a step; rwkv6: K1 with relu^2, then K6,
-    in every layer a step; counted exactly, and the other FFN kernel
-    never), then the dense FFN on the same prompts, no TwELL overflow. The
-    dense run's tokens teacher-forced through decode under gather and under
-    dense (``moe_gather_check``): on the first SSM_CHECK_LAYERS the logits
-    within LOGIT_TOL at every generated position (the kernels inside the
-    decode, held numerically); at the served depth each path within
-    SSM_SERVED_TOL of float32 on the same tokens (``ssm_served_check``).
-    Tokens equal up to each request's first near-tie: a top-2 margin of
-    dense's logits at most LOGIT_TOL or twice the served depth's
-    gather-to-dense gap, the most by which that gap can turn a token.
-    Tokens/s, the step time and a traced step of each; then
-    ``ssm_recurrence_check``. Keeps each
-    config's first SSM_CHECK_LAYERS and its first prompt on the CPU for
+def ssm_recurrence_check(torch, cfg, params, arch):
+    """The recurrent decode against the chunked training forward, in
+    float32 on the card: the first STATIC_CHECK_DEPTH layers of ``params``
+    widened to float32, SSM_RECUR_LEN random tokens teacher-forced through
+    ``decode_step`` (the per-token Mamba2 state and WKV scan), their logits
+    at every position held within SSM_RECUR_TOL of ``lm.forward``'s (the
+    chunked SSD and WKV, 2 chunks of 256 each) on the same tokens, dense
+    FFN."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    c1, p1 = static_first_layers(cfg, params, arch)
+    cfg32 = dataclasses.replace(c1, dtype="float32", param_dtype="float32",
+                                sparsity=dataclasses.replace(
+                                    cfg.sparsity, ffn_impl="dense"))
+    p32 = tree_map(lambda t: t.float(), p1)
+    rng = np.random.RandomState(SEED + 1)
+    toks = torch.tensor(rng.randint(0, cfg.vocab_size, (1, SSM_RECUR_LEN)),
+                        dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    got = moe_forced_logits(torch, cfg32, p32, toks, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd, _ = lm.forward(p32, {"tokens": toks}, cfg32)
+    err = (got - fwd.float()).abs().amax(dim=-1)[0]
+    del p32, got, fwd
+    return {"layers": c1.num_layers, "dtype": "float32",
+            "tokens": SSM_RECUR_LEN,
+            "max_abs_diff": float(err.max()),
+            "median_abs_diff": float(err.median()),
+            "max_abs_diff_first_chunk": float(err[:256].max()),
+            "max_abs_diff_second_chunk": float(err[256:].max()),
+            "tolerance": SSM_RECUR_TOL,
+            "decode_step_ms": wall / SSM_RECUR_LEN * 1e3}
+
+
+def serve_static(torch, phase, table):
+    """Each config of ``table`` (SSM_SERVE or XATTN_SERVE) at its depth
+    and full width in bf16, KEEP of the FFN pattern's columns alive:
+    ``prefill_cross_cache`` over its frames or patches (whisper's encoder
+    over the 6000 frame rows: K1, then K6, once a layer), then the serve
+    CLI's static loop from that cache, greedy, under gather (the
+    STATIC_KERNELS at every FFN a step: zamba2's shared block at each of
+    its applications, every layer of the others; counted exactly, the
+    other FFN kernel never) and then dense, no TwELL overflow, finite
+    logits. The dense run's tokens teacher-forced through gather and dense
+    on the first STATIC_CHECK_DEPTH layers (within LOGIT_TOL: the kernels
+    inside the decode, held numerically) and at the served depth through
+    both and float32 (each within STATIC_SERVED_TOL of float32). Tokens
+    equal up to each request's first near-tie: a top-2 margin of dense's
+    logits at most LOGIT_TOL or twice the served gather-to-dense gap, the
+    most by which that gap can turn a token. The cross cache's seconds,
+    tokens/s, the step time and a traced gather step from the served cross
+    cache; the attention-free families' ``ssm_recurrence_check``. Keeps
+    each config's first layers, its prompt (a cross family's first
+    XATTN_CHECK_PLEN tokens) and its extras on the CPU for
     ``phase_check``."""
     import numpy as np
     from repro_torch.kernels import ops
@@ -3647,40 +3875,53 @@ def phase_serve_ssm(torch):
     from repro_torch.observability import accounting
     runs, launches, check = [], {}, {}
     ffn_kernels = ("twell_gate_matmul", "twell_fused_ffn", "twell_down_proj")
-    for arch, batch, plen in SSM_SERVE:
-        cfg, params = ssm_model(torch, arch)
-        steps = plen + SSM_GEN
-        apps = cfg.num_layers // cfg.shared_attn_every \
+    for arch, layers, batch, plen in table:
+        cfg, params = static_model(torch, arch, layers)
+        extras = static_extras(torch, cfg, batch, SEED + 11)
+        steps = plen + STATIC_GEN
+        ffn_step = cfg.num_layers // cfg.shared_attn_every \
             if cfg.family == "hybrid" else cfg.num_layers
+        enc_calls = cfg.encoder_layers
         rng = np.random.RandomState(SEED)
         prompt = torch.tensor(rng.randint(0, cfg.vocab_size, (batch, plen)),
                               dtype=torch.int64, device="cuda")
-        toks, logits, wall, counts = moe_static_run(
-            torch, cfg, params, prompt, "gather", gen=SSM_GEN)
+        toks, logits, secs, counts = static_run(
+            torch, cfg, params, prompt, extras, "gather")
         overflow = ops.OverflowLog.seen()
-        dtoks, dlogits, dwall, _ = moe_static_run(
-            torch, cfg, params, prompt, "dense", gen=SSM_GEN)
-        # three gather decode steps (two prompt tokens, one new) traced
+        dtoks, dlogits, dsecs, _ = static_run(
+            torch, cfg, params, prompt, extras, "dense")
+        # three gather decode steps (two prompt tokens, one new) traced,
+        # from a cross cache of the served frames or patches
+        cache = static_cache(torch, cfg, params, extras, batch, 4)
         prof = profile_fn(torch, lambda: serve.generate(
-            params, cfg, prompt[:, :2], 1, 4))
-        few = moe_gather_check(torch, cfg, params, dtoks, plen,
-                               layers=SSM_CHECK_LAYERS[arch], tol=LOGIT_TOL)
-        served = ssm_served_check(torch, cfg, params, dtoks, dlogits, plen)
+            params, cfg, prompt[:, :2], 1, 4, cache=cache))
+        del cache
+        few = static_gather_check(torch, arch, cfg, params, extras, dtoks,
+                                  plen)
+        served = static_served_check(torch, cfg, params, extras, dtoks,
+                                     dlogits, plen)
         tie_tol = max(LOGIT_TOL,
                       2 * served["gather_vs_dense"]["max_abs_diff"])
         ties = serve.first_near_ties(dlogits, tie_tol)
         res = {"arch": arch, "family": cfg.family,
-               "layers": cfg.num_layers, "d_model": cfg.d_model,
-               "d_ff": cfg.d_ff, "norm": cfg.norm,
+               "layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+               "gated": cfg.gated, "norm": cfg.norm,
                "params": accounting.param_count(lm.trainable(params)),
-               "requests": batch, "prompt_len": plen, "new_tokens": SSM_GEN,
-               "decode_steps": steps, "ffn_per_step": apps,
-               "gather": {"wall_s": wall, "step_ms": wall / steps * 1e3,
-                          "tokens_per_s": batch * SSM_GEN / wall,
+               "requests": batch, "prompt_len": plen,
+               "new_tokens": STATIC_GEN, "decode_steps": steps,
+               "cross_len": next(iter(extras.values())).shape[1]
+               if extras else 0,
+               "ffn_per_step": ffn_step, "encoder_ffn_calls": enc_calls,
+               "gather": {**secs, "step_ms": secs["wall_s"] / steps * 1e3,
+                          "tokens_per_s": batch * STATIC_GEN /
+                          secs["wall_s"],
                           "launches": {k: counts.get(k, 0)
                                        for k in ffn_kernels}},
-               "dense": {"wall_s": dwall, "step_ms": dwall / steps * 1e3,
-                         "tokens_per_s": batch * SSM_GEN / dwall},
+               "dense": {**dsecs, "step_ms": dsecs["wall_s"] / steps * 1e3,
+                         "tokens_per_s": batch * STATIC_GEN /
+                         dsecs["wall_s"]},
                "profiled_gather_step": {
                    "kernels": prof["kernel_calls"] / 3,
                    "wall_ms": prof["wall_ms"] / 3,
@@ -3688,32 +3929,38 @@ def phase_serve_ssm(torch):
                    "top_kernels": prof["top_kernels"][:6]},
                "gather_vs_dense_first_layers": few,
                "gather_vs_dense_served": served,
+               "served_tolerance": STATIC_SERVED_TOL[arch],
                "near_tie_tolerance": tie_tol, "near_ties": ties,
                "near_ties_at_logit_tol": serve.first_near_ties(dlogits),
                "tokens_equal_before": [
-                   int(next((j for j in range(SSM_GEN)
+                   int(next((j for j in range(STATIC_GEN)
                              if toks[r, plen + j] != dtoks[r, plen + j]),
-                            SSM_GEN)) for r in range(batch)],
+                            STATIC_GEN)) for r in range(batch)],
                "overflow": overflow,
-               "first_tokens": toks[:, plen].tolist(),
-               "decode_vs_forward_f32": ssm_recurrence_check(
-                   torch, cfg, params, arch)}
+               "first_tokens": toks[:, plen].tolist()}
+        if cfg.family in ("hybrid", "ssm"):
+            res["decode_vs_forward_f32"] = ssm_recurrence_check(
+                torch, cfg, params, arch)
         runs.append(res)
-        emit({"phase": "serve_ssm", **res})
+        emit({"phase": phase, **res})
         for k in ffn_kernels:
-            want = steps * apps if k in SSM_KERNELS[arch] else 0
+            want = steps * ffn_step + enc_calls \
+                if k in STATIC_KERNELS[arch] else 0
             assert counts.get(k, 0) == want, \
                 f"{arch}: {k} launched {counts.get(k, 0)} times, not " \
-                f"{want} ({apps} FFNs a step, {steps} steps)"
-        for k in SSM_KERNELS[arch]:
+                f"{want} ({ffn_step} FFNs a step, {steps} steps, " \
+                f"{enc_calls} in the encoder)"
+        for k in STATIC_KERNELS[arch]:
             launches[k] = launches.get(k, 0) + counts[k]
         assert not overflow, f"{arch}: a TwELL tile overflowed"
+        assert all(bool(torch.isfinite(lg).all()) for lg in logits), \
+            f"{arch}: non-finite logits"
         assert few["max_abs_diff"] <= LOGIT_TOL, \
             f"{arch}: gather's decode logits differ from dense's by " \
             f"{few['max_abs_diff']} at {few['layers']} layers"
         for path in ("gather", "dense"):
             err = served[f"{path}_vs_float32"]["max_abs_diff"]
-            assert err <= SSM_SERVED_TOL[arch], \
+            assert err <= STATIC_SERVED_TOL[arch], \
                 f"{arch}: {path}'s served logits differ from float32's by " \
                 f"{err}"
         for r, n in enumerate(ties):
@@ -3721,17 +3968,37 @@ def phase_serve_ssm(torch):
                                dtoks[r, plen:plen + n]), \
                 f"{arch} row {r}: gather and dense differ before the " \
                 f"first near-tie ({n})"
-        recur = res["decode_vs_forward_f32"]
-        assert recur["max_abs_diff"] <= SSM_RECUR_TOL, \
-            f"{arch}: float32 decode differs from the chunked forward by " \
-            f"{recur['max_abs_diff']}"
-        check[arch] = (cfg, lm.params_to(ssm_first_layers(
-            params, SSM_CHECK_LAYERS[arch]), "cpu"),
-            prompt[0].tolist())
-        del params, logits, dlogits
+        if "decode_vs_forward_f32" in res:
+            recur = res["decode_vs_forward_f32"]
+            assert recur["max_abs_diff"] <= SSM_RECUR_TOL, \
+                f"{arch}: float32 decode differs from the chunked " \
+                f"forward by {recur['max_abs_diff']}"
+        c1, p1 = static_first_layers(cfg, params, arch)
+        check[arch] = (c1, lm.params_to(p1, "cpu"),
+                       prompt[0, :XATTN_CHECK_PLEN if extras else plen]
+                       .tolist(),
+                       {k: v[:1].cpu() for k, v in extras.items()})
+        del params, logits, dlogits, p1, extras
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches": launches, "runs": runs, "check": check}
+
+
+def phase_serve_ssm(torch):
+    """zamba2-1.2b and rwkv6-7b (SSM_SERVE) through ``serve_static``:
+    zamba2's K1 + K2 at each of the shared block's applications a step,
+    rwkv6's K1 with relu^2, then K6, in every layer a step; then
+    ``ssm_recurrence_check``."""
+    return serve_static(torch, "serve_ssm", SSM_SERVE)
+
+
+def phase_serve_xattn(torch):
+    """whisper-large-v3 (32 encoder and 32 decoder layers, 4 x
+    XATTN_FRAMES frames: K1, then K6, in the encoder once a layer and in
+    every decoder layer a step) and llama-3.2-vision-11b (all 40 layers, 4
+    x 1024 patches, the cross gates nonzero: K1 + K2 in its 32 self and 8
+    cross blocks a step) through ``serve_static``."""
+    return serve_static(torch, "serve_xattn", XATTN_SERVE)
 
 
 # --------------------------------------------------------------------------- #
@@ -4316,43 +4583,64 @@ def phase_train_dense(torch):
 
 
 # --------------------------------------------------------------------------- #
-# 7g. training the attention-free families at full width
+# 7g-7h. training the static-loop families at full width
 # --------------------------------------------------------------------------- #
 
-# (arch, layers (None: all), the FFN gradient check's rows): zamba2-1.2b at
-# all 38 layers (1.17 B parameters), rwkv6-7b at 8 of 32 (2.15 B, f32 AdamW
+# (arch, layers (None: all), rows of TRAIN_SEQ tokens a step, the FFN
+# gradient check's rows): zamba2-1.2b at 12 of 38 layers (cut with its
+# serving depth, see SSM_SERVE), rwkv6-7b at 8 of 32 (2.15 B, f32 AdamW
 # moments: about 22 bytes a parameter in the functional update)
-SSM_TRAIN = (("zamba2-1.2b", None, 2048), ("rwkv6-7b", 8, 1024))
-SSM_TRAIN_STEPS = 4
+SSM_TRAIN = (("zamba2-1.2b", 12, TRAIN_BATCH, 2048),
+             ("rwkv6-7b", 8, TRAIN_BATCH, 1024))
+# whisper-large-v3 at all 32 + 32 layers (1.54 B parameters), vision at one
+# super-block (4 self blocks and a cross block) with its 128256-row
+# embedding and head (2.14 B) on half the batch: at TRAIN_BATCH rows it
+# peaked at 61.1 GB alone, and after the earlier phases its backward could
+# not place the 3.91 GiB float32 logits (31.79 GiB reserved by the
+# allocator but split)
+XATTN_TRAIN = (("whisper-large-v3", None, TRAIN_BATCH, 2048),
+               ("llama-3.2-vision-11b", 5, TRAIN_BATCH // 2, 1024))
+STATIC_TRAIN_STEPS = 4             # the first at learning rate 0 (warmup)
 
 
-def phase_train_ssm(torch):
-    """zamba2-1.2b (38 layers) and rwkv6-7b (8 layers) at full width in
-    bf16 under their own remat ("full") and AdamW moments (float32),
-    TRAIN_ALIVE of the pattern's columns alive (zamba2's shared W_g,
-    rwkv6's channel-mix W_u), TRAIN_BATCH x TRAIN_SEQ tokens a step (S
-    1024: the chunked SSD and WKV), hybrid then dense, SSM_TRAIN_STEPS
-    steps each: K8 and K9 launched (rwkv6 non-gated with relu^2), K7 for
-    zamba2's shared block, rows on both sides of the format, no overflow,
-    a falling loss, step time, peak and MFU (``train_steps``), one hybrid
-    step traced (busy share, kernels, the top 8); then each
-    config's FFN layer in float32, hybrid gradients against the dense
-    formula (``grad_check``). A fixed batch and depth: an out-of-memory
-    error fails the phase."""
+def train_static(torch, phase, table):
+    """Each config of ``table`` (SSM_TRAIN or XATTN_TRAIN) at its depth and
+    full width in bf16 under its own remat ("full") and AdamW moments
+    (float32), TRAIN_ALIVE of the pattern's columns alive, the table's rows
+    of TRAIN_SEQ tokens a step (S 1024: the chunked SSD and WKV), hybrid
+    then dense, STATIC_TRAIN_STEPS steps each: K8 and K9 launched, K7
+    wherever the family has causal softmax attention (zamba2's shared
+    block, the decoders; the encoder's and the cross attention are plain,
+    as in JAX), rows on both sides of the format, no overflow, a falling
+    loss, step time, peak and MFU (``train_steps``; for whisper the
+    accounting's 6 N D counts the decoder's tokens only), one hybrid step
+    traced; then each config's FFN layer in float32, hybrid gradients
+    against the dense formula (``grad_check``). The attention-free
+    families take fresh batches; the cross families one batch with its
+    frames or patches every step: vision's 128256-way head spreads the
+    loss of fresh random batches by ~0.2 at init, more than three updates
+    move it, so only a batch seen again shows the fall. A fixed batch and
+    depth: an out-of-memory error fails the phase."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     free, total = torch.cuda.mem_get_info()
     runs = []
-    for arch, layers, rows in SSM_TRAIN:
+    for arch, layers, batch, rows in table:
         pair = []
         for impl in ("hybrid", "dense"):
-            cfg, params = ssm_model(torch, arch, layers, impl,
-                                    alive=TRAIN_ALIVE)
+            cfg, params = static_model(torch, arch, layers, impl,
+                                       alive=TRAIN_ALIVE)
             params = lm.trainable(params)
-            pair.append(train_steps(torch, cfg, train_batches(
-                torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SSM_TRAIN_STEPS),
-                params=params, profile=impl == "hybrid"))
-            del params
+            extras = static_extras(torch, cfg, batch, SEED + 20)
+            if extras:
+                b = train_batches(torch, cfg, batch, TRAIN_SEQ, 1)[0]
+                batches = [{**b, **extras}] * STATIC_TRAIN_STEPS
+            else:
+                batches = train_batches(torch, cfg, batch, TRAIN_SEQ,
+                                        STATIC_TRAIN_STEPS)
+            pair.append(train_steps(torch, cfg, batches, params=params,
+                                    profile=impl == "hybrid"))
+            del params, batches, extras
             gc.collect()
             torch.cuda.empty_cache()
         hybrid, dense = pair
@@ -4362,10 +4650,14 @@ def phase_train_ssm(torch):
                            act=full.sparsity.activation)
         gc.collect()
         torch.cuda.empty_cache()
-        emit({"phase": "train_ssm", "arch": arch, "family": full.family,
-              "layers": hybrid["layers"], "remat": hybrid["remat"],
+        emit({"phase": phase, "arch": arch, "family": full.family,
+              "layers": hybrid["layers"],
+              "encoder_layers": full.encoder_layers,
+              "remat": hybrid["remat"],
               "opt_state_dtype": full.opt_state_dtype,
-              "batch": [TRAIN_BATCH, TRAIN_SEQ],
+              "batch": [batch, TRAIN_SEQ],
+              "cross_len": {"audio": XATTN_FRAMES, "vlm":
+                            full.num_image_tokens}.get(full.family, 0),
               "alive_columns": TRAIN_ALIVE,
               "card_free_bytes_before": free, "card_total_bytes": total,
               "runs": pair,
@@ -4373,11 +4665,26 @@ def phase_train_ssm(torch):
                   key: hybrid[key] / dense[key]
                   for key in ("peak_mem_bytes", "grad_peak_mem_bytes")},
               "grad_check": check})
-        attn = ("flash_attention",) if full.family == "hybrid" else ()
+        attn = () if full.family == "ssm" else ("flash_attention",)
         assert_trained(hybrid, attn + TRAIN_KERNELS[1:])
         assert_trained(dense, attn)
         runs += pair
     return {"launches": summed_launches(runs)}
+
+
+def phase_train_ssm(torch):
+    """zamba2-1.2b (12 layers) and rwkv6-7b (8 layers) through
+    ``train_static``: K8 and K9 (rwkv6 non-gated with relu^2), K7 for
+    zamba2's shared block."""
+    return train_static(torch, "train_ssm", SSM_TRAIN)
+
+
+def phase_train_xattn(torch):
+    """whisper-large-v3 (32 + 32 layers, TRAIN_BATCH x XATTN_FRAMES frames
+    a step: the encoder's FFN at 12000 rows) and llama-3.2-vision-11b (one
+    super-block, TRAIN_BATCH / 2 x 1024 patches, gates nonzero) through
+    ``train_static``: K7, K8 and K9."""
+    return train_static(torch, "train_xattn", XATTN_TRAIN)
 
 
 # --------------------------------------------------------------------------- #
@@ -4420,28 +4727,38 @@ def first_layers(tree, n):
         for name, leaf in tree["blocks"].items()}}
 
 
-def ssm_check(torch, arch, cfg, cpu_params, prompt, steps=4):
-    """The first SSM_CHECK_LAYERS of ``arch`` (bf16 weights kept on the
-    CPU by ``phase_serve_ssm``): the static loop in float32 on the CPU
-    (the plain versions) prefills ``prompt`` and decodes ``steps`` greedy
-    tokens; the card (bf16, the gather FFN: K1 + K2 or K1 + K6)
-    teacher-forces the CPU's tokens through ``decode_step``. Logits of the
+def static_check(torch, arch, cfg, cpu_params, prompt, steps=4,
+                 extras=None):
+    """``arch`` at the depth of ``cfg`` (its first layers; bf16 weights
+    kept on the CPU by ``serve_static``): the
+    static loop in float32 on the CPU (the plain versions) prefills
+    ``prompt`` and decodes ``steps`` greedy tokens, from a cross cache of
+    ``extras`` (frames or patches, one request) when given; the card
+    (bf16, the gather FFN: K1 + K2 or K1 + K6) teacher-forces the CPU's
+    tokens through ``decode_step`` from its own cross cache. Logits of the
     prefill's last position and of each decode step within LOGIT_TOL,
     tokens equal wherever the CPU's top-2 margin exceeds it."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
-    n = SSM_CHECK_LAYERS[arch]
-    cfg = dataclasses.replace(cfg, num_layers=n, sparsity=dataclasses.replace(
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
         cfg.sparsity, ffn_impl="gather"))
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     p32 = tree_map(lambda t: t.float(), cpu_params)
+    cache_len = len(prompt) + steps + 2
+    extras = extras or {}
+    cache = static_cache(torch, cfg32, p32, extras, 1, cache_len)
     ref = []
     toks = serve.generate(p32, cfg32, torch.tensor([prompt]), steps + 1,
-                          len(prompt) + steps + 2, logits_out=ref)
-    del p32
-    card = moe_forced_logits(torch, cfg, lm.params_to(cpu_params, "cuda"),
-                             toks[:, :-1].cuda(), len(prompt) - 1)[0].cpu()
+                          cache_len, logits_out=ref, cache=cache)
+    del p32, cache
+    card_params = lm.params_to(cpu_params, "cuda")
+    cache = static_cache(torch, cfg, card_params,
+                         {k: v.cuda() for k, v in extras.items()}, 1,
+                         toks.shape[1])
+    card = moe_forced_logits(torch, cfg, card_params, toks[:, :-1].cuda(),
+                             len(prompt) - 1, cache=cache)[0].cpu()
+    del card_params, cache
     diffs = []
     for step, (a, b) in enumerate(zip(card, (r[0] for r in ref))):
         assert bool(torch.isfinite(a).all()), f"{arch}: non-finite logits"
@@ -4453,13 +4770,14 @@ def ssm_check(torch, arch, cfg, cpu_params, prompt, steps=4):
                 f"{arch} step {step}: token differs"
     assert max(diffs) <= LOGIT_TOL, \
         f"{arch}: card vs CPU logits differ by {max(diffs)}"
-    return {"arch": arch, "layers": n, "len": len(prompt),
+    return {"arch": arch, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers, "len": len(prompt),
             "backend": "gather", "norm": cfg.norm,
             "max_abs_logit_diff": diffs,
             "cpu_first_token": int(toks[0, len(prompt)])}
 
 
-def phase_check(torch, serve, olmo, dense, ssm):
+def phase_check(torch, serve, olmo, dense, ssm, xattn):
     """Tolerance: card logits (bf16 weights and activations, 8 layers) within
     LOGIT_TOL of the CPU's float32 logits, whose spread is about 1; a bf16
     value carries 8 significant bits, a relative rounding of 2^-9 per step.
@@ -4524,12 +4842,17 @@ def phase_check(torch, serve, olmo, dense, ssm):
                        "cpu_top2_margin": float(top2[0] - top2[1]),
                        "engine_first_token": engine_first,
                        "cpu_first_token": int(ref[0].argmax())})
-    # rwkv6-7b's first 2 layers (affine LayerNorm, K1 with relu^2 + K6) and
-    # zamba2-1.2b's first 6 (the shared block once: K1 + K2) through the
-    # static loop's decode
-    for arch, (cfg, cpu_params, prompt) in ssm["check"].items():
+    # rwkv6-7b's first 2 layers (affine LayerNorm, K1 with relu^2 + K6),
+    # zamba2-1.2b's first 6 (the shared block once: K1 + K2), whisper-
+    # large-v3's first 2 + 2 (K1 + K6, one request's 1500 frames) and
+    # llama-3.2-vision-11b's first super-block (K1 + K2, 1024 patches, the
+    # gated cross block) through the static loop's decode, the cross
+    # families from prefilled cross caches
+    for arch, (cfg, cpu_params, prompt, extras) in (
+            *ssm["check"].items(), *xattn["check"].items()):
         with torch.no_grad():
-            report.append(ssm_check(torch, arch, cfg, cpu_params, prompt))
+            report.append(static_check(torch, arch, cfg, cpu_params, prompt,
+                                       extras=extras))
     emit({"phase": "check", "tolerance": LOGIT_TOL, "prompts": report,
           "train_step": check_train(torch),
           "train_step_olmo": check_train(torch, "olmo-1b", remat=None)})
@@ -4591,13 +4914,15 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
 SERVE_PHASES = {"disagg": phase_disagg,
                 "serve_moe": lambda torch, *_: phase_serve_moe(torch),
                 "serve_dense": lambda torch, *_: phase_serve_dense(torch),
-                "serve_ssm": lambda torch, *_: phase_serve_ssm(torch)}
+                "serve_ssm": lambda torch, *_: phase_serve_ssm(torch),
+                "serve_xattn": lambda torch, *_: phase_serve_xattn(torch)}
 TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,
                 "train_moe": phase_train_moe,
                 "train_dense": phase_train_dense,
                 "train_ssm": phase_train_ssm,
+                "train_xattn": phase_train_xattn,
                 "check_train": lambda torch: emit({
                     "phase": "check_train",
                     "train_step": check_train(torch),

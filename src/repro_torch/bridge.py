@@ -8,7 +8,9 @@ params)`` on the JAX side): this module imports no JAX. A bfloat16 leaf
 (numpy dtype ``bfloat16`` from ml_dtypes) is reinterpreted bit for bit as
 ``torch.bfloat16``.
 
-The trainable tree is the JAX tree: the derived ``blocks.ffn.wu_t`` is
+The trainable tree is the JAX tree: the derived ``wu_t`` beside every
+gated FFN's ``wu`` (``lm.prepare_params``: ``blocks.ffn``, a MoE block's
+experts, zamba2's ``shared_attn.ffn``, vision's self and cross blocks) is
 added by ``from_numpy`` and dropped by ``to_numpy`` and ``lm.trainable``.
 The AdamW state (``step``, ``m``, ``v``) crosses the same way
 (``opt_state_from_numpy`` / ``opt_state_to_numpy``).

@@ -23,6 +23,8 @@ _REGISTRY: Dict[str, str] = {
     "llama3-405b": "llama3_405b",
     "zamba2-1.2b": "zamba2_1p2b",
     "rwkv6-7b": "rwkv6_7b",
+    "whisper-large-v3": "whisper_large_v3",
+    "llama-3.2-vision-11b": "llama_3p2_vision_11b",
 }
 
 

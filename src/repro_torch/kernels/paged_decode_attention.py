@@ -36,11 +36,13 @@ def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def masked_sdpa(q, kf, vf, mask, scale):
-    """f32 logits and softmax, -1e30 mask, probabilities cast to q.dtype
-    (``repro/models/layers.py:_sdpa``)."""
+    """f32 logits and softmax, -1e30 where ``mask`` is False (no mask:
+    None), probabilities cast to q.dtype (``repro/models/layers.py:_sdpa``).
+    Over no keys the output is zeros, as JAX's."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() * scale
-    logits = torch.where(mask, logits, torch.full((), -1e30,
-                                                  device=q.device))
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full((), -1e30,
+                                                      device=q.device))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf)
 

@@ -35,10 +35,15 @@ Usage:
   # route to the static loop, as in the JAX package
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
       --reduced --device cpu --prompt-len 24 --gen 16
-  # the attention-free families (rwkv6-7b: ssm; zamba2-1.2b: hybrid) go
-  # to the static loop too; --http and --disagg refuse them
+  # the attention-free families (rwkv6-7b: ssm; zamba2-1.2b: hybrid) and
+  # the cross-attention ones (whisper-large-v3: audio, with an empty
+  # encoder cache; llama-3.2-vision-11b: vlm, zero image slots, as the JAX
+  # CLI serves them) go to the static loop too; --http and --disagg
+  # refuse them
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --reduced --device cpu
 
 Weights are random (``lm.init``, ``--seed``) and so are the ``--batch``
 prompts of ``--prompt-len`` token ids (numpy, ``--seed``). The batch run
@@ -59,7 +64,7 @@ import argparse
 import dataclasses
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -77,8 +82,9 @@ LOGIT_TOL = 0.1          # the card's near-tie margin (chip_smoke.py's too)
 def generate(params, cfg, prompt: torch.Tensor, steps: int, cache_len: int,
              greedy: bool = True, key: Optional[torch.Tensor] = None,
              top_k: int = 0, temperature: float = 1.0,
-             logits_out: Optional[List[torch.Tensor]] = None
-             ) -> torch.Tensor:
+             logits_out: Optional[List[torch.Tensor]] = None,
+             extras: Optional[Dict[str, torch.Tensor]] = None,
+             cache: Optional[Dict] = None) -> torch.Tensor:
     """Static reference loop: prompt (B, P) int -> tokens (B, P+steps).
 
     Fixed-shape batch, monolithic cache (``lm.init_cache`` /
@@ -89,9 +95,23 @@ def generate(params, cfg, prompt: torch.Tensor, steps: int, cache_len: int,
     split(key)``, then ``categorical(sub, logits / temperature)`` over the
     top-k, bit for bit ``jax.random``'s draws (threefry, Gumbel over
     ``uniform(minval=tiny)``). ``logits_out``, if given, receives each
-    sampled step's float32 (B, V) logits."""
+    sampled step's float32 (B, V) logits.
+
+    The cross-attention families' caches are sized as JAX's ``generate``
+    sizes them: ``extras["frames"]`` (B, S_a, D) gives the encoder cache's
+    length (0 without it), the image cache has ``cfg.num_image_tokens``
+    slots; both stay zero. ``extras`` is kept for the signature of JAX's
+    ``generate``; no caller in the port passes it (the CLI passes none, as
+    JAX's does). ``cache``, if given, is the cache to start from instead:
+    ``lm.init_cache`` filled by ``lm.prefill_cross_cache``, the way to
+    serve real frames or patches through this loop."""
     b, p = prompt.shape
-    cache = lm.init_cache(cfg, b, cache_len, device=prompt.device)
+    if cache is None:
+        enc_len = extras["frames"].shape[1] \
+            if extras and "frames" in extras else 0
+        cache = lm.init_cache(cfg, b, cache_len, device=prompt.device,
+                              enc_len=enc_len,
+                              num_patches=cfg.num_image_tokens)
     if key is None:
         key = trandom.PRNGKey(0, device=prompt.device)
     with torch.no_grad():

@@ -17,6 +17,11 @@
 - ``--run-log``: structured JSONL (meta, step and event records with the
   JAX trainer's fields, per-layer nnz and the FLOPs/MFU accounting of
   ``repro_torch/observability`` against the H100's peak);
+- the cross-attention families (whisper-large-v3, llama-3.2-vision-11b)
+  are refused up front: their forward reads ``frames`` / ``patches``,
+  which the synthetic data does not make (the JAX trainer fails on the
+  missing key); ``training.make_train_step`` trains them on batches that
+  carry them;
 - a full-size config recomputes each layer in the backward
   (``cfg.remat``, ``full`` by default), ``--reduced`` keeps every
   activation (``remat="none"``), as the JAX trainer does.
@@ -53,6 +58,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.observability import RunLogger, SparsityReport, param_count
 from repro_torch.optim import adamw
+
+# the batch entry each cross-attention family's forward reads besides the
+# tokens (``lm.forward``)
+BATCH_EXTRAS = {"audio": "frames", "vlm": "patches"}
 
 
 def _dead_reinit(params, batch, cfg, rkey):
@@ -105,6 +114,13 @@ def main(argv=None):
     dev = device_mod.resolve(args.device)
 
     cfg = get_config(args.arch)
+    if cfg.family in BATCH_EXTRAS:
+        # SyntheticLM makes tokens and labels only; the JAX trainer fails
+        # on the missing key at its first step
+        raise SystemExit(
+            f"{args.arch} ({cfg.family}) trains on batches with "
+            f"{BATCH_EXTRAS[cfg.family]!r}, which this trainer's "
+            f"SyntheticLM data does not make")
     if args.reduced:
         cfg = cfg.reduced(d_model=args.width, d_ff=args.width * 4,
                           num_layers=args.layers)

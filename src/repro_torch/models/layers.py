@@ -1,9 +1,17 @@
-"""Model primitives of the dense and MoE families: norms, RoPE, attention
-(causal, sliding-window ``swa``, chunked-local ``local_chunk``),
-embeddings. Ports the parts of ``repro/models/layers.py`` that the paged
-serving engine, the static loop and the training forward run, keeping its
-layouts: activations (B, S, H, hd), pools (num_blocks, block_size, Hkv,
-hd), weights (in, out).
+"""Model primitives: norms, RoPE, attention (causal, sliding-window
+``swa``, chunked-local ``local_chunk``, ``cross`` and bidirectional
+``bidir``), embeddings. Ports the parts of ``repro/models/layers.py`` that
+the paged serving engine, the static loop and the training forward run,
+keeping its layouts: activations (B, S, H, hd), pools (num_blocks,
+block_size, Hkv, hd), weights (in, out).
+
+``cross`` (the vlm family's gated image layers, whisper's decoder) takes
+K and V from ``kv_x`` (the patches, the encoder's output) or, in decode,
+from the precomputed ``xk``/``xv`` of the cache, and applies no rope;
+``bidir`` (whisper's encoder) is unmasked self-attention. Both are plain
+``jnp`` in the JAX package (``_sdpa``, ``_chunked_bidir``), so plain
+PyTorch here: float32 logits and softmax, probabilities cast back to the
+input dtype.
 
 The windowed kinds' decode departs from the JAX package's on purpose. Its
 ring mask ``(kpos < pos + 1) & (kpos > pos - s_cache)``
@@ -25,7 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.paged_decode_attention import masked_sdpa
 
 INIT_STD = 0.02
-ATTN_KINDS = ("causal", "swa", "local_chunk")
+ATTN_KINDS = ("causal", "swa", "local_chunk", "cross", "bidir")
 
 
 def rmsnorm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
@@ -253,22 +261,69 @@ def _banded(q, k, v, scale: float, band_chunk: int, lookback: int,
     return torch.cat(outs, dim=1)
 
 
+def _chunked_bidir(q, k, v, scale: float, q_chunk: int, kv_chunk: int
+                   ) -> torch.Tensor:
+    """Non-causal attention in query chunks of ``q_chunk`` against key
+    chunks of ``kv_chunk`` with an online softmax
+    (``repro/models/layers.py:413-446``): float32 running max, sum and
+    accumulator, each chunk's probabilities cast to q.dtype before the
+    product with V; S a multiple of q_chunk, Sk of kv_chunk."""
+    b, s, h, hd = q.shape
+    sk = k.shape[1]
+    if s % q_chunk or sk % kv_chunk:
+        raise ValueError(f"_chunked_bidir: S {s} / {sk} is not a multiple "
+                         f"of the chunks {q_chunk} / {kv_chunk}")
+    outs = []
+    for i in range(0, s, q_chunk):
+        qq = q[:, i:i + q_chunk]
+        m = torch.full((b, h, q_chunk), float("-inf"), device=q.device)
+        l = torch.zeros((b, h, q_chunk), device=q.device)
+        acc = torch.zeros((b, h, q_chunk, hd), device=q.device)
+        for j in range(0, sk, kv_chunk):
+            kk, vv = k[:, j:j + kv_chunk], v[:, j:j + kv_chunk]
+            logit = torch.einsum("bqhd,bkhd->bhqk", qq, kk).float() * scale
+            m_new = torch.maximum(m, logit.amax(-1))
+            p = torch.exp(logit - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), vv).float()
+            m = m_new
+        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
 def attention(params: Dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor, kind: str = "causal",
-              cache: Optional[Dict] = None) -> torch.Tensor:
-    """Self-attention of ``kind`` causal, swa or local_chunk: paged (the
-    serving engine, causal only) when ``cache`` holds pools; one decode
-    token against the monolithic cache (the static reference loop) when it
-    holds ``k``/``v``/``pos``; else over the sequence itself (the training
-    forward): kernel K7 on the card for causal, and for a window or chunk
-    that covers the sequence (the band degenerates to causal, as JAX's
-    ``attention`` routes it); ``_banded`` otherwise."""
+              kv_x: Optional[torch.Tensor] = None,
+              cache: Optional[Dict] = None, q_chunk: int = 1024,
+              kv_chunk: int = 1024) -> torch.Tensor:
+    """Attention of ``kind`` (``ATTN_KINDS``). Self-attention kinds:
+    paged (the serving engine, causal only) when ``cache`` holds pools;
+    one decode token against the monolithic cache (the static reference
+    loop) when it holds ``k``/``v``/``pos``; else over the sequence itself
+    (the training forward): kernel K7 on the card for causal, and for a
+    window or chunk that covers the sequence (the band degenerates to
+    causal, as JAX's ``attention`` routes it); ``_banded`` otherwise;
+    ``bidir`` unmasked, ``_chunked_bidir`` past S 2048. ``cross``: Q from
+    x, K and V from ``kv_x``, or from the cache's ``xk``/``xv`` (B, Sk,
+    Hkv, hd) when it holds them; no rope, unmasked."""
     b, s, _ = x.shape
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported (one of {ATTN_KINDS})")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    scale = 1.0 / hd ** 0.5
     q = (x @ params["wq"]).reshape(b, s, h, hd)
+    if kind == "cross":
+        if cache is not None and "xk" in cache:
+            k, v = cache["xk"], cache["xv"]
+        else:
+            k = (kv_x @ params["wk"]).reshape(b, kv_x.shape[1], hkv, hd)
+            v = (kv_x @ params["wv"]).reshape(b, kv_x.shape[1], hkv, hd)
+        out = masked_sdpa(q, repeat_kv(k, h), repeat_kv(v, h), None, scale)
+        return out.reshape(b, s, h * hd) @ params["wo"]
     k = (x @ params["wk"]).reshape(b, s, hkv, hd)
     v = (x @ params["wv"]).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
@@ -280,10 +335,13 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
         kf, vf = repeat_kv(k, h), repeat_kv(v, h)
         if kind == "causal":
             out = ops.flash_attention(q, kf, vf)
+        elif kind == "bidir":
+            out = _chunked_bidir(q, kf, vf, scale, q_chunk, kv_chunk) \
+                if s > 2048 else masked_sdpa(q, kf, vf, None, scale)
         elif kind == "local_chunk":
-            out = _banded(q, kf, vf, 1.0 / hd ** 0.5, cfg.attn_chunk, 0)
+            out = _banded(q, kf, vf, scale, cfg.attn_chunk, 0)
         else:
-            out = _banded(q, kf, vf, 1.0 / hd ** 0.5, cfg.window, 1,
+            out = _banded(q, kf, vf, scale, cfg.window, 1,
                           window=cfg.window)
     elif "kpool" in cache:
         if kind != "causal":

@@ -1,6 +1,7 @@
-"""LM of the dense, MoE, hybrid (zamba2) and ssm (rwkv6) families for
-training and serving (ports ``forward``, ``loss_fn``, the paged entry
-points and the static decode of ``repro/models/lm.py``).
+"""LM of the dense, MoE, hybrid (zamba2), ssm (rwkv6), vlm (llama-3.2
+vision) and audio (whisper) families for training and serving (ports
+``forward``, ``loss_fn``, the paged entry points, the cross-attention
+caches and the static decode of ``repro/models/lm.py``).
 
 Public API:
   init(cfg, device=None, seed=0)             -> params
@@ -12,7 +13,10 @@ Public API:
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
   paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
   paged_verify(params, pools, block_tables, start_lens, num_new, tokens, cfg)
-  init_cache(cfg, batch, cache_len, device=None) -> cache  [static loop]
+  init_cache(cfg, batch, cache_len, device=None, enc_len=0, num_patches=0)
+                                             -> cache  [static loop]
+  encode_frames(params, frames, cfg)         -> (B, S_a, D)  [audio]
+  prefill_cross_cache(params, cache, batch, cfg) -> cache  [audio, vlm]
   decode_step(params, cache, tokens, cfg)    -> (logits, cache)
 
 Parameters keep the JAX pytree: ``embed``, ``final_ln``, ``blocks`` with
@@ -20,8 +24,14 @@ every per-layer leaf stacked on a leading L axis (a MoE block's ``moe``:
 ``router`` (L, D, E) and ``experts`` with (L, E, ...) leaves, in place of
 ``ffn``; a hybrid layer's ``ln`` and ``mamba``, with the one shared
 transformer block unstacked in ``shared_attn``; an ssm layer's ``ln1``,
-``ln2``, time mix ``tm`` and channel mix ``cm``), so ``bridge.py`` maps
-one onto the other leaf for leaf. The
+``ln2``, time mix ``tm`` and channel mix ``cm``); the vlm family's
+``blocks.selfs`` with (nb, cross_every - 1, ...) leaves and
+``blocks.cross``, the tanh-gated cross-attention block of each of the nb
+super-blocks, with (nb, ...) leaves (its gates ``gate_attn`` and
+``gate_ffn`` (nb,)); the audio family's ``enc_blocks`` (encoder_layers,
+...), ``dec_blocks`` (L, ...) with the cross-attention ``lnx`` and
+``xattn``, ``enc_ln`` and the stub front end's ``frontend_proj`` (D, D),
+so ``bridge.py`` maps one onto the other leaf for leaf. The
 layer stack is a Python loop (the JAX package scans); the training
 forward unbinds the stacked leaves once, so autograd sums each layer's
 gradient into one slice, not into a zero tensor the size of the whole
@@ -39,9 +49,11 @@ static reference loop (``launch/serve.py:generate``): one (L, B, S, Hkv,
 hd) cache per K and V, one token a call; a window's cache is a ring of
 min(S, window) slots and a local chunk's one of min(S, attn_chunk) that
 restarts at each chunk (``layers._cache_slot``); the hybrid and ssm
-families carry their recurrent states (``init_cache``). The paged entry
-points take the dense and MoE families without a window or chunk, as the
-JAX package's engine does.
+families carry their recurrent states (``init_cache``); the vlm and
+audio families' cross-attention K/V (``xk``, ``xv``) are computed once by
+``prefill_cross_cache``, from the patches or from the encoder's output
+(``encode_frames``). The paged entry points take the dense and MoE
+families without a window or chunk, as the JAX package's engine does.
 
 Recomputation runs a layer's forward again in the backward, kernels
 included, so they count again in ``ops.launch_counts()`` and every hybrid
@@ -53,7 +65,7 @@ once it has rebuilt the inputs its inner checkpoints saved).
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -67,7 +79,7 @@ from repro_torch.models.layers import (attention, attn_init, embed_init,
                                        norm_init)
 
 _NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -85,8 +97,11 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _block_init(cfg: ModelConfig, dtype, gen, dev, use_moe: bool = False):
-    """A transformer block: norms, attention and the FFN (or MoE)."""
+def _block_init(cfg: ModelConfig, dtype, gen, dev, use_moe: bool = False,
+                cross: bool = False):
+    """A transformer block: norms, attention and the FFN (or MoE); a
+    ``cross`` block (vlm) also its scalar gates ``gate_attn`` and
+    ``gate_ffn``, zero (tanh(0) = 0: the block starts as the identity)."""
     d = cfg.d_model
     p = {"ln1": norm_init(cfg.norm, d, dtype, dev),
          "ln2": norm_init(cfg.norm, d, dtype, dev),
@@ -97,6 +112,9 @@ def _block_init(cfg: ModelConfig, dtype, gen, dev, use_moe: bool = False):
                                 dtype, gen, dev)
     else:
         p["ffn"] = sparse_ffn.init(d, cfg.d_ff, cfg.gated, dtype, gen, dev)
+    if cross:
+        p["gate_attn"] = torch.zeros((), dtype=dtype, device=dev)
+        p["gate_ffn"] = torch.zeros((), dtype=dtype, device=dev)
     return p
 
 
@@ -115,6 +133,38 @@ def _layer_init(cfg: ModelConfig, dtype, gen, dev):
     return _block_init(cfg, dtype, gen, dev, use_moe=cfg.family == "moe")
 
 
+def _stacks_init(cfg: ModelConfig, dtype, gen, dev) -> Dict[str, Any]:
+    """The stacked layers: ``blocks`` (L, ...), or the vlm family's
+    super-blocks (``blocks.selfs`` (nb, cross_every - 1, ...),
+    ``blocks.cross`` (nb, ...)), or the audio family's encoder and decoder
+    stacks with ``enc_ln`` and ``frontend_proj``."""
+    d, L = cfg.d_model, cfg.num_layers
+    if cfg.family == "vlm":
+        per = cfg.cross_every
+        return {"blocks": {
+            "selfs": _stack([_stack([_block_init(cfg, dtype, gen, dev)
+                                     for _ in range(per - 1)])
+                             for _ in range(L // per)]),
+            "cross": _stack([_block_init(cfg, dtype, gen, dev, cross=True)
+                             for _ in range(L // per)])}}
+    if cfg.family == "audio":
+        def dec_init():
+            p = _block_init(cfg, dtype, gen, dev)
+            p["lnx"] = norm_init(cfg.norm, d, dtype, dev)
+            p["xattn"] = attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.resolved_head_dim, dtype, gen, dev)
+            return p
+        return {"enc_blocks": _stack([_block_init(cfg, dtype, gen, dev)
+                                      for _ in range(cfg.encoder_layers)]),
+                "dec_blocks": _stack([dec_init() for _ in range(L)]),
+                "enc_ln": norm_init(cfg.norm, d, dtype, dev),
+                # the stub front end: frames arrive as embeddings
+                "frontend_proj": (0.02 * torch.randn(
+                    (d, d), generator=gen, device=dev)).to(dtype)}
+    return {"blocks": _stack([_layer_init(cfg, dtype, gen, dev)
+                              for _ in range(L)])}
+
+
 def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     """Random parameters (normal, std 0.02) from a ``torch.Generator``
     seeded with ``seed`` on ``device`` (default: the card)."""
@@ -122,46 +172,49 @@ def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, L = cfg.d_model, cfg.num_layers
+    d = cfg.d_model
 
-    layers = [_layer_init(cfg, dtype, gen, dev) for _ in range(L)]
-    blocks = _stack(layers)
-    del layers
-    params: Dict[str, Any] = {}
+    params: Dict[str, Any] = _stacks_init(cfg, dtype, gen, dev)
     if cfg.family == "hybrid":
         params["shared_attn"] = _block_init(cfg, dtype, gen, dev)
     params.update({
         "embed": embed_init(cfg.padded_vocab, d, dtype, gen, dev),
         "final_ln": norm_init(cfg.norm, d, dtype, dev),
-        "blocks": blocks,
     })
     if not cfg.tied_embeddings:
         params["lm_head"] = embed_init(cfg.padded_vocab, d, dtype, gen, dev)
     return prepare_params(params)
 
 
-def _ffn_leaves(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The FFN weights: ``blocks.ffn`` (L, ...) leaves, a MoE block's
+def _ffn_trees(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """Every FFN's weights: ``blocks.ffn`` (L, ...) leaves, a MoE block's
     ``blocks.moe.experts`` (L, E, ...), the hybrid family's shared block's
-    ``shared_attn.ffn`` (no L axis) or the ssm family's channel mix
-    ``blocks.cm`` (its ``mix`` beside ``wu`` and ``wd``)."""
+    ``shared_attn.ffn`` (no L axis), the ssm family's channel mix
+    ``blocks.cm`` (its ``mix`` beside ``wu`` and ``wd``), the vlm family's
+    ``blocks.selfs.ffn`` and ``blocks.cross.ffn``, or the audio family's
+    ``enc_blocks.ffn`` and ``dec_blocks.ffn``."""
     if "shared_attn" in params:
-        return params["shared_attn"]["ffn"]
+        return [params["shared_attn"]["ffn"]]
+    if "enc_blocks" in params:
+        return [params["enc_blocks"]["ffn"], params["dec_blocks"]["ffn"]]
     blocks = params["blocks"]
+    if "selfs" in blocks:
+        return [blocks["selfs"]["ffn"], blocks["cross"]["ffn"]]
     if "moe" in blocks:
-        return blocks["moe"]["experts"]
-    return blocks["cm"] if "cm" in blocks else blocks["ffn"]
+        return [blocks["moe"]["experts"]]
+    return [blocks["cm"] if "cm" in blocks else blocks["ffn"]]
 
 
 def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Add the weights derived once at load time: for a gated FFN (one with
     ``wg``), ``wu_t`` beside it, W_u transposed to (..., N, K), which the
     TwELL fused kernel (K2), its only reader, takes by row (``blocks.ffn``,
-    every expert's in ``blocks.moe.experts``, or ``shared_attn.ffn``); a
-    non-gated FFN gets none. Idempotent."""
-    ffn = _ffn_leaves(params)
-    if "wg" in ffn and "wu_t" not in ffn:
-        ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
+    every expert's in ``blocks.moe.experts``, ``shared_attn.ffn``, or the
+    vlm family's self and cross blocks'); a non-gated FFN gets none.
+    Idempotent."""
+    for ffn in _ffn_trees(params):
+        if "wg" in ffn and "wu_t" not in ffn:
+            ffn["wu_t"] = ffn["wu"].transpose(-1, -2).contiguous()
     return params
 
 
@@ -207,9 +260,18 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "vpool": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal"):
+def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """tanh(gate) * y, the tanh in float32 and cast to y's dtype (the vlm
+    cross block's gates, JAX ``lm.py:101-102``, ``:110-111``)."""
+    return torch.tanh(gate.float()).to(y.dtype) * y
+
+
+def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
+                 kv_x=None):
     a = attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
-                  positions=positions, kind=kind, cache=cache)
+                  positions=positions, kind=kind, kv_x=kv_x, cache=cache)
+    if "gate_attn" in p:
+        a = _gated(p["gate_attn"], a)
     x = x + a
     h = norm_apply(cfg.norm, p["ln2"], x)
     if "moe" in p:
@@ -220,6 +282,8 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal"):
     else:
         y, aux = sparse_ffn.apply(p["ffn"], h, cfg.sparsity, cfg.gated,
                                   collect_aux=collect_aux)
+    if "gate_ffn" in p:
+        y = _gated(p["gate_ffn"], y)
     return x + y, aux
 
 
@@ -346,7 +410,7 @@ def stacked_layers(body, x, layers, cfg: ModelConfig):
         for g in range(g_out):
             x, out = outer(x, layers[g * g_in:(g + 1) * g_in])
             auxs += out
-    return x, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+    return x, _stack_aux(auxs)
 
 
 def _mark(aux: Dict, device) -> Dict:
@@ -384,12 +448,25 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
     (``mamba2.mamba2_apply``), the one shared transformer block
     (``params["shared_attn"]``) after every ``shared_attn_every``-th, the
     other layers' aux zero with ``ffn_present`` 0. ssm: RWKV-6's time mix
-    and channel mix, each after its norm and added back. The layers run
-    under ``cfg.remat`` (``stacked_layers``)."""
+    and channel mix, each after its norm and added back. vlm: per
+    super-block ``cross_every - 1`` causal blocks, then the gated cross
+    block against ``batch["patches"]`` (B, P, D), its aux after theirs.
+    audio: the encoder over ``batch["frames"]`` (B, S_a, D), then the
+    decoder's layers (causal self-attention, cross-attention to the
+    encoder's output, the FFN), the encoder's aux before the decoder's.
+    The layers run under ``cfg.remat`` (``stacked_layers``; the vlm
+    family's self blocks one by one under ``_maybe_remat``, its cross
+    blocks never recomputed, as JAX's scan of super-blocks)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    if cfg.family == "vlm":
+        x, aux = _vlm_forward(params, x, batch["patches"], cfg, positions)
+        return _head(params, x, cfg), aux
+    if cfg.family == "audio":
+        x, aux = _audio_forward(params, x, batch["frames"], cfg, positions)
+        return _head(params, x, cfg), aux
     layers = _unstack(params["blocks"], cfg.num_layers)
 
     if cfg.family == "hybrid":
@@ -421,9 +498,84 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
                                    kind=kind)
             return xc, _mark(aux, xc.device)
     x, aux = stacked_layers(body, x, layers, cfg)
+    return _head(params, x, cfg), aux
+
+
+def _head(params, x, cfg):
+    """The final norm and the vocabulary projection."""
     x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
-    return lm_logits(x, head), aux
+    return lm_logits(x, head)
+
+
+def _stack_aux(auxs):
+    return {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+
+
+def _vlm_forward(params, x, patches, cfg, positions):
+    """The vlm family's super-blocks: ``cross_every - 1`` causal blocks,
+    each under ``_maybe_remat`` (``2level`` acts as ``full``: JAX scans
+    the super-blocks without ``stacked_scan``), then the tanh-gated cross
+    block (never recomputed), K and V from the raw patches, Q from
+    ``ln1(x)``. Returns (x, aux stacked in that order)."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT_MODES}")
+    patches = patches.to(x.dtype)
+    per, nb = cfg.cross_every, cfg.num_layers // cfg.cross_every
+
+    def self_body(xc, p):
+        xc, aux = _block_apply(p, xc, cfg, positions, None, True)
+        return xc, _mark(aux, xc.device)
+    step = _maybe_remat(self_body, cfg)
+    selfs = _unstack(params["blocks"]["selfs"], nb)
+    crosses = _unstack(params["blocks"]["cross"], nb)
+    auxs = []
+    for sp, cp in zip(selfs, crosses):
+        for p in _unstack(sp, per - 1):
+            x, aux = step(x, p)
+            auxs.append(aux)
+        x, aux = _block_apply(cp, x, cfg, positions, None, True,
+                              kind="cross", kv_x=patches)
+        auxs.append(_mark(aux, x.device))
+    return x, _stack_aux(auxs)
+
+
+def _encode(params, frames, cfg, collect_aux: bool):
+    """The audio family's encoder: ``stacked_layers`` of bidirectional
+    blocks over ``frames @ frontend_proj``, then ``enc_ln``. Returns (the
+    output, each layer's aux when ``collect_aux``, else {})."""
+    w = params["frontend_proj"]
+    enc = frames.to(w.dtype) @ w
+    enc_pos = torch.arange(enc.shape[1], device=enc.device)
+
+    def body(xc, p):
+        xc, aux = _block_apply(p, xc, cfg, enc_pos, None, collect_aux,
+                               kind="bidir")
+        return xc, _mark(aux, xc.device) if collect_aux else {}
+    enc, aux = stacked_layers(
+        body, enc, _unstack(params["enc_blocks"], cfg.encoder_layers), cfg)
+    return norm_apply(cfg.norm, params["enc_ln"], enc), aux
+
+
+def _audio_forward(params, x, frames, cfg, positions):
+    """The audio family: the encoder (``_encode``), then the decoder's
+    layers under ``stacked_layers``: causal self-attention after ``ln1``,
+    cross-attention after ``lnx`` to the encoder's output, the FFN after
+    ``ln2``, each added back. Returns (x, the encoder's aux then the
+    decoder's)."""
+    enc, aux_e = _encode(params, frames, cfg, True)
+
+    def dec_body(xc, p):
+        xc = xc + attention(p["attn"], norm_apply(cfg.norm, p["ln1"], xc),
+                            cfg, positions=positions, kind="causal")
+        xc = xc + attention(p["xattn"], norm_apply(cfg.norm, p["lnx"], xc),
+                            cfg, positions=positions, kind="cross", kv_x=enc)
+        y, aux = sparse_ffn.apply(p["ffn"], norm_apply(cfg.norm, p["ln2"], xc),
+                                  cfg.sparsity, cfg.gated, collect_aux=True)
+        return xc + y, _mark(aux, xc.device)
+    x, aux_d = stacked_layers(
+        dec_body, x, _unstack(params["dec_blocks"], cfg.num_layers), cfg)
+    return x, {k: torch.cat([aux_e[k], aux_d[k]]) for k in aux_e}
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig, l1_coeff=None,
@@ -505,8 +657,41 @@ def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
                          start_lens=start_lens)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
-               ) -> Dict[str, Any]:
+def encode_frames(params: Dict, frames: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """The audio family's encoder over the stub frame embeddings (B, S_a,
+    D) -> (B, S_a, D): ``frames @ frontend_proj``, the bidirectional
+    blocks, ``enc_ln`` (JAX ``lm.py:369-379``)."""
+    return _encode(params, frames, cfg, False)[0]
+
+
+def prefill_cross_cache(params: Dict, cache: Dict, batch: Dict,
+                        cfg: ModelConfig) -> Dict:
+    """The cross-attention K/V, computed once a request (JAX ``lm.py:382-
+    407``): audio from the encoder's output over ``batch["frames"]``, every
+    decoder layer's ``xattn`` (``xk``/``xv`` (L, B, S_a, Hkv, hd)); vlm
+    from the raw ``batch["patches"]`` (B, P, D), every cross block's
+    (nb, B, P, Hkv, hd). Returns a new cache dict with them in place of
+    the zeros."""
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "audio":
+        src = encode_frames(params, batch["frames"], cfg)
+        attn = params["dec_blocks"]["xattn"]
+    elif cfg.family == "vlm":
+        src = batch["patches"].to(params["embed"].dtype)
+        attn = params["blocks"]["cross"]["attn"]
+    else:
+        return dict(cache)
+    b, s, _ = src.shape
+    out = dict(cache)
+    for name, w in (("xk", attn["wk"]), ("xv", attn["wv"])):
+        out[name] = torch.einsum("bsd,ldh->lbsh", src, w).reshape(
+            w.shape[0], b, s, hkv, hd)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               enc_len: int = 0, num_patches: int = 0) -> Dict[str, Any]:
     """Zero monolithic decode cache, with ``pos``, the tokens written so
     far (a Python int; JAX's is an int32 scalar). dense/moe: ``k`` and
     ``v`` of shape (L, batch, S_cache, Hkv, hd); ``cache_len`` is the
@@ -517,7 +702,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
     C), and ``k``/``v`` for each of the L // shared_attn_every applications
     of the shared block. ssm: each layer's float32 ``wkv`` state (L, batch,
     H, hd, hd) and the time and channel mixes' token shifts ``shift_tm``,
-    ``shift_cm`` (L, batch, D)."""
+    ``shift_cm`` (L, batch, D). vlm: ``k``/``v`` of the L - nb self
+    blocks and zero ``xk``/``xv`` (nb, batch, num_patches, Hkv, hd) of
+    the nb cross blocks; audio: ``k``/``v`` (L, ...) and zero ``xk``/``xv``
+    (L, batch, enc_len, Hkv, hd) (``prefill_cross_cache`` fills both)."""
     _check_family(cfg)
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
@@ -531,6 +719,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None
         return {**{k: v.new_zeros((L, *v.shape)) for k, v in layer.items()},
                 "k": zeros(napp, batch, cache_len, hkv, hd),
                 "v": zeros(napp, batch, cache_len, hkv, hd), "pos": 0}
+    if cfg.family in ("vlm", "audio"):
+        self_layers, cross_layers, src = (
+            (L - L // cfg.cross_every, L // cfg.cross_every, num_patches)
+            if cfg.family == "vlm" else (L, L, enc_len))
+        return {"k": zeros(self_layers, batch, cache_len, hkv, hd),
+                "v": zeros(self_layers, batch, cache_len, hkv, hd),
+                "xk": zeros(cross_layers, batch, src, hkv, hd),
+                "xv": zeros(cross_layers, batch, src, hkv, hd), "pos": 0}
     if cfg.family == "ssm":
         h, hdr = rwkv6.rwkv_dims(cfg)
         return {"wkv": zeros(L, batch, h, hdr, hdr, dt=torch.float32),
@@ -583,6 +779,45 @@ def _ssm_decode(params, cache, x, cfg):
     return x
 
 
+def _vlm_decode(params, cache, x, cfg, positions, pos):
+    """The vlm family's layers for one token: each super-block's self
+    blocks against their K/V (layer b * (cross_every - 1) + j of
+    ``k``/``v``), then its cross block against the block's ``xk``/``xv``;
+    the self caches updated in place."""
+    per, nb = cfg.cross_every, cfg.num_layers // cfg.cross_every
+    for b in range(nb):
+        selfs = _layer(params["blocks"]["selfs"], b)
+        for j in range(per - 1):
+            l = b * (per - 1) + j
+            x, _ = _block_apply(_layer(selfs, j), x, cfg, positions,
+                                {"k": cache["k"][l], "v": cache["v"][l],
+                                 "pos": pos}, False)
+        x, _ = _block_apply(_layer(params["blocks"]["cross"], b), x, cfg,
+                            positions, {"xk": cache["xk"][b],
+                                        "xv": cache["xv"][b]}, False,
+                            kind="cross")
+    return x
+
+
+def _audio_decode(params, cache, x, cfg, positions, pos):
+    """The audio family's decoder layers for one token: causal
+    self-attention against the layer's K/V (updated in place),
+    cross-attention against its ``xk``/``xv``, the FFN."""
+    for l in range(cfg.num_layers):
+        p = _layer(params["dec_blocks"], l)
+        x = x + attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
+                          positions=positions, kind="causal",
+                          cache={"k": cache["k"][l], "v": cache["v"][l],
+                                 "pos": pos})
+        x = x + attention(p["xattn"], norm_apply(cfg.norm, p["lnx"], x), cfg,
+                          positions=positions, kind="cross",
+                          cache={"xk": cache["xk"][l], "xv": cache["xv"][l]})
+        y, _ = sparse_ffn.apply(p["ffn"], norm_apply(cfg.norm, p["ln2"], x),
+                                cfg.sparsity, cfg.gated)
+        x = x + y
+    return x
+
+
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence through the monolithic cache: tokens
@@ -594,7 +829,11 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     ``cfg.sparsity`` (K1 + K2 on the card for ``gather``; each expert's in
     a MoE block). hybrid: ``mamba2.mamba2_decode`` a layer and the shared
     block (K1 + K2) at its applications. ssm: RWKV-6's per-token WKV step
-    and the channel mix (K1 with relu^2, then K6). Raises "cache full" once
+    and the channel mix (K1 with relu^2, then K6). vlm: the self blocks
+    and, after each super-block's, its gated cross block over ``xk``/``xv``
+    (K1 + K2 in both). audio: the decoder's layers, cross-attention over
+    ``xk``/``xv`` (K1 + K6: a non-gated FFN); an empty encoder cache
+    (enc_len 0) contributes zeros. Raises "cache full" once
     ``pos`` reaches the K/V slots, unless they hold a whole window or
     chunk (the ring then wraps, the chunk restarts); the ssm family keeps
     no K/V and has no such limit."""
@@ -611,6 +850,10 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         x = _hybrid_decode(params, cache, x, cfg, positions, pos)
     elif cfg.family == "ssm":
         x = _ssm_decode(params, cache, x, cfg)
+    elif cfg.family == "vlm":
+        x = _vlm_decode(params, cache, x, cfg, positions, pos)
+    elif cfg.family == "audio":
+        x = _audio_decode(params, cache, x, cfg, positions, pos)
     else:
         for l in range(cfg.num_layers):
             layer_cache = {"k": cache["k"][l], "v": cache["v"][l],
@@ -619,6 +862,4 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                                 positions, layer_cache, False,
                                 kind=_attn_kind(cfg))
     cache["pos"] = pos + 1
-    x = norm_apply(cfg.norm, params["final_ln"], x)
-    head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
-    return lm_logits(x, head), cache
+    return _head(params, x, cfg), cache

@@ -78,6 +78,9 @@ GATE_SHAPES = [  # (M, K, N, T, C, act, keep)
 ] + [  # olmo-1b's W_u and zamba2-1.2b's shared W_g (K2 at its K 2048, N
     # 8192), decode and prefill
     (m, 2048, 8192, 256, 8, "relu", 0.02) for m in (4, 256)
+] + [  # llama-3.2-vision-11b's gated FFN (K1 + K2 at K 4096, N 14336), decode
+    # and a 64-row chunk
+    (m, 4096, 14336, 256, 8, "relu", 0.02) for m in (4, 64)
 ]
 
 
@@ -489,6 +492,33 @@ def test_relu2_gate_and_down_proj_at_rwkv6_shape(card, m):
     assert torch.equal(y, twell_down_proj_cuda(pv, pi, pz, wd, t))
 
 
+@pytest.mark.parametrize("m", [4, 6000])
+def test_gate_and_down_proj_at_whisper_shape(card, m):
+    """whisper-large-v3's non-gated FFN as the gather path serves it (K
+    1280, N 5120, T 256, C 8, 2% of W_u's columns alive), at decode and
+    over a 4-request encoder's 4 x 1500 frame rows: K1 packs relu(x @
+    W_u), then K6 projects the plain version's packed pattern down; each
+    within bf16 tolerance of its plain version, the same bits each run."""
+    from repro_torch.kernels.sparse_ffn import (twell_down_proj_cuda,
+                                                twell_down_proj_plain)
+    from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
+                                                twell_gate_matmul_plain)
+    k, n, t, c = 1280, 5120, 256, 8
+    x, wu, _, wd = _gate(m, k, n, 0.02, m + k, card)
+    v, i, z = twell_gate_matmul_cuda(x, wu, t, c, "relu")
+    pv, pi, pz = twell_gate_matmul_plain(x, wu, t, c, "relu")
+    pre = x.float() @ wu.float()
+    rows = ~((pre != 0) & (pre.abs() < 1e-3 * pre.abs().max())).any(-1)
+    assert torch.equal(z[rows], pz[rows]) and torch.equal(i[rows], pi[rows])
+    torch.testing.assert_close(v[rows].float(), pv[rows].float(), **TOL)
+    assert torch.equal(v, twell_gate_matmul_cuda(x, wu, t, c, "relu")[0])
+    pz = torch.clamp(pz, max=t // c)
+    y = twell_down_proj_cuda(pv, pi, pz, wd, t)
+    torch.testing.assert_close(y, twell_down_proj_plain(pv, pi, pz, wd, t),
+                               **TOL)
+    assert torch.equal(y, twell_down_proj_cuda(pv, pi, pz, wd, t))
+
+
 def _down_case(m, k, n, t, c, keep, seed, dev, dead_rows=0):
     """K1-plain-packed relu(x @ W_u) (counts clipped to T/C as ops clips
     them) and W_d on the card; the last ``dead_rows`` rows of x zero."""
@@ -708,6 +738,7 @@ FLASH_SHAPES = [  # (B, S, H, hd)
     (2, 1024, 4, 64),
     (2, 1024, 4, 128),        # olmo-1b's training shape: hd 128, S 1024
     (8, 1024, 32, 96),        # phi3-mini's training shape: hd 96 padded
+    (8, 1024, 20, 64),        # whisper-large-v3's decoder: 20 heads of 64
     (1, 200, 2, 96),          # hd 96, S ragged
 ]
 
@@ -850,6 +881,9 @@ HYBRID_SHAPES = [  # (M, N, K, E, dense rows[, kind])
     (8192, 5632, 2048, 128, 8, "alive216"),
     (8192, 5632, 2048, 128, 8, "scattered"),   # K9's worst case
     (300, 512, 136, 32, 128, "backup_block"),  # a row block all backup
+    # whisper-large-v3's encoder FFN in a training step: 8 x 1500 frame
+    # rows, K 1280, N 5120
+    (12000, 5120, 1280, 128, 8, "alive216"),
     # past N 16384, the wide union maps: deepseek-67b's and llama3-405b's
     # d_ff, 216 columns alive, and a random pattern over all of N
     (2048, 22016, 1024, 128, 8, "alive216"),

@@ -51,7 +51,8 @@ def test_walk_covers_the_package():
             "trace.py", "engine_spec.py", "server.py", "coordinator.py",
             "transfer.py", "moe.py", "mixtral_8x22b.py",
             "llama4_scout_17b_a16e.py", "mamba2.py", "rwkv6.py",
-            "zamba2_1p2b.py", "rwkv6_7b.py"} <= names
+            "zamba2_1p2b.py", "rwkv6_7b.py", "whisper_large_v3.py",
+            "llama_3p2_vision_11b.py"} <= names
 
 
 @pytest.fixture
@@ -61,7 +62,7 @@ def no_card(monkeypatch):
 
 def test_entry_points_need_a_card_unless_cpu(no_card):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import lm
     from repro_torch.serving import EngineSpec, ServingEngine
     from repro_torch.serving.server import ServingServer
@@ -77,11 +78,18 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         lm.init_cache(moe_cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama4-scout-17b-a16e", "--reduced"])
-    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+    for arch in ("zamba2-1.2b", "rwkv6-7b", "whisper-large-v3",
+                 "llama-3.2-vision-11b"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             lm.init_cache(get_config(arch).reduced(), 1, 8)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", arch, "--reduced"])
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+        xcfg = get_config(arch).reduced()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init(xcfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--arch", arch, "--reduced"])
     params = lm.init(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(params, cfg)
