@@ -210,6 +210,14 @@ JAX package) and runs these phases, each printing one JSON line:
                  busy share of a profiled step, beside the same steps with
                  the dense FFN; then a float32 gradient check of one hybrid
                  FFN layer against autograd of the dense formula
+  7a. dryrun  -- the port's dry run (``launch/dryrun.py``, meta tensors,
+                 each kernel its shape function, no card) of the train
+                 phase's hybrid and dense steps: each predicted peak beside
+                 the measured one less what earlier phases held, the dense
+                 within DRYRUN_TOL; the predicted peaks of the trainings
+                 that wait on memory (WAITING_TRAININGS). Phase 3 also
+                 holds every kernel's output shapes and dtypes against its
+                 shape function's on meta copies of its inputs
   7b. remat   -- the same model, hybrid FFN and batch: one loss and
                  gradient under each ``remat`` mode (none, dots, full,
                  2level) from the same weights, each bitwise equal to
@@ -301,7 +309,7 @@ twell_down_proj, paged_decode_attention, paged_chunk_attention,
 flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
-the last line. ``--train-phases train`` (or any of train, remat,
+the last line. ``--train-phases train`` (or any of train, dryrun, remat,
 train_1p5b, train_olmo, train_moe, train_dense, train_ssm, train_xattn
 and check_train,
 comma-separated) runs
@@ -378,7 +386,8 @@ def parse_args(argv):
                          "build and kernels phases, for those kernels, and "
                          "print their table (no last line); for A/B timing")
     ap.add_argument("--train-phases", default=None,
-                    help="comma-separated training phases (train, remat, "
+                    help="comma-separated training phases (train, "
+                         "dryrun, remat, "
                          "train_1p5b, train_olmo, train_moe, train_dense, "
                          "train_ssm, train_xattn, check_train): "
                          "run only the device and build phases and those, "
@@ -485,6 +494,7 @@ def main(argv=None) -> int:
     serve_ssm = timed("serve_ssm", phase_serve_ssm)
     serve_xattn = timed("serve_xattn", phase_serve_xattn)
     train = timed("train", phase_train)
+    timed("dryrun", phase_dryrun)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
     olmo_train = timed("train_olmo", phase_train_olmo)
@@ -638,6 +648,51 @@ def gate_inputs(torch, m, k, n, gen, scale=0.08):
     return x, wg, wu, wd
 
 
+SHAPE_FNS = {   # kernel -> (module, its shape function)
+    "twell_gate_matmul": ("twell_pack", "twell_gate_matmul_shape"),
+    "twell_fused_ffn": ("sparse_ffn", "twell_fused_ffn_shape"),
+    "twell_down_proj": ("sparse_ffn", "twell_down_proj_shape"),
+    "tile_skip_ffn": ("sparse_ffn", "tile_skip_ffn_shape"),
+    "paged_decode_attention": ("paged_decode_attention",
+                               "paged_decode_attention_shape"),
+    "paged_chunk_attention": ("paged_chunk_attention",
+                              "paged_chunk_attention_shape"),
+    "flash_attention": ("flash_attention", "flash_attention_shape"),
+    "hybrid_to_dense": ("hybrid_matmul", "hybrid_to_dense_shape"),
+    "dense_to_hybrid": ("hybrid_matmul", "dense_to_hybrid_shape"),
+}
+SHAPE_CHECKS = {}   # kernel -> calls whose outputs its shape function matched
+
+
+def shape_agrees(torch, name, out, *args):
+    """The kernel ``name``'s outputs ``out`` (a tensor or a tuple) against
+    its shape function's on meta copies of ``args`` (what the dry run
+    traces in its place): the same shapes and dtypes, or the phase fails.
+    Counted in SHAPE_CHECKS."""
+    import importlib
+    from repro_torch.core import twell
+    mod, fn = SHAPE_FNS[name]
+    shape_fn = getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), fn, None)
+    if shape_fn is None:            # --src: a port from before the dry run
+        return
+
+    def meta(a):
+        if isinstance(a, twell.TwellActs):
+            return a._replace(**{f: getattr(a, f).to("meta") for f in
+                                 ("values", "indices", "nnz", "overflow")
+                                 if isinstance(getattr(a, f), torch.Tensor)})
+        return a.to("meta") if isinstance(a, torch.Tensor) else a
+    got = shape_fn(*map(meta, args))
+    have = [(tuple(t.shape), t.dtype) for t in
+            (got if isinstance(got, tuple) else (got,))]
+    want = [(tuple(t.shape), t.dtype) for t in
+            (out if isinstance(out, tuple) else (out,))]
+    assert have == want, \
+        f"{name}: the shape function gives {have}, the kernel {want}"
+    SHAPE_CHECKS[name] = SHAPE_CHECKS.get(name, 0) + 1
+
+
 def k1_agrees(torch, x, wg, t, c, case, act="relu"):
     """K1 on x, wg (``act``: relu, or relu^2 as rwkv6's channel mix) against
     the plain version: nnz and indices equal on the rows with no
@@ -647,6 +702,7 @@ def k1_agrees(torch, x, wg, t, c, case, act="relu"):
     from repro_torch.kernels.twell_pack import (twell_gate_matmul_cuda,
                                                 twell_gate_matmul_plain)
     v, i, z = twell_gate_matmul_cuda(x, wg, t, c, act)
+    shape_agrees(torch, "twell_gate_matmul", (v, i, z), x, wg, t, c, act)
     pv, pi, pz = twell_gate_matmul_plain(x, wg, t, c, act)
     torch.cuda.synchronize()
     pre = x.float() @ wg.float()
@@ -715,6 +771,7 @@ def check_k2(torch, timer, x, wg, wu, wd, pv, pi, pz, pattern="alive"):
     tw = twell.TwellActs(pv, pi, torch.clamp(pz, max=tc), (pz > tc).any(),
                          t, c, n)
     y = twell_fused_ffn_cuda(x, tw, wu_t, wd)
+    shape_agrees(torch, "twell_fused_ffn", y, x, tw, wu_t, wd)
     py = twell_fused_ffn_plain(x, tw, wu_t, wd)
     torch.cuda.synchronize()
     err2, ok2 = close_err(torch, y, py)
@@ -884,6 +941,7 @@ def check_k6(torch, timer, m, gen, keep=KEEP, k=2048, n=8192, act="relu"):
     args = (v, i, z, wd, t)
     case = f"M={m}, K={k}, N={n}, {act}, keep {keep}"
     y = twell_down_proj_cuda(*args)
+    shape_agrees(torch, "twell_down_proj", y, *args)
     py = twell_down_proj_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, y, py)
@@ -1023,6 +1081,8 @@ def check_k5(torch, timer, m, threshold, gen):
     flags = torch.empty((rb, nt), dtype=torch.int32, device="cuda")
     y, h = tile_skip_ffn_cuda(x, wg, wu, wd, t, "relu", threshold,
                               cell_active=flags)
+    shape_agrees(torch, "tile_skip_ffn", (y, h), x, wg, wu, wd, t, "relu",
+                 threshold)
     py, ph = tile_skip_ffn_plain(x, wg, wu, wd, t, "relu", threshold)
     torch.cuda.synchronize()
     # a row whose tile maximum lies within 1% of the threshold (or, at 0,
@@ -1150,6 +1210,7 @@ def check_k3(torch, timer, h, hkv, gen, hd=64):
     sl = torch.tensor(sl_list, dtype=torch.int32, device="cuda")
     q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").bfloat16()
     o = paged_decode_attention_cuda(q, kpool, vpool, bt, sl)
+    shape_agrees(torch, "paged_decode_attention", o, q, kpool, vpool, bt, sl)
     po = paged_decode_attention_plain(q, kpool, vpool, bt, sl)
     torch.cuda.synchronize()
     err, ok = close_err(torch, o, po)
@@ -1196,6 +1257,8 @@ def check_k4(torch, timer, h, hkv, gen, hd=64):
     nn = torch.tensor(nn_list, dtype=torch.int32, device="cuda")
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
     o = paged_chunk_attention_cuda(q, kpool, vpool, bt, sl, nn)
+    shape_agrees(torch, "paged_chunk_attention", o, q, kpool, vpool, bt, sl,
+                 nn)
     po = paged_chunk_attention_plain(q, kpool, vpool, bt, sl, nn)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(o.float()).all()), "K4 produced non-finite rows"
@@ -1237,6 +1300,7 @@ def check_k7(torch, timer, b, s, h, hd, gen):
     q, k, v = (torch.randn((b, s, h, hd), generator=gen,
                            device="cuda").bfloat16() for _ in range(3))
     o = flash_attention_cuda(q, k, v)
+    shape_agrees(torch, "flash_attention", o, q, k, v)
     po = flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     err, ok = close_err(torch, o, po)
@@ -1345,6 +1409,7 @@ def check_k8(torch, timer, inputs, orient, pattern="alive"):
         vals, w = hy.ell_values.float() / 3, wu.t().contiguous()
     args = (vals, hy.ell_indices, hy.row_nnz, ~hy.is_dense, w)
     y = hybrid_to_dense_cuda(*args)
+    shape_agrees(torch, "hybrid_to_dense", y, *args)
     py = hybrid_to_dense_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, y, py)
@@ -1439,6 +1504,7 @@ def check_k9(torch, timer, inputs, orient, pattern="alive"):
     a, wt = (x, wu.t().contiguous()) if orient == "forward" else (gy, wd)
     args = (a, wt, hy.ell_indices, hy.row_nnz, ~hy.is_dense)
     v = dense_to_hybrid_cuda(*args)
+    shape_agrees(torch, "dense_to_hybrid", v, *args)
     pv = dense_to_hybrid_plain(*args)
     torch.cuda.synchronize()
     err, ok = close_err(torch, v, pv)
@@ -1695,6 +1761,10 @@ def k5_cases(torch, timer, gen):
 
 
 def kernel_table(torch, cases):
+    import importlib.util
+    if importlib.util.find_spec("repro_torch.launch.op_analysis"):
+        unchecked = [n for n in cases if not SHAPE_CHECKS.get(n)]
+        assert not unchecked, f"no shape-function check of {unchecked}"
     out = []
     for name, runs in cases.items():
         head = runs[0]
@@ -1708,7 +1778,8 @@ def kernel_table(torch, cases):
                     "library_ms": head["library_ms"], "cases": runs})
     emit({"phase": "kernels", "tolerance": BF16_TOL,
           "summary": {k["name"]: {"max_abs_err": k["max_abs_err"],
-                                  "ms": k["ms"]} for k in out}})
+                                  "ms": k["ms"]} for k in out},
+          "shape_checks": dict(SHAPE_CHECKS)})
     return out
 
 
@@ -4053,6 +4124,8 @@ def train_run(torch, impl):
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw
     cfg = train_config(impl)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()    # what earlier phases still hold
     params = train_setup(torch, cfg)
     opt = adamw.init(params)
     step = training.make_train_step(cfg, TrainConfig(
@@ -4089,12 +4162,16 @@ def train_run(torch, impl):
             "nnz_mean_max_per_step": nnz, "step_ms": step_ms,
             "step_ms_median_after_first": steady,
             "tokens_per_s": tokens / steady * 1e3,
-            "peak_mem_bytes": peak, "launches": launches,
+            "peak_mem_bytes": peak, "base_mem_bytes": base,
+            "launches": launches,
             "hybrid_overflow": overflow, "ell_rows": ell_rows,
             "backup_rows": backup_rows,
             "profiled_step": {k: prof[k] for k in (
                 "wall_ms", "device_kernel_ms", "device_busy_share")},
             "top_kernels": prof["top_kernels"][:8]}
+
+
+TRAIN_PEAKS = {}    # impl -> the train phase's run (its measured peak)
 
 
 def phase_train(torch):
@@ -4103,6 +4180,7 @@ def phase_train(torch):
     the dense FFN beside it: the paper's Table 1 comparison, reported.
     One line for each run, then one for the gradient check."""
     hybrid = train_run(torch, "hybrid")
+    TRAIN_PEAKS["hybrid"] = hybrid
     emit(hybrid)
     launches = hybrid["launches"]
     assert all(launches[k] > 0 for k in TRAIN_KERNELS), \
@@ -4118,6 +4196,7 @@ def phase_train(torch):
         f"the loss did not fall: {hybrid['losses']}"
     torch.cuda.empty_cache()
     dense = train_run(torch, "dense")
+    TRAIN_PEAKS["dense"] = dense
     emit(dense)
     assert dense["launches"]["flash_attention"] > 0
     emit(grad_check(torch))
@@ -4169,6 +4248,72 @@ def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3, gated=True,
             "tolerance": GRAD_TOL,
             "rel_max_err": errs, "backup_rows": int((nnz > 128).sum()),
             "mean_nnz": float(nnz.mean())}
+
+
+# --------------------------------------------------------------------------- #
+# 7a. the dry run: predicted peaks against the train phase's measured ones
+# --------------------------------------------------------------------------- #
+
+DRYRUN_TOL = 0.10                  # dense prediction vs the measured peak
+# the trainings that wait on memory (ROADMAP.md queue 1 item 3): arch and
+# layers, hybrid FFN, under the config's own remat
+WAITING_TRAININGS = (("llama3-405b", 1), ("llama4-scout-17b-a16e", 2),
+                     ("rwkv6-7b", 32))
+
+
+def phase_dryrun(torch):
+    """The port's dry run (``launch/dryrun.py``: the step on meta tensors,
+    every kernel a shape function, no card) of the train phase's two
+    steps, paper-0.5b hybrid and dense at TRAIN_BATCH x TRAIN_SEQ under
+    remat none (the learning-rate settings move no byte), each predicted
+    peak beside the train phase's measured one: ``max_memory_allocated``
+    over its steps less what was allocated before its run began (the
+    earlier phases' tensors). The dense prediction must be within
+    DRYRUN_TOL of it; the hybrid's gap is printed (the trace takes the hybrid backward's
+    columns at capacity, N, where the card takes the live ones). Then the
+    predicted peaks, with no card run, of WAITING_TRAININGS on the same
+    tokens. Runs the train phase first if it has not run."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    if not TRAIN_PEAKS:
+        phase_train(torch)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"phase": "dryrun", "tolerance": DRYRUN_TOL,
+           "card_memory_bytes": card}
+    for impl in ("hybrid", "dense"):
+        t0 = time.perf_counter()
+        _, ana = dryrun.trace_cell(train_config(impl), shape)
+        run = TRAIN_PEAKS[impl]
+        measured = run["peak_mem_bytes"] - run["base_mem_bytes"]
+        out[impl] = {
+            "predicted_peak_bytes": ana["peak_bytes"],
+            "measured_peak_bytes": measured,
+            "measured_max_memory_allocated": run["peak_mem_bytes"],
+            "base_mem_bytes": run["base_mem_bytes"],
+            "gap": (ana["peak_bytes"] - measured) / measured,
+            "argument_bytes": ana["argument_bytes"],
+            "dot_flops": ana["dot_flops_corrected"],
+            "hbm_bytes": ana["hbm_bytes_estimate"],
+            "kernel_calls": {k: v["calls"]
+                             for k, v in ana["kernels"].items()},
+            "trace_s": round(time.perf_counter() - t0, 2)}
+    waiting = {}
+    for arch, layers in WAITING_TRAININGS:
+        t0 = time.perf_counter()
+        cfg = train_config("hybrid", layers=layers, arch=arch, remat=None)
+        _, ana = dryrun.trace_cell(cfg, shape)
+        waiting[arch] = {"layers": layers, "remat": cfg.remat,
+                         "predicted_peak_bytes": ana["peak_bytes"],
+                         "argument_bytes": ana["argument_bytes"],
+                         "fits_card": ana["peak_bytes"] <= card,
+                         "trace_s": round(time.perf_counter() - t0, 2)}
+    out["waiting"] = waiting
+    emit(out)
+    gap = out["dense"]["gap"]
+    assert abs(gap) <= DRYRUN_TOL, \
+        f"dense predicted peak {gap:+.1%} off the measured one"
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -4916,7 +5061,8 @@ SERVE_PHASES = {"disagg": phase_disagg,
                 "serve_dense": lambda torch, *_: phase_serve_dense(torch),
                 "serve_ssm": lambda torch, *_: phase_serve_ssm(torch),
                 "serve_xattn": lambda torch, *_: phase_serve_xattn(torch)}
-TRAIN_PHASES = {"train": phase_train, "remat": phase_remat,
+TRAIN_PHASES = {"train": phase_train, "dryrun": phase_dryrun,
+                "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,
                 "train_moe": phase_train_moe,

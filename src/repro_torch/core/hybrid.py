@@ -12,7 +12,8 @@ without a sync).
 The two products route their ELL side through ``kernels/ops.py`` (kernels
 K8 and K9 on the card) and the dense-backup rows through ``torch.matmul``
 (the paper's tensor-core branch of Algorithm 3). ``pack``, ``unpack`` and
-``elementwise`` are plain torch: no TPU kernel computes them.
+``elementwise`` and ``transpose`` are plain torch: no TPU kernel computes
+them.
 """
 from __future__ import annotations
 
@@ -149,6 +150,16 @@ def dense_to_hybrid_matmul(x: torch.Tensor, wt: torch.Tensor,
                              torch.zeros((), device=x.device))
     return pattern._replace(ell_values=vals,
                             dense_rows=dense_vals.to(wt.dtype))
+
+
+def transpose(hy: HybridActs, m_rows: int, ell_width: int,
+              num_dense_rows: int) -> HybridActs:
+    """Listing 7 reference: hybrid -> dense -> transpose -> hybrid, the
+    (N, M) transpose packed at ``ell_width`` with ``num_dense_rows`` backup
+    rows. ``m_rows`` is the rows of ``hy`` (the signature of
+    ``repro/core/hybrid.py:transpose``; the shapes carry it)."""
+    del m_rows
+    return pack(unpack(hy).t().contiguous(), ell_width, num_dense_rows)
 
 
 def elementwise(hy: HybridActs, other_vals_ell: torch.Tensor,

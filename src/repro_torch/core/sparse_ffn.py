@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.config import SparsityConfig
 from repro_torch.core import hybrid as hybrid_fmt
 from repro_torch.core import twell
@@ -170,16 +171,21 @@ def _scatter_wgrad(idx, gvals, x, dense_gvals, dense_map, n: int
     gathered once (one host sync), each chunk of rows scatters its slots
     into a (rows, those columns) float32 matrix of 32 MB at most and adds
     its product with the chunk's x. The backup side is a plain matmul on
-    the gathered source rows."""
+    the gathered source rows. On tensors without data (a dry run) the
+    columns are data the trace does not have: it takes all N, the
+    capacity, the shape JAX's static ``_scatter_wgrad`` works on."""
     m, dev = idx.shape[0], x.device
     xf = x.float()
     ok = dense_map >= 0
     xd = torch.where(ok[:, None], xf[dense_map.clamp(min=0).long()],
                      torch.zeros((), device=dev))
     wn = dense_gvals.float().t() @ xd
-    used = torch.zeros(n, dtype=torch.bool, device=dev)
-    used[idx.reshape(-1).long()] = True
-    cols = used.nonzero()[:, 0]
+    if device_mod.shape_only(idx):
+        cols = torch.arange(n, device=dev)
+    else:
+        used = torch.zeros(n, dtype=torch.bool, device=dev)
+        used[idx.reshape(-1).long()] = True
+        cols = used.nonzero()[:, 0]
     pos = torch.zeros(n, dtype=torch.long, device=dev)
     pos[cols] = torch.arange(cols.numel(), device=dev)
     local = pos[idx.long()]

@@ -16,6 +16,11 @@ Launch counts live here too: each kernel wrapper calls ``count_launch``
 right after its kernel launched, and nowhere else, so a run can show that
 its main path went through the kernels. A CUDA graph's replays add the
 counts its capture recorded (``captured_launches``, ``add_launches``).
+
+A kernel's shape function (the stand-in for its launch on tensors without
+data, ``route``) launches nothing and counts nothing here: it calls
+``report_work`` with the FLOPs and bytes the kernel would do, which every
+listener in ``WORK_SINKS`` receives (``launch/op_analysis.py``).
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
+
+from repro_torch import device as device_mod
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -53,6 +60,31 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}        # source name -> nvcc's -Xptxas -v report
 BUILD_SECONDS: Optional[float] = None
+
+
+# listeners of report_work: fn(kernel name, FLOPs, HBM bytes)
+WORK_SINKS: List[Callable[[str, int, int], None]] = []
+
+
+def report_work(name: str, flops: int, nbytes: int) -> None:
+    """A shape function's account of its kernel's work (no launch)."""
+    for sink in WORK_SINKS:
+        sink(name, flops, nbytes)
+
+
+def route(t: torch.Tensor, cuda, plain, shape):
+    """The function a kernel entry point calls for input ``t``: the
+    kernel's launch for a CUDA tensor, its shape function for a tensor
+    without data (a meta tensor, the dry run's, or a fake CUDA one under
+    ``FakeTensorMode``), the plain version for a CPU tensor."""
+    if device_mod.shape_only(t):
+        return shape
+    return cuda if t.is_cuda else plain
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    """Bytes of the tensors' elements, each read or written once."""
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def count_launch(name: str) -> None:

@@ -7,7 +7,8 @@ and the output are (B, S, H, hd) with the same H (the caller repeats K/V
 heads first), causal, in q.dtype.
 
 ``FlashAttention`` is the differentiable op: its forward is K7 on the card
-(the plain version on the CPU); its backward is ``flash_attention_backward``,
+(the plain version on the CPU, ``flash_attention_shape`` on tensors
+without data); its backward is ``flash_attention_backward``,
 explicit PyTorch math that recomputes the probabilities from the saved q
 and k. The JAX package has no backward kernel either: XLA differentiates
 its jnp attention.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import attention_plan, build
+from repro_torch.observability import accounting
 
 _FN = {}
 _NEG = -1e30
@@ -108,6 +110,31 @@ def flash_attention_cuda(q, k, v):
     return out
 
 
+def flash_attention_shape(q, k, v):
+    """What ``flash_attention_cuda`` returns, without a launch: an output
+    like q, or its refusal of the shapes (``flash_plan`` at the H100's SM
+    count for bf16). For tensors without data. Work reported over the
+    full S x S products, the causal half the kernel skips counted too (the
+    convention of XLA's HLO and ``torch.utils.flop_counter``): 4 B H S^2
+    hd FLOPs; bytes q, k, v read once and the output written once."""
+    b, s, h, hd = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention takes q, k, v all bfloat16 or all "
+                        "float32")
+    if k.shape != q.shape or v.shape != q.shape or min(b, s, h) < 1 or \
+            hd > 128 or (q.dtype == torch.bfloat16 and hd % 8):
+        raise ValueError(f"flash_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)}")
+    if q.dtype == torch.bfloat16:
+        attention_plan.flash_plan(b, s, h, hd, accounting.H100_SMS)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    build.report_work("flash_attention", 4 * b * h * s * s * hd,
+                      build.nbytes(q, k, v, out))
+    return out
+
+
 class FlashAttention(torch.autograd.Function):
     """Causal attention: K7 forward on the card, the plain version on the
     CPU; ``flash_attention_backward`` for the gradients. Saves q, k, v and
@@ -115,7 +142,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        fn = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        fn = build.route(q, flash_attention_cuda, flash_attention_plain,
+                         flash_attention_shape)
         o = fn(q.contiguous(), k.contiguous(), v.contiguous())
         ctx.save_for_backward(q, k, v, o)
         return o

@@ -35,6 +35,10 @@ Both cover the ELL side only: slot e of row m is valid when
 dense product. Both return float32. The two kernels read W by rows: K8
 takes W as (N, K), K9 takes ``wt``, W transposed, also (N, K), so a
 pattern column of W is one contiguous row.
+
+``hybrid_to_dense_shape`` and ``dense_to_hybrid_shape`` stand in for the
+launches on tensors without data (a dry run): the outputs' shapes, dtypes and
+device, and the work at the union's capacity (``build.report_work``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import twell_pack as tp
+from repro_torch.observability import accounting
 
 _H2D = None
 _D2H = None
@@ -403,4 +408,72 @@ def dense_to_hybrid_cuda(x, wt, ell_idx, row_nnz, is_sparse):
                    build.stream_ptr(x))
     build.check(err, "dense_to_hybrid")
     build.count_launch("dense_to_hybrid")
+    return vals
+
+
+def _block_union(m: int, n: int, e: int) -> int:
+    """The most columns the union of a row block (up to 128 rows of E
+    slots) can hold: the capacity a dry run reckons K8's and K9's work at,
+    since which columns the pattern holds is data."""
+    return min(n, min(m, D2H_ROWS) * e)
+
+
+def _shape_check(name, ts, ell_idx, row_nnz, is_sparse, m, e, k):
+    if ell_idx.dtype != torch.int32 or row_nnz.dtype != torch.int32 or \
+            is_sparse.dtype != torch.bool:
+        raise TypeError(f"{name} takes int32 indices and counts and a bool "
+                        "is_sparse")
+    if any(t.dtype not in _TYPES for t in ts):
+        raise TypeError(f"{name} takes bfloat16 or float32 operands")
+    if ell_idx.shape != (m, e) or row_nnz.shape != (m,) or \
+            is_sparse.shape != (m,) or k % 8 or m < 1 or not 1 <= e <= 1024:
+        raise ValueError(f"{name}: unsupported shapes (M {m}, E {e}, K {k})")
+
+
+def hybrid_to_dense_shape(ell_vals, ell_idx, row_nnz, is_sparse, w):
+    """What ``hybrid_to_dense_cuda`` returns, without a launch: y (M, K)
+    float32 on W's device, or its refusal of the shapes (``h2d_plan`` at
+    the H100's SM count, bf16 W). For tensors without data. Work reported
+    at the union's capacity U = min(N, min(M, 128) E) a row block, the union
+    kernel's (bf16 W): 2 M U K FLOPs; the per-row kernel's (f32 W) 2 M E
+    K. Bytes: the slots and U rows of W read once, y written once."""
+    m, e = ell_vals.shape
+    n, k = w.shape
+    _shape_check("hybrid_to_dense", (ell_vals, w), ell_idx, row_nnz,
+                 is_sparse, m, e, k)
+    bf16 = w.dtype == torch.bfloat16
+    if bf16:
+        h2d_plan(m, k, n, e, accounting.H100_SMS,
+                 1 if ell_vals.dtype == torch.bfloat16 else 2)
+    u = _block_union(m, n, e)
+    y = torch.empty((m, k), dtype=torch.float32, device=w.device)
+    build.report_work("hybrid_to_dense", 2 * m * (u if bf16 else e) * k,
+                      build.nbytes(ell_vals, ell_idx, row_nnz, is_sparse, y)
+                      + u * k * w.element_size())
+    return y
+
+
+def dense_to_hybrid_shape(x, wt, ell_idx, row_nnz, is_sparse):
+    """What ``dense_to_hybrid_cuda`` returns, without a launch: vals (M, E)
+    float32 on x's device, or its refusal of the shapes (``d2h_plan`` at
+    the H100's SM count, bf16). For tensors without data. Work reported at the
+    union's capacity U = min(N, min(M, 128) E) a row block, the union
+    kernel's (bf16): 2 M U K FLOPs; the per-row kernel's (f32) 2 M E K.
+    Bytes: x, the pattern and U rows of W^T read once, vals written
+    once."""
+    m, k = x.shape
+    n, e = wt.shape[0], ell_idx.shape[1]
+    _shape_check("dense_to_hybrid", (x, wt), ell_idx, row_nnz, is_sparse,
+                 m, e, k)
+    if wt.dtype != x.dtype or wt.shape[1] != k:
+        raise ValueError(f"dense_to_hybrid: wt {tuple(wt.shape)} "
+                         f"{wt.dtype} for x {tuple(x.shape)} {x.dtype}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        d2h_plan(m, k, n, e, accounting.H100_SMS)
+    u = _block_union(m, n, e)
+    vals = torch.empty((m, e), dtype=torch.float32, device=x.device)
+    build.report_work("dense_to_hybrid", 2 * m * (u if bf16 else e) * k,
+                      build.nbytes(x, ell_idx, row_nnz, is_sparse, vals)
+                      + u * k * wt.element_size())
     return vals

@@ -11,6 +11,9 @@ positions ``seq_len .. seq_len + num_new - 1``; row i attends keys
 ``kpos <= seq_len + i``. Rows at or past ``num_new`` are padding whose
 output the caller discards (the two versions may differ there). Returns
 (B, S, H, hd) in q.dtype.
+
+``paged_chunk_attention_shape`` stands in for the launch on tensors
+without data (a dry run), as K3's does.
 """
 from __future__ import annotations
 
@@ -78,4 +81,33 @@ def paged_chunk_attention_cuda(q, kpool, vpool, block_tables, seq_lens,
                   build.stream_ptr(q))
     build.check(err, "paged_chunk_attention")
     build.count_launch("paged_chunk_attention")
+    return out
+
+
+def paged_chunk_attention_shape(q, kpool, vpool, block_tables, seq_lens,
+                                num_new):
+    """What ``paged_chunk_attention_cuda`` returns, without a launch: an
+    output like q, or its refusal of the shapes (``chunk_plan``). For
+    tensors without data (a dry run). Work reported at the tables'
+    capacity, every row against all W x bs keys (no causal credit): 4 B S H (W bs) hd FLOPs; bytes q, the
+    tables, seq_lens, num_new and each row's W x bs keys and values read
+    once, the output written once."""
+    b, s, h, hd = q.shape
+    _, bs, hkv, hd2 = kpool.shape
+    width = block_tables.shape[1]
+    if any(t.dtype != torch.bfloat16 for t in (q, kpool, vpool)) or \
+            any(t.dtype != torch.int32
+                for t in (block_tables, seq_lens, num_new)):
+        raise TypeError("paged_chunk_attention takes bfloat16 q/pools and "
+                        "int32 block tables/seq lens/num_new")
+    if hd != hd2 or hd > 128 or hd % 8 or h % hkv or \
+            block_tables.shape[0] != b:
+        raise ValueError(f"paged_chunk_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} pools {tuple(kpool.shape)}")
+    attention_plan.chunk_plan(b, s, h, hkv, width, bs)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    keys = width * bs
+    build.report_work("paged_chunk_attention", 4 * b * s * h * keys * hd,
+                      build.nbytes(q, block_tables, seq_lens, num_new, out) +
+                      2 * b * keys * hkv * hd * kpool.element_size())
     return out

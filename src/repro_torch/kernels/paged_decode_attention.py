@@ -13,6 +13,10 @@ q: (B, 1, H, hd) roped queries; kpool/vpool: (num_blocks, block_size, Hkv,
 hd) with the new token already scattered at position ``seq_len``;
 block_tables: (B, W) int32 (0 = null block); seq_lens: (B,) int32 tokens
 cached before this step. Returns (B, 1, H, hd) in q.dtype.
+
+``paged_decode_attention_shape`` stands in for the launch on tensors
+without data (a dry run): the output's shape, dtype and device, and the
+work over every key of the block tables (``build.report_work``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import attention_plan, build, twell_pack
+from repro_torch.observability import accounting
 
 _FN = None
 
@@ -108,6 +113,34 @@ def paged_decode_attention_cuda(q, kpool, vpool, block_tables, seq_lens):
                   1.0 / (hd ** 0.5), plan.cluster, build.stream_ptr(q))
     build.check(err, "paged_decode_attention")
     build.count_launch("paged_decode_attention")
+    return out
+
+
+def paged_decode_attention_shape(q, kpool, vpool, block_tables, seq_lens):
+    """What ``paged_decode_attention_cuda`` returns, without a launch: an
+    output like q, or its refusal of the shapes (``decode_plan`` at the
+    H100's SM count). For tensors without data. Work reported at the tables'
+    capacity, every one of their W x bs keys (seq_lens are data): 4 B H
+    (W bs) hd FLOPs; bytes q, the tables, seq_lens and each row's W x bs
+    keys and values read once, the output written once."""
+    b, one, h, hd = q.shape
+    _, bs, hkv, hd2 = kpool.shape
+    width = block_tables.shape[1]
+    if any(t.dtype != torch.bfloat16 for t in (q, kpool, vpool)) or \
+            block_tables.dtype != torch.int32 or \
+            seq_lens.dtype != torch.int32:
+        raise TypeError("paged_decode_attention takes bfloat16 q/pools and "
+                        "int32 block tables/seq lens")
+    if one != 1 or hd != hd2 or hd > 128 or hd % 8 or h % hkv or \
+            h // hkv > 16 or block_tables.shape[0] != b:
+        raise ValueError(f"paged_decode_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} pools {tuple(kpool.shape)}")
+    attention_plan.decode_plan(b, h, hkv, hd, width, bs, accounting.H100_SMS)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    keys = width * bs
+    build.report_work("paged_decode_attention", 4 * b * h * keys * hd,
+                      build.nbytes(q, block_tables, seq_lens, out) +
+                      2 * b * keys * hkv * hd * kpool.element_size())
     return out
 
 

@@ -48,6 +48,10 @@ walk. The transposed copy is made once when the weights are loaded
 (``models.lm.prepare_params``), never per call. K5 reads W_g and W_u as
 they are stored, (K, N), through TMA, and W_d (N, K) likewise; K2 and K6
 read W_d by rows as it is stored.
+
+Each kernel also has a shape function (``*_shape``), its stand-in on
+tensors without data (a dry run): the outputs' shapes, dtypes and device,
+and the kernel's work reported to ``build.report_work``.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import torch
 from repro_torch.core import twell
 from repro_torch.kernels import build
 from repro_torch.kernels import twell_pack as tp
+from repro_torch.observability import accounting
 
 _FN = None
 _TS_FN = None
@@ -313,6 +318,42 @@ def twell_fused_ffn_cuda(x: torch.Tensor, tw: twell.TwellActs,
     return y
 
 
+def union_capacity(m: int, slots: int, n: int) -> int:
+    """The most columns a union of ``m`` rows of ``slots`` TwELL slots can
+    hold: every slot a different column, at most N. A dry run's K2 and K6
+    work at capacity, since which columns are alive is data."""
+    return min(n, m * slots)
+
+
+def twell_fused_ffn_shape(x: torch.Tensor, tw: twell.TwellActs,
+                          wu_t: torch.Tensor, wd: torch.Tensor
+                          ) -> torch.Tensor:
+    """What ``twell_fused_ffn_cuda`` returns, without a launch: y (M, K)
+    float32 on x's device, or its refusal of the shapes
+    (``fused_ffn_plan`` at the H100's SM count). For tensors without data. Work
+    reported at the union's capacity U = ``union_capacity(M, N/C, N)``:
+    the up and down products over U columns, 4 M U K FLOPs; bytes x, the
+    packed gate and U rows of W_u^T and of W_d read once, y written
+    once."""
+    m, k = x.shape
+    n = wd.shape[0]
+    if (x.dtype, tw.values.dtype, tw.indices.dtype, tw.nnz.dtype,
+            wu_t.dtype, wd.dtype) != _FUSED_FFN_TYPES:
+        raise TypeError("twell_fused_ffn takes bfloat16 x/values/weights "
+                        "and int32 indices/nnz")
+    _twell_check("twell_fused_ffn", m, k, n, tw.tile, tw.compression)
+    if tuple(wu_t.shape) != (n, k) or tuple(wd.shape) != (n, k):
+        raise ValueError(f"twell_fused_ffn: wu_t {tuple(wu_t.shape)} wd "
+                         f"{tuple(wd.shape)} for x {tuple(x.shape)}")
+    fused_ffn_plan(m, k, n, tw.tile, tw.compression, accounting.H100_SMS)
+    u = union_capacity(m, tw.values.shape[1], n)
+    y = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    build.report_work("twell_fused_ffn", 4 * m * u * k,
+                      build.nbytes(x, tw.values, tw.indices, tw.nnz, y) +
+                      2 * u * k * wd.element_size())
+    return y
+
+
 def twell_down_proj_plain(vals: torch.Tensor, idx: torch.Tensor,
                           nnz: torch.Tensor, wd: torch.Tensor, tile: int
                           ) -> torch.Tensor:
@@ -504,6 +545,37 @@ def twell_down_proj_cuda(vals: torch.Tensor, idx: torch.Tensor,
                      plan.h_chunks, int(plan.split), build.stream_ptr(wd))
     build.check(err, "twell_down_proj")
     build.count_launch("twell_down_proj")
+    return y
+
+
+def twell_down_proj_shape(vals: torch.Tensor, idx: torch.Tensor,
+                          nnz: torch.Tensor, wd: torch.Tensor, tile: int
+                          ) -> torch.Tensor:
+    """What ``twell_down_proj_cuda`` returns, without a launch: y (M, K)
+    float32 on W_d's device, or its refusal of the shapes
+    (``down_proj_plan`` at the H100's SM count). For tensors without data. Work
+    reported at the union's capacity U = ``union_capacity(M, N/C, N)``:
+    2 M U K FLOPs; bytes the packed activations and U rows of W_d read
+    once, y written once."""
+    m, slots = vals.shape
+    n, k = wd.shape
+    if vals.dtype != torch.bfloat16 or wd.dtype != torch.bfloat16 or \
+            idx.dtype != torch.int32 or nnz.dtype != torch.int32:
+        raise TypeError("twell_down_proj takes bfloat16 values and W_d and "
+                        "int32 indices/nnz")
+    nt = n // tile if tile > 0 else 0
+    if m < 1 or nt < 1 or n % tile or slots % nt:
+        raise ValueError(f"twell_down_proj: values {tuple(vals.shape)} wd "
+                         f"{tuple(wd.shape)} tile {tile}")
+    tc = slots // nt
+    c = tile // tc if tc and tile % tc == 0 else 0
+    _twell_check("twell_down_proj", m, k, n, tile, c)
+    down_proj_plan(m, k, n, tile, c, accounting.H100_SMS)
+    u = union_capacity(m, slots, n)
+    y = torch.empty((m, k), dtype=torch.float32, device=wd.device)
+    build.report_work("twell_down_proj", 2 * m * u * k,
+                      build.nbytes(vals, idx, nnz, y) +
+                      u * k * wd.element_size())
     return y
 
 
@@ -734,4 +806,31 @@ def tile_skip_ffn_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                      build.stream_ptr(x))
     build.check(err, "tile_skip_ffn")
     build.count_launch("tile_skip_ffn")
+    return y, h
+
+
+def tile_skip_ffn_shape(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                        wd: torch.Tensor, tile: int, act: str = "relu",
+                        threshold: float = 0.0):
+    """What ``tile_skip_ffn_cuda`` returns, without a launch: (y (M, K)
+    float32, h (M, N) x.dtype) on x's device, or its refusal of the shapes
+    (``tile_skip_plan`` at the H100's SM count). For tensors without data. Work
+    reported at capacity, no tile skipped: the gate, up and down products,
+    6 M K N FLOPs; bytes x and the three weights read once, y and h
+    written once."""
+    _check_act(act)
+    m, k = x.shape
+    n = wg.shape[1]
+    if any(t.dtype != torch.bfloat16 for t in (x, wg, wu, wd)):
+        raise TypeError("tile_skip_ffn takes bfloat16 operands")
+    if wg.shape != (k, n) or wu.shape != (k, n) or wd.shape != (n, k) or \
+            k % 8 or tile not in TILE_SKIP_TILES or n % tile or \
+            not threshold >= 0:
+        raise ValueError(f"tile_skip_ffn: unsupported x {tuple(x.shape)} "
+                         f"wg {tuple(wg.shape)} tile {tile}")
+    tile_skip_plan(m, k, n, tile, accounting.H100_SMS)
+    y = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    h = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    build.report_work("tile_skip_ffn", 6 * m * k * n,
+                      build.nbytes(x, wg, wu, wd, y, h))
     return y, h

@@ -3,9 +3,11 @@
 ``twell_gate_matmul_cuda`` launches ``csrc/twell_pack.cu``, the Hopper
 counterpart of ``repro/kernels/twell_pack.py:twell_gate_matmul_pallas``;
 ``twell_gate_matmul_plain`` is the same function in plain PyTorch
-(``repro/kernels/ref.py:twell_gate_matmul``). Both return
-``(values, indices, nnz)`` with the exact, unclipped per-tile ``nnz``: the
-caller (``kernels/ops.py``) clips it and raises the overflow flag.
+(``repro/kernels/ref.py:twell_gate_matmul``);
+``twell_gate_matmul_shape`` stands in for the launch on tensors without
+data. All return ``(values, indices, nnz)`` with the exact, unclipped
+per-tile ``nnz``: the caller (``kernels/ops.py``) clips it and raises the
+overflow flag.
 
 ``gate_plan`` is the kernel's launch plan, a plain function of Python ints
 (the shapes and the card's SM count) that never reads a tensor. The kernel
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core import twell
 from repro_torch.core.sparsity import activation
 from repro_torch.kernels import build
+from repro_torch.observability import accounting
 
 _ACTS = {"relu": 0, "relu2": 1}
 _FN = None
@@ -249,4 +252,33 @@ def twell_gate_matmul_cuda(x: torch.Tensor, w: torch.Tensor, tile: int,
                   build.stream_ptr(x))
     build.check(err, "twell_gate_matmul")
     build.count_launch("twell_gate_matmul")
+    return vals, idx, nnz
+
+
+def twell_gate_matmul_shape(x: torch.Tensor, w: torch.Tensor, tile: int,
+                            compression: int, act: str = "relu"
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """What ``twell_gate_matmul_cuda`` returns, without a launch: (values
+    (M, N/C) x.dtype, indices (M, N/C) int32, nnz (M, N/T) int32) on x's
+    device, or its refusal of the shapes (``gate_plan`` at the H100's SM
+    count). For tensors without data (a dry run). Work reported: the whole gate
+    product, 2 M K N FLOPs; bytes x and W read once, the three outputs
+    written once."""
+    m, k = x.shape
+    n = w.shape[1]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"twell_gate_matmul takes bfloat16, got {x.dtype} "
+                        f"and {w.dtype}")
+    if w.shape[0] != k or tile % compression or act not in _ACTS:
+        raise ValueError(f"twell_gate_matmul: unsupported x "
+                         f"{tuple(x.shape)} w {tuple(w.shape)} tile {tile} "
+                         f"C {compression} act {act!r}")
+    gate_plan(m, k, n, tile, accounting.H100_SMS)
+    slots = n // tile * (tile // compression)
+    vals = torch.empty((m, slots), dtype=x.dtype, device=x.device)
+    idx = torch.empty((m, slots), dtype=torch.int32, device=x.device)
+    nnz = torch.empty((m, n // tile), dtype=torch.int32, device=x.device)
+    build.report_work("twell_gate_matmul", 2 * m * k * n,
+                      build.nbytes(x, w, vals, idx, nnz))
     return vals, idx, nnz

@@ -7,7 +7,7 @@ Public API:
   init(cfg, device=None, seed=0)             -> params
   prepare_params(params)                     -> params (+ derived weights)
   trainable(params)                          -> params (- derived weights)
-  forward(params, batch, cfg)                -> (logits, aux)  [training]
+  forward(params, batch, cfg, collect_aux=True) -> (logits, aux) [training]
   loss_fn(params, batch, cfg, l1_coeff=None) -> (loss, (metrics, aux))
   init_paged_cache(cfg, num_blocks, block_size, device=None) -> pools
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
@@ -167,11 +167,14 @@ def _stacks_init(cfg: ModelConfig, dtype, gen, dev) -> Dict[str, Any]:
 
 def init(cfg: ModelConfig, device=None, seed: int = 0) -> Dict[str, Any]:
     """Random parameters (normal, std 0.02) from a ``torch.Generator``
-    seeded with ``seed`` on ``device`` (default: the card)."""
+    seeded with ``seed`` on ``device`` (default: the card). On the meta
+    device (``device.SHAPE_ONLY``, a dry run) nothing is drawn: the leaves
+    have the shapes and dtypes and no data."""
     _check_family(cfg)
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
     params: Dict[str, Any] = _stacks_init(cfg, dtype, gen, dev)
@@ -413,9 +416,11 @@ def stacked_layers(body, x, layers, cfg: ModelConfig):
     return x, _stack_aux(auxs)
 
 
-def _mark(aux: Dict, device) -> Dict:
+def _mark(aux: Optional[Dict], device) -> Optional[Dict]:
     """A block's FFN aux as the stack keeps it: ``ffn_present`` 1 and a
-    ``moe_balance`` (0 outside a MoE block)."""
+    ``moe_balance`` (0 outside a MoE block); None stays None."""
+    if aux is None:
+        return None
     aux["ffn_present"] = torch.ones((), device=device)
     aux.setdefault("moe_balance", torch.zeros((), device=device))
     return aux
@@ -439,7 +444,8 @@ def _has_shared_attn(cfg: ModelConfig, layer: int) -> bool:
     return layer % every == every - 1
 
 
-def forward(params: Dict, batch: Dict, cfg: ModelConfig):
+def forward(params: Dict, batch: Dict, cfg: ModelConfig,
+            collect_aux: bool = True):
     """Training forward: tokens (B, S) -> (logits (B, S, V), aux), aux
     stacked per layer as the JAX package stacks it (``l1``, ``nnz_mean``,
     ``nnz_max``, ``neuron_active``, ``tile_frac``, ``ffn_present``,
@@ -456,16 +462,20 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
     encoder's output, the FFN), the encoder's aux before the decoder's.
     The layers run under ``cfg.remat`` (``stacked_layers``; the vlm
     family's self blocks one by one under ``_maybe_remat``, its cross
-    blocks never recomputed, as JAX's scan of super-blocks)."""
+    blocks never recomputed, as JAX's scan of super-blocks). With
+    ``collect_aux`` False no FFN builds its statistics and aux is None:
+    the prefill step's forward, whose aux XLA drops in the JAX package."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     if cfg.family == "vlm":
-        x, aux = _vlm_forward(params, x, batch["patches"], cfg, positions)
+        x, aux = _vlm_forward(params, x, batch["patches"], cfg, positions,
+                              collect_aux)
         return _head(params, x, cfg), aux
     if cfg.family == "audio":
-        x, aux = _audio_forward(params, x, batch["frames"], cfg, positions)
+        x, aux = _audio_forward(params, x, batch["frames"], cfg, positions,
+                                collect_aux)
         return _head(params, x, cfg), aux
     layers = _unstack(params["blocks"], cfg.num_layers)
 
@@ -477,8 +487,10 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
             xc = xc + mamba2.mamba2_apply(
                 p["mamba"], norm_apply(cfg.norm, p["ln"], xc), cfg)
             if not _has_shared_attn(cfg, i):
-                return xc, _zero_aux(cfg, xc.device)
-            xc, aux = _block_apply(shared, xc, cfg, positions, None, True)
+                return xc, (_zero_aux(cfg, xc.device) if collect_aux
+                            else None)
+            xc, aux = _block_apply(shared, xc, cfg, positions, None,
+                                   collect_aux)
             return xc, _mark(aux, xc.device)
         layers = list(enumerate(layers))
     elif cfg.family == "ssm":
@@ -488,13 +500,13 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig):
             xc = xc + y
             y, _, aux = rwkv6.channelmix_apply(
                 p["cm"], norm_apply(cfg.norm, p["ln2"], xc), cfg,
-                cfg.sparsity, collect_aux=True)
+                cfg.sparsity, collect_aux=collect_aux)
             return xc + y, _mark(aux, xc.device)
     else:
         kind = _attn_kind(cfg)
 
         def body(xc, p):
-            xc, aux = _block_apply(p, xc, cfg, positions, None, True,
+            xc, aux = _block_apply(p, xc, cfg, positions, None, collect_aux,
                                    kind=kind)
             return xc, _mark(aux, xc.device)
     x, aux = stacked_layers(body, x, layers, cfg)
@@ -509,10 +521,12 @@ def _head(params, x, cfg):
 
 
 def _stack_aux(auxs):
+    if auxs[0] is None:                 # forward(..., collect_aux=False)
+        return None
     return {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
 
 
-def _vlm_forward(params, x, patches, cfg, positions):
+def _vlm_forward(params, x, patches, cfg, positions, collect_aux=True):
     """The vlm family's super-blocks: ``cross_every - 1`` causal blocks,
     each under ``_maybe_remat`` (``2level`` acts as ``full``: JAX scans
     the super-blocks without ``stacked_scan``), then the tanh-gated cross
@@ -524,7 +538,7 @@ def _vlm_forward(params, x, patches, cfg, positions):
     per, nb = cfg.cross_every, cfg.num_layers // cfg.cross_every
 
     def self_body(xc, p):
-        xc, aux = _block_apply(p, xc, cfg, positions, None, True)
+        xc, aux = _block_apply(p, xc, cfg, positions, None, collect_aux)
         return xc, _mark(aux, xc.device)
     step = _maybe_remat(self_body, cfg)
     selfs = _unstack(params["blocks"]["selfs"], nb)
@@ -534,7 +548,7 @@ def _vlm_forward(params, x, patches, cfg, positions):
         for p in _unstack(sp, per - 1):
             x, aux = step(x, p)
             auxs.append(aux)
-        x, aux = _block_apply(cp, x, cfg, positions, None, True,
+        x, aux = _block_apply(cp, x, cfg, positions, None, collect_aux,
                               kind="cross", kv_x=patches)
         auxs.append(_mark(aux, x.device))
     return x, _stack_aux(auxs)
@@ -557,13 +571,13 @@ def _encode(params, frames, cfg, collect_aux: bool):
     return norm_apply(cfg.norm, params["enc_ln"], enc), aux
 
 
-def _audio_forward(params, x, frames, cfg, positions):
+def _audio_forward(params, x, frames, cfg, positions, collect_aux=True):
     """The audio family: the encoder (``_encode``), then the decoder's
     layers under ``stacked_layers``: causal self-attention after ``ln1``,
     cross-attention after ``lnx`` to the encoder's output, the FFN after
     ``ln2``, each added back. Returns (x, the encoder's aux then the
     decoder's)."""
-    enc, aux_e = _encode(params, frames, cfg, True)
+    enc, aux_e = _encode(params, frames, cfg, collect_aux)
 
     def dec_body(xc, p):
         xc = xc + attention(p["attn"], norm_apply(cfg.norm, p["ln1"], xc),
@@ -571,10 +585,13 @@ def _audio_forward(params, x, frames, cfg, positions):
         xc = xc + attention(p["xattn"], norm_apply(cfg.norm, p["lnx"], xc),
                             cfg, positions=positions, kind="cross", kv_x=enc)
         y, aux = sparse_ffn.apply(p["ffn"], norm_apply(cfg.norm, p["ln2"], xc),
-                                  cfg.sparsity, cfg.gated, collect_aux=True)
+                                  cfg.sparsity, cfg.gated,
+                                  collect_aux=collect_aux)
         return xc + y, _mark(aux, xc.device)
     x, aux_d = stacked_layers(
         dec_body, x, _unstack(params["dec_blocks"], cfg.num_layers), cfg)
+    if not collect_aux:
+        return x, None
     return x, {k: torch.cat([aux_e[k], aux_d[k]]) for k in aux_e}
 
 

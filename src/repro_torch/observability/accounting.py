@@ -38,6 +38,9 @@ CHIP_TDP_W = 700.0         # board power limit [W] as ``nvidia-smi
 #                            --query-gpu=power.limit`` reports it on the
 #                            H100 80GB HBM3 the port's chip runs used (its
 #                            maximum) — tokens/J *proxy* only
+H100_SMS = 132             # streaming multiprocessors (same data sheet, SXM);
+#                            the launch plans' SM count in a dry run, whose
+#                            tensors have no card to ask
 
 
 def param_count(params) -> int:

@@ -1,6 +1,6 @@
 """Train step builder: loss + grad + clip + AdamW, with the L1 warm-up
-schedule and microbatch gradient accumulation (ports
-``repro/training.py:17-87``)."""
+schedule and microbatch gradient accumulation, and the serve and prefill
+steps the dry run traces (ports ``repro/training.py:17-100``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -90,3 +90,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, tokens) -> (logits, cache): one token a
+    sequence through the monolithic cache (``lm.decode_step``)."""
+    def serve_step(params, cache, tokens):
+        return lm.decode_step(params, cache, tokens, cfg)
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """prefill_step(params, batch) -> logits of the training forward,
+    which builds no FFN statistics (XLA drops them from JAX's)."""
+    def prefill_step(params, batch):
+        logits, _ = lm.forward(params, batch, cfg, collect_aux=False)
+        return logits
+    return prefill_step

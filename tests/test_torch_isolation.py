@@ -52,7 +52,8 @@ def test_walk_covers_the_package():
             "transfer.py", "moe.py", "mixtral_8x22b.py",
             "llama4_scout_17b_a16e.py", "mamba2.py", "rwkv6.py",
             "zamba2_1p2b.py", "rwkv6_7b.py", "whisper_large_v3.py",
-            "llama_3p2_vision_11b.py"} <= names
+            "llama_3p2_vision_11b.py", "dryrun.py", "dryrun_all.py",
+            "specs.py", "op_analysis.py"} <= names
 
 
 @pytest.fixture
@@ -106,6 +107,25 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
     spec = EngineSpec(block_size=4, max_seq_len=16, device="cpu")
     srv = ServingServer(spec.build(params, cfg), port=0)
     srv.httpd.server_close()
+
+
+def test_dry_run_needs_no_card(no_card):
+    """The dry run makes meta tensors only: with no card it traces a train
+    cell through the card's path (each kernel its shape function) and
+    allocates nothing on any device."""
+    import dataclasses
+    from repro_torch.config import shape_by_name
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cfg = get_config("paper-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="hybrid"))
+    shape = dataclasses.replace(shape_by_name("train_4k"), seq_len=32,
+                                global_batch=2)
+    n, ana = dryrun.trace_cell(cfg, shape)
+    assert n > 0 and ana["peak_bytes"] > ana["argument_bytes"] > 0
+    assert {"flash_attention", "dense_to_hybrid",
+            "hybrid_to_dense"} <= set(ana["kernels"])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
