@@ -42,7 +42,14 @@ JAX package) and runs these phases, each printing one JSON line:
                  plan, K3 and K4 at hd 64 (MHA, GQA), at
                  olmo-1b's hd 128, phi3-mini's 32 heads of 96 and the
                  GQA groups of deepseek-67b (64/8) and llama3-405b
-                 (128/8) at hd 128, K5 at M 4 and 256 with its launch plan,
+                 (128/8) at hd 128, and at tensor parallelism's per-rank
+                 heads (TP_ATTN_SHARDS: paper-0.5b tp 2's 16/16 of 64,
+                 one kv head of deepseek-67b and llama3-405b at tp 8, G
+                 8 and 16), K1 + K2 at the per-rank FFN shards at M 4
+                 (TP_FFN_SHARDS: paper-0.5b's whole-tile splits at tp 2
+                 and 4, N 2816, 1536, 1280, with K5; deepseek-67b's at
+                 tp 8, K 8192, N 2816 and 2560; llama3-405b's, K 16384,
+                 N 6656), K5 at M 4 and 256 with its launch plan,
                  its two kernels' device times apart and its time without
                  programmatic dependent launch; K8 and K9 forward and
                  backward on the train phase's pattern and forward on a
@@ -84,6 +91,22 @@ JAX package) and runs these phases, each printing one JSON line:
                  to the first near-tie, its acceptance), and one replay of
                  each entry (decode, prefill, draft, verify) bitwise equal
                  to its eager model call from the same copy of the pools
+  5b'. serve_tp -- tensor-parallel serving's code path on the one card:
+                 a one-rank ``model`` mesh on NCCL (``make_serving_mesh(1)``,
+                 joined through a file store in a temporary directory),
+                 the weights cut by ``bridge.shard_params``, the pools by
+                 ``PagedKVCache(mesh=)``, the layers' all_reduce and the
+                 logits' all_gather captured in the CUDA graphs; the
+                 pipeline phase's warmed pipelined gather run and its
+                 speculative run on the sharded engine, tokens bitwise
+                 equal to that phase's (on a mismatch: the first
+                 differing token and its top-2 logit margin) and to the
+                 serve and spec phases' up to their near-ties; K1-K5
+                 launched; 2 L + 1 all_reduce and 1 all_gather captured
+                 in every decode program; one decode program's graph
+                 nodes by type (cuGraphGetNodes) beside the unsharded
+                 one's, the gather's copy among them; the decode step
+                 time beside the unsharded one
   5c. http    -- the serve phase's weights, prompts and engine settings
                  built through ``EngineSpec`` (pipelined, telemetry with
                  tracing on) behind ``ServingServer`` on 127.0.0.1, warmed
@@ -290,7 +313,8 @@ JAX package) and runs these phases, each printing one JSON line:
   9. each phase's wall seconds and the script's total (``{"phase":
      "seconds", ...}``), the ``nvidia-smi`` line, the kernel table
      ``{"kernels": [...]}`` (launches summed over the serve,
-     spec, pipelined, HTTP, disaggregated, olmo serve, MoE serve, dense
+     spec, pipelined, sharded (serve_tp), HTTP, disaggregated, olmo
+     serve, MoE serve, dense
      configs' serve (gather), zamba2/rwkv6 serve (gather), whisper/vision
      serve (gather), hybrid train, remat, paper-1.5b, olmo train, MoE
      train, dense configs' train, zamba2/rwkv6 train and whisper/vision
@@ -322,6 +346,8 @@ deepseek-67b, llama3-405b); ``--phases serve_ssm`` and ``--train-phases
 train_ssm`` the attention-free families' (zamba2-1.2b, rwkv6-7b);
 ``--phases serve_xattn`` and ``--train-phases train_xattn`` the
 cross-attention families' (whisper-large-v3, llama-3.2-vision-11b).
+``--phases serve_tp`` runs phases 1-2 and the serve_tp phase against the
+unsharded runs it makes itself (no last line).
 ``--phases disagg`` runs phases 1-2 and the disaggregated serving phase on
 the serve phase's model and prompts, with references it makes itself (a
 unified engine's near-ties, a speculating engine's tokens; no last
@@ -394,7 +420,8 @@ def parse_args(argv):
                          "on the port under --src (no last line); for A/B "
                          "timing of the training step")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases (disagg, serve_moe, "
+                    help="comma-separated phases (disagg, serve_tp, "
+                         "serve_moe, "
                          "serve_dense, serve_ssm, serve_xattn): "
                          "run only the device and build phases "
                          "and those (disagg on the serve phase's model and "
@@ -456,7 +483,7 @@ def main(argv=None) -> int:
                   f"from {sorted(SERVE_PHASES)}", file=sys.stderr)
             return 2
         serve = None
-        if "disagg" in names:       # the others make their own models
+        if {"disagg", "serve_tp"} & set(names):   # the others make their own
             cfg, params, prompts = model_and_prompts(torch)
             serve = {"cfg": cfg, "params": params, "prompts": prompts,
                      "new_tokens": 32}
@@ -486,6 +513,7 @@ def main(argv=None) -> int:
     serve = timed("serve", phase_serve)
     spec = timed("spec", phase_spec, serve)
     pipe = timed("pipeline", phase_pipeline, serve, spec)
+    serve_tp = timed("serve_tp", phase_serve_tp, serve, spec, pipe)
     http = timed("http", phase_http, serve, spec, pipe)
     disagg = timed("disagg", phase_disagg, serve, spec, smi)
     olmo = timed("serve_olmo", phase_serve_olmo, serve)
@@ -509,7 +537,8 @@ def main(argv=None) -> int:
           "total": round(time.perf_counter() - START, 1)})
     for k in kernels:
         k["launches"] = sum(run["launches"].get(k["name"], 0) for run in
-                            (serve, spec, pipe, http, disagg, olmo,
+                            (serve, spec, pipe, serve_tp, http, disagg,
+                             olmo,
                              serve_moe, serve_dense, serve_ssm,
                              serve_xattn, train, remat, p15, olmo_train,
                              train_moe, train_dense, train_ssm,
@@ -1057,9 +1086,11 @@ def k6_cases(torch, timer, gen):
             check_k6(torch, timer, 256, scattered, keep=1.0)]
 
 
-def check_k5(torch, timer, m, threshold, gen):
-    """K5 on the main path's FFN shape, with the W_g columns of 11 of the 22
-    tiles zeroed (dead for every row) so the skip branch runs on the card.
+def check_k5(torch, timer, m, threshold, gen, n=5632):
+    """K5 on the main path's FFN shape (or a rank's ``n`` columns of it
+    under tensor parallelism), with the W_g columns of half the tiles (11
+    of the 22) zeroed (dead for every row) so the skip branch runs on the
+    card.
     ``threshold`` None takes the median row-tile gate maximum of the live
     tiles, so the threshold drops about half of them. Beside the times: the
     host time of a call (and of ``x @ W_g``) and the launch plan. Each of
@@ -1068,7 +1099,7 @@ def check_k5(torch, timer, m, threshold, gen):
     from repro_torch.kernels import sparse_ffn as sf
     from repro_torch.kernels.sparse_ffn import (tile_skip_ffn_cuda,
                                                 tile_skip_ffn_plain)
-    k, n, t = 2048, 5632, 256
+    k, t = 2048, 256
     nt = n // t
     x, wg, wu, wd = gate_inputs(torch, m, k, n, gen)
     dead = torch.randperm(nt, generator=gen, device="cuda")[:nt // 2]
@@ -1117,7 +1148,7 @@ def check_k5(torch, timer, m, threshold, gen):
                x, wg, wu, wd, t, "relu", threshold), iters=5),
            "library_ms": timer.ms(dense_ffn),
            "bound_ms": bnd, "bound_by": by,
-           "max_abs_err": max(err_y, err_h), "M": m,
+           "max_abs_err": max(err_y, err_h), "M": m, "N": n,
            "threshold": threshold, "dead_tiles": nt // 2,
            "cells": rb * nt, "skipped_share": skipped,
            "tiles_read": tiles, "kept_row_tiles": kept_pairs,
@@ -1712,6 +1743,8 @@ def phase_kernels(torch, only=None):
         cases[name] += runs
     for name, runs in xattn_cases(torch, timer).items():
         cases[name] += runs
+    for name, runs in tp_cases(torch, timer, gen).items():
+        cases[name] += runs
     return kernel_table(torch, cases)
 
 
@@ -1758,6 +1791,53 @@ def k5_cases(torch, timer, gen):
     256-row chunk (the same two thresholds)."""
     return [check_k5(torch, timer, m, thr, gen)
             for m, thr in ((4, None), (4, 0.0), (256, None), (256, 0.0))]
+
+
+# tensor parallelism's per-rank FFN shards at decode (M 4): (arch, tp, K,
+# N of a rank, K1 + K2, K5): paper-0.5b's whole-tile splits of its 22
+# tiles (tp 2: 11 a rank, an odd count; tp 4: 6 or 5), deepseek-67b's 86
+# tiles at tp 8 (11 or 10), llama3-405b's 208 at tp 8 (26)
+TP_FFN_SHARDS = (("paper-0.5b", 2, 2048, 2816, True),
+                 ("paper-0.5b", 4, 2048, 1536, True),
+                 ("paper-0.5b", 4, 2048, 1280, True),
+                 ("deepseek-67b", 8, 8192, 2816, False),
+                 ("deepseek-67b", 8, 8192, 2560, False),
+                 ("llama3-405b", 8, 16384, 6656, False))
+# and attention's per-rank heads (arch, tp, H, Hkv, hd): paper-0.5b at tp
+# 2, one kv head a rank of deepseek-67b (G 8) and llama3-405b (G 16)
+TP_ATTN_SHARDS = (("paper-0.5b", 2, 16, 16, 64), ("deepseek-67b", 8, 8, 1, 128),
+                  ("llama3-405b", 8, 16, 1, 128))
+
+
+def tp_cases(torch, timer, gen):
+    """K1-K5 at the per-rank shapes of tensor-parallel serving
+    (TP_FFN_SHARDS, TP_ATTN_SHARDS), each held against its plain version
+    and timed as the other cases; K5 with its threshold at the median
+    (the drafts' regime). Past K 2048 the weights' std is scaled by
+    sqrt(2048 / K), as ``k2_dense_cases``'s."""
+    out = {name: [] for name in ("twell_gate_matmul", "twell_fused_ffn",
+                                 "tile_skip_ffn", "paged_decode_attention",
+                                 "paged_chunk_attention")}
+    for arch, tp, k, n, k5 in TP_FFN_SHARDS:
+        tag = {"tp_shard": f"{arch} tp {tp}"}
+        k1, inputs = check_k1(torch, timer, 4, n, gen, k=k,
+                              scale=0.08 * (2048 / k) ** 0.5)
+        out["twell_gate_matmul"].append({**k1, **tag})
+        out["twell_fused_ffn"].append({**check_k2(torch, timer, *inputs),
+                                       **tag})
+        del inputs
+        if k5:
+            out["tile_skip_ffn"].append(
+                {**check_k5(torch, timer, 4, None, gen, n=n), **tag})
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, tp, h, hkv, hd in TP_ATTN_SHARDS:
+        tag = {"tp_shard": f"{arch} tp {tp}"}
+        out["paged_decode_attention"].append(
+            {**check_k3(torch, timer, h, hkv, gen, hd=hd), **tag})
+        out["paged_chunk_attention"].append(
+            {**check_k4(torch, timer, h, hkv, gen, hd=hd), **tag})
+    return out
 
 
 def kernel_table(torch, cases):
@@ -2297,7 +2377,166 @@ def phase_pipeline(torch, serve, spec):
         "launches": slaunches}
     res["graph_vs_eager"] = check_graphs(torch, engine)
     emit(res)
-    res["outs"] = mode_outs["pipeline"]
+    res.update(outs=mode_outs["pipeline"], spec_outs=souts)
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# 5b'. tensor-parallel serving: the sharded path at tp 1 on one card
+# --------------------------------------------------------------------------- #
+
+def first_difference(torch, cfg, params, prompts, n, outs, want, **kw):
+    """The first token where ``outs`` and ``want`` differ, and the top-2
+    logit margin there, from a rerun of the sharded engine that records
+    its logits (a failure message)."""
+    for o, w in zip(outs, want):
+        if o.token_ids != w.token_ids:
+            pos = next(i for i, (a, b) in enumerate(zip(o.token_ids,
+                                                        w.token_ids))
+                       if a != b)
+            rec = serving_engine(cfg, params, n, record_logits=True, **kw
+                                 ).generate(prompts, max_tokens=n)[o.rid]
+            top2 = torch.topk(torch.from_numpy(rec.logits[pos]), 2).values
+            return {"request": o.rid, "position": pos,
+                    "tokens": (o.token_ids[pos], w.token_ids[pos]),
+                    "margin": float(top2[0] - top2[1])}
+    return None
+
+
+# CUgraphNodeType (cuda.h) by value
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record"}
+
+
+def graph_nodes(torch, prog):
+    """The nodes, by type, of a program's entry captured once more into a
+    CUDA graph that keeps its node list (``keep_graph``), read through the
+    CUDA API (``cuGraphGetNodes``, ``cuGraphNodeGetType``). A capture runs
+    nothing; its host-side launch and collective counts are taken back
+    out."""
+    import ctypes
+
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import build
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with build.captured_launches(), \
+            build.captured_launches(collectives.CALLS):
+        with torch.cuda.graph(g, stream=side, capture_error_mode="relaxed"):
+            prog.fn(*prog.inputs)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    counts = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    del g
+    return counts
+
+
+def phase_serve_tp(torch, serve, spec, pipe):
+    """Tensor-parallel serving's code path on one card: a one-rank
+    ``model`` mesh (``make_serving_mesh(1)`` on NCCL, joined through a
+    file store in a temporary directory), the weights sharded by
+    ``bridge.shard_params`` and the pools by ``PagedKVCache(mesh=)``,
+    every layer's collectives inside the CUDA graphs. The pipeline phase's
+    warmed, pipelined gather run and its speculative run (k SPEC_K
+    tile-skip drafts), on the sharded engine: tokens bitwise equal to
+    that phase's (the same settings; at one rank the all_reduce is NCCL's
+    in-place no-op and the all_gather a copy, so the arithmetic is the
+    unsharded engine's), and equal to the serve and spec phases' up to
+    their near-ties; K1-K5 launched over the runs; the collectives each
+    captured decode program made (2 a layer, the embedding's, and the
+    logits' gather); one decode program's graph nodes by type beside the
+    unsharded one's (the gather's copy among them); the decode step time
+    beside the unsharded one."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, ranks, sharding
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    n = serve["new_tokens"]
+    spec_config = spec["spec_config"]
+    res = {"phase": "serve_tp", "arch": cfg.name, "backend": "gather",
+           "tp": 1, "requests": len(prompts), "new_tokens": n}
+    with tempfile.TemporaryDirectory() as d:
+        ranks.join(0, 1, "cuda:0", os.path.join(d, "store"))
+        try:
+            mesh = sharding.make_serving_mesh(1, "cuda")
+            res["backend_of_mesh"] = dist.get_backend()
+            runs = {}
+            for run, kw, want in (
+                    ("gather", {}, pipe["outs"]),
+                    ("spec", {"spec": spec_config}, pipe["spec_outs"])):
+                collectives.reset_calls()
+                engine, outs, wall, launches = warm_run(
+                    torch, cfg, params, prompts, n, pipeline=True,
+                    mesh=mesh, **kw)
+                diff = first_difference(torch, cfg, params, prompts, n, outs,
+                                        want, pipeline=True, mesh=mesh, **kw)
+                assert diff is None, \
+                    f"serve_tp {run}: tokens differ from the unsharded " \
+                    f"engine's: {diff}"
+                equal_before(outs, [o.token_ids for o in (
+                    serve if run == "gather" else spec)["outs"]],
+                    spec["near_ties"], f"serve_tp {run}")
+                progs = {key: p.collectives for key, p in
+                         engine.programs._programs.items()
+                         if key[0] == "decode"}
+                runs[run] = {
+                    "tokens_equal_unsharded": True, "wall_s": wall,
+                    "tokens_per_s": sum(len(o.token_ids) for o in outs) /
+                    wall, "warmup_seconds": engine.warmup_seconds,
+                    "collective_calls": collectives.calls(),
+                    "launches": launches}
+                if run == "gather":
+                    decode = [s.wall_ms for s in engine.stats
+                              if s.decode_batch and not s.prefill_tokens]
+                    runs[run]["decode_step_ms_mean"] = sum(decode) / len(
+                        decode)
+                    runs[run]["decode_program_collectives"] = \
+                        sorted({tuple(sorted(c.items()))
+                                for c in progs.values()})
+                    want_calls = {"all_reduce": 2 * cfg.num_layers + 1,
+                                  "all_gather": 1}
+                    assert all(c == want_calls for c in progs.values()), \
+                        f"a decode program captured {progs}, not {want_calls}"
+                    # one decode program's graph, sharded and unsharded
+                    res["decode_graph_nodes"] = graph_nodes(
+                        torch, engine._jit_decode(4, 32, True))
+                    res["unsharded_decode_graph_nodes"] = graph_nodes(
+                        torch, serving_engine(cfg, params, n)._jit_decode(
+                            4, 32, True))
+                del engine
+            launches = {k: runs["gather"]["launches"].get(k, 0) +
+                        runs["spec"]["launches"].get(k, 0)
+                        for k in runs["gather"]["launches"]}
+            assert all(launches[k] > 0 for k in SPEC_KERNELS), \
+                f"a kernel of the sharded path never launched: {launches}"
+        finally:
+            gc.collect()            # no graph holds the communicator now
+            dist.destroy_process_group()
+    sharded = res["decode_graph_nodes"]
+    plain = res["unsharded_decode_graph_nodes"]
+    # at one rank NCCL's all_gather is a device copy (a memcpy node) and
+    # its in-place all_reduce enqueues nothing
+    assert sharded.get("memcpy", 0) == plain.get("memcpy", 0) + 1, \
+        f"the sharded decode graph does not hold the logits' all_gather " \
+        f"copy: {sharded} against {plain}"
+    res.update(runs=runs, launches=launches,
+               unsharded_decode_step_ms_mean=pipe["pipeline"][
+                   "decode_step_ms_mean"])
+    emit(res)
     return res
 
 
@@ -5056,7 +5295,37 @@ def check_train(torch, arch="paper-0.5b", remat="none"):
             "grad_tolerance": TRAIN_GRAD_TOL, "grad_rel_err": rel}
 
 
-SERVE_PHASES = {"disagg": phase_disagg,
+def serve_tp_alone(torch, serve, *_):
+    """``--phases serve_tp``: the serve_tp phase against references it
+    makes itself (the pipeline phase's two warmed pipelined runs, unsharded,
+    and a recorded run's near-ties)."""
+    cfg, params, prompts = serve["cfg"], serve["params"], serve["prompts"]
+    n = serve["new_tokens"]
+    spec_config = spec_default()
+    ref = serving_engine(cfg, params, n, record_logits=True).generate(
+        prompts, max_tokens=n)
+    spec = {"spec_config": spec_config, "outs": ref,
+            "near_ties": first_near_ties(torch, ref)}
+    pipe = {}
+    for key, kw in (("outs", {}), ("spec_outs", {"spec": spec_config})):
+        engine, outs, _, _ = warm_run(torch, cfg, params, prompts, n,
+                                      pipeline=True, **kw)
+        pipe[key] = outs
+        if key == "outs":
+            decode = [s.wall_ms for s in engine.stats
+                      if s.decode_batch and not s.prefill_tokens]
+            pipe["pipeline"] = {"decode_step_ms_mean":
+                                sum(decode) / len(decode)}
+    return phase_serve_tp(torch, {**serve, "outs": ref}, spec, pipe)
+
+
+def spec_default():
+    from repro_torch.serving import SpecConfig
+    return SpecConfig(k=SPEC_K, draft_backend="tile_skip",
+                      draft_threshold=DRAFT_THRESHOLD)
+
+
+SERVE_PHASES = {"disagg": phase_disagg, "serve_tp": serve_tp_alone,
                 "serve_moe": lambda torch, *_: phase_serve_moe(torch),
                 "serve_dense": lambda torch, *_: phase_serve_dense(torch),
                 "serve_ssm": lambda torch, *_: phase_serve_ssm(torch),

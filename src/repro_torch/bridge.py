@@ -13,7 +13,8 @@ gated FFN's ``wu`` (``lm.prepare_params``: ``blocks.ffn``, a MoE block's
 experts, zamba2's ``shared_attn.ffn``, vision's self and cross blocks) is
 added by ``from_numpy`` and dropped by ``to_numpy`` and ``lm.trainable``.
 The AdamW state (``step``, ``m``, ``v``) crosses the same way
-(``opt_state_from_numpy`` / ``opt_state_to_numpy``).
+(``opt_state_from_numpy`` / ``opt_state_to_numpy``). ``shard_params``
+cuts the whole tree into one rank's shards for tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -59,6 +60,31 @@ def to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's parameters -> the JAX tree layout as float32/int numpy
     arrays (bfloat16 widens exactly), without the derived weights."""
     return _tree_to_numpy(lm.trainable(params))
+
+
+def shard_params(params: Dict[str, Any], cfg, mesh, backend,
+                 draft=None) -> Dict[str, Any]:
+    """The whole parameter tree -> this rank's shards on a 1-D ``model``
+    mesh (tensor-parallel serving): each leaf cut by
+    ``sharding.make_param_specs(..., fsdp=False)``, the FFN's hidden dim
+    by ``backend.ffn_sizes`` (whole TwELL tiles when ``backend`` or the
+    ``draft`` backend packs or skips tiles), then the derived ``wu_t``
+    made again from the shard. Every rank builds the whole tree and keeps
+    its slice."""
+    import re
+
+    from repro_torch.distributed import sharding
+    full = lm.trainable(params)
+    specs = sharding.make_param_specs(full, cfg, mesh, fsdp=False)
+    sizes = backend.ffn_sizes(cfg, sharding.tp_size(mesh), draft)
+
+    def cut(tree, spec, path=""):
+        if isinstance(tree, dict):
+            return {k: cut(v, spec[k], f"{path}/{k}") for k, v in tree.items()}
+        ffn = re.search(r"(^|/)ffn/w[ugd]$", path) is not None
+        return sharding.shard_tensor(tree, spec, mesh,
+                                     sizes=sizes if ffn else None)
+    return lm.prepare_params(cut(full, specs))
 
 
 def opt_state_from_numpy(state, device="cpu") -> adamw.AdamWState:

@@ -42,6 +42,7 @@ from repro_torch.config import SparsityConfig
 from repro_torch.core import hybrid as hybrid_fmt
 from repro_torch.core import twell
 from repro_torch.core.sparsity import activation, activation_grad, l1_loss
+from repro_torch.distributed import collectives
 
 
 def init(d_model: int, d_ff: int, gated: bool, dtype: torch.dtype,
@@ -70,15 +71,41 @@ def _tile_frac(mask_n: torch.Tensor, tile: int) -> torch.Tensor:
 PROBE = "probe"                 # collect_aux: nnz_mean and tile_frac only
 
 
-def _aux_from_h(h: torch.Tensor, tile: int, collect_aux
+def _probe(cells: torch.Tensor, group) -> Dict[str, torch.Tensor]:
+    """The serving probe from ``cells`` (rows, the FFN's tiles), each the
+    count of active neurons of a (row, tile) cell over all d_ff columns:
+    ``cells`` summed over the ranks first (none without a ``group``), then
+    ``nnz_mean`` and ``tile_frac`` of the whole pattern."""
+    collectives.all_reduce(cells, group)
+    return {"nnz_mean": cells.sum(dim=-1).mean(),
+            "tile_frac": (cells > 0).float().mean()}
+
+
+def _ffn_span(group, n: int) -> Tuple[int, int]:
+    """(this rank's first d_ff column, the whole d_ff): (0, n) unsharded."""
+    return (0, n) if group is None else (group.ffn_start, group.d_ff)
+
+
+def _mask_cells(mask: torch.Tensor, tile: int, group) -> torch.Tensor:
+    """(rows, tiles of d_ff) float32 counts of this rank's active columns,
+    each at its global tile: a tile that two ranks share gets a part from
+    each."""
+    start, d_ff = _ffn_span(group, mask.shape[-1])
+    tile = max(1, min(int(tile), d_ff))
+    cols = torch.arange(start, start + mask.shape[-1], device=mask.device)
+    cells = torch.zeros((mask.shape[0], -(-d_ff // tile)),
+                        dtype=torch.float32, device=mask.device)
+    return cells.index_add_(1, cols // tile, mask.float())
+
+
+def _aux_from_h(h: torch.Tensor, tile: int, collect_aux, group=None
                 ) -> Optional[Dict[str, torch.Tensor]]:
     if not collect_aux:
         return None
     mask = h != 0
-    nnz = mask.sum(dim=-1)
     if collect_aux == PROBE:
-        return {"nnz_mean": nnz.float().mean(),
-                "tile_frac": _tile_frac(mask, tile)}
+        return _probe(_mask_cells(mask, tile, group), group)
+    nnz = mask.sum(dim=-1)
     return {
         "l1": l1_loss(h),
         "nnz_mean": nnz.float().mean(),
@@ -89,18 +116,18 @@ def _aux_from_h(h: torch.Tensor, tile: int, collect_aux
 
 
 def _dense_apply(params, x, scfg: SparsityConfig, gated: bool,
-                 collect_aux: bool):
+                 collect_aux: bool, group=None):
     act = activation(scfg.activation if scfg.enabled else "silu")
     if gated:
         h = (x @ params["wu"]) * act(x @ params["wg"])
     else:
         h = act(x @ params["wu"])
     y = h @ params["wd"]
-    return y, _aux_from_h(h, scfg.twell_tile, collect_aux)
+    return y, _aux_from_h(h, scfg.twell_tile, collect_aux, group)
 
 
 def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
-                 collect_aux: bool):
+                 collect_aux: bool, group=None):
     from repro_torch.kernels import ops
     if gated:
         tw = ops.twell_gate_matmul(x, params["wg"], scfg.twell_tile,
@@ -114,10 +141,15 @@ def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
         y = ops.twell_down_proj(tw, params["wd"])
     if not collect_aux:
         return y, None
-    nnz_rows = tw.nnz.sum(-1)
     if collect_aux == PROBE:
-        return y, {"nnz_mean": nnz_rows.float().mean(),
-                   "tile_frac": (tw.nnz > 0).float().mean()}
+        # whole tiles a rank (sharding.ffn_split): this rank's tile counts
+        # go to its tiles' places in the (rows, tiles of d_ff) cells
+        start, d_ff = _ffn_span(group, tw.n)
+        t0, nt = start // scfg.twell_tile, tw.nnz.shape[-1]
+        cells = torch.nn.functional.pad(
+            tw.nnz.float(), (t0, d_ff // scfg.twell_tile - t0 - nt))
+        return y, _probe(cells, group)
+    nnz_rows = tw.nnz.sum(-1)
     if gated:
         # Eq. 2's L1 is over h = h_u * h_g: recover |h| on the pattern
         # through the same gathered h_u elements the fused kernel computes
@@ -143,14 +175,14 @@ def _twell_apply(params, x, scfg: SparsityConfig, gated: bool,
 
 
 def _tile_skip_apply(params, x, scfg: SparsityConfig, gated: bool,
-                     collect_aux: bool):
+                     collect_aux: bool, group=None):
     from repro_torch.kernels import ops
     if not gated:
-        return _dense_apply(params, x, scfg, gated, collect_aux)
+        return _dense_apply(params, x, scfg, gated, collect_aux, group)
     y, h = ops.tile_skip_ffn(x, params["wg"], params["wu"], params["wd"],
                              scfg.twell_tile, scfg.activation,
                              threshold=scfg.tile_skip_threshold)
-    return y, _aux_from_h(h, scfg.twell_tile, collect_aux)
+    return y, _aux_from_h(h, scfg.twell_tile, collect_aux, group)
 
 
 # --------------------------------------------------------------------------- #
@@ -374,16 +406,30 @@ _IMPLS = {
 
 def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
           scfg: SparsityConfig, gated: bool,
-          collect_aux: Union[bool, str] = False
+          collect_aux: Union[bool, str] = False, group=None
           ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (..., d_model) -> (..., d_model), plus sparsity aux: the whole
     dict (``collect_aux=True``), ``nnz_mean`` and ``tile_frac`` only
-    (``collect_aux="probe"``), or None."""
+    (``collect_aux="probe"``), or None.
+
+    Under tensor parallelism (``group``, a ``sharding.ModelGroup``;
+    serving only) the weights are this rank's share of the hidden dim, in
+    Megatron's layout: ``wu``/``wg`` its columns, ``wd`` its rows. The
+    kernels run on the shard and the partial y is summed over the ranks;
+    the probe counts every rank's columns."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     impl = scfg.ffn_impl if scfg.enabled else "dense"
     if impl not in _IMPLS:
         raise NotImplementedError(
             f"ffn_impl {impl!r} is not ported yet (port has {sorted(_IMPLS)})")
-    y, aux = _IMPLS[impl](params, x2, scfg, gated, collect_aux)
+    if group is None:
+        y, aux = _IMPLS[impl](params, x2, scfg, gated, collect_aux)
+    else:
+        if impl == "hybrid" or collect_aux not in (False, PROBE):
+            raise NotImplementedError(
+                "the FFN under tensor parallelism serves only (training on "
+                "a mesh is queued in ROADMAP.md)")
+        y, aux = _IMPLS[impl](params, x2, scfg, gated, collect_aux, group)
+        collectives.all_reduce(y, group)
     return y.reshape(*lead, -1), aux

@@ -97,25 +97,30 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def captured_launches() -> Iterator[Dict[str, int]]:
+def captured_launches(into: Optional[Dict[str, int]] = None
+                      ) -> Iterator[Dict[str, int]]:
     """Around a CUDA graph capture: the wrappers count on the host, so a
     capture counts launches that have not run. The counts made inside the
-    block are taken back out of ``LAUNCHES`` and left in the yielded dict;
-    ``add_launches`` adds them once per replay of the graph."""
-    before = dict(LAUNCHES)
+    block are taken back out of ``into`` (default ``LAUNCHES``; also the
+    collectives' ``CALLS``) and left in the yielded dict; ``add_launches``
+    adds them once per replay of the graph."""
+    into = LAUNCHES if into is None else into
+    before = dict(into)
     taken: Dict[str, int] = {}
     try:
         yield taken
     finally:
         for k, n in before.items():
-            if LAUNCHES[k] != n:
-                taken[k] = LAUNCHES[k] - n
-                LAUNCHES[k] = n
+            if into[k] != n:
+                taken[k] = into[k] - n
+                into[k] = n
 
 
-def add_launches(counts: Dict[str, int]) -> None:
+def add_launches(counts: Dict[str, int],
+                 into: Optional[Dict[str, int]] = None) -> None:
+    into = LAUNCHES if into is None else into
     for k, n in counts.items():
-        LAUNCHES[k] += n
+        into[k] += n
 
 
 def _nvcc() -> str:

@@ -26,7 +26,7 @@ the decode cache is updated in place and is an argument, not an output),
 0}`` on one device), ``hbm_bytes_per_device`` (fused) and
 ``hbm_bytes_strict``, ``microbatch`` and ``status``. ``mesh`` is ``"1"``
 and ``n_devices`` 1: one card, the mesh waits for ``ROADMAP.md`` queue 1
-item 5. ``bound`` is ``"capacity"`` when a kernel whose work depends on
+item 6.2. ``bound`` is ``"capacity"`` when a kernel whose work depends on
 the data ran (K2-K6, K8, K9: live columns, sequence lengths) or the
 hybrid backward took all N columns: that work is counted at the most its
 shapes allow, an upper bound; else ``"exact"``. ``kernels`` gives each
@@ -67,7 +67,7 @@ LONG_OK = {"mixtral-8x22b", "llama4-scout-17b-a16e", "zamba2-1.2b",
            "rwkv6-7b"}
 
 MESH_WAITS = ("the port's dry run is one H100; the mesh (--multi-pod, "
-              "dryrun_all --mesh multi) waits for ROADMAP.md queue 1 item 5")
+              "dryrun_all --mesh multi) waits for ROADMAP.md queue 1 item 6.2")
 
 # kernels whose work depends on data: their shape functions report it at
 # the capacity of their shapes

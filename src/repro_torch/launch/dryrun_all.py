@@ -7,7 +7,7 @@ in bf16 (``BF16_ACCUM``). Each cell's record goes to ``RESULTS``
 (``results/dryrun_torch/`` at the repo root, ignored by git), one file a
 cell; a cell already there with status ok is skipped unless ``--force``.
 ``--mesh`` takes only ``single``: the port's dry run is one H100, and the
-mesh waits for ``ROADMAP.md`` queue 1 item 5.
+mesh waits for ``ROADMAP.md`` queue 1 item 6.2.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.dryrun_all
 [--only arch] [--timeout S] [--force]
@@ -54,7 +54,7 @@ def main(argv=None):
     ap.add_argument("--only", default=None)
     ap.add_argument("--mesh", default="single", choices=["single"],
                     help="single only: the mesh waits for ROADMAP.md "
-                         "queue 1 item 5")
+                         "queue 1 item 6.2")
     ap.add_argument("--timeout", type=int, default=1200)
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)

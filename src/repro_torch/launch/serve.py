@@ -3,12 +3,14 @@ TwELL path, on the card unless ``--device cpu``; also the HTTP server and
 the static reference loop (``generate``) the engine is checked against.
 
 Ports ``repro/launch/serve.py`` with every flag but the JAX package's
-``--tp`` and ``--mesh`` (no tensor parallelism in the port yet) and
 ``--attn-backend`` (the port reads the paged KV through one path a
 device: the CUDA kernels on the card, their plain versions on the CPU).
 ``--backend`` (alias ``--ffn-impl``) picks the FFN path;
 ``--torch-profile DIR`` stands for ``--jax-profile``; ``--device`` is the
-port's own.
+port's own. ``--tp N`` serves on N ranks, one spawned process a rank
+(NCCL, one card a rank; gloo with one torch thread a rank on the CPU),
+each holding its shard of the weights and KV pools; rank 0 prints.
+``--mesh`` runs the sharded path at ``--tp 1`` in this process.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-0.5b
@@ -31,6 +33,14 @@ Usage:
   # its own KV pool, behind one DisaggCoordinator (synchronous engines)
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --disagg --transfer-ttl 64 --check-static
+  # tensor-parallel serving: two gloo ranks on the CPU (the tokens equal
+  # --tp 1's); on the card one rank a card, and --mesh runs the sharded
+  # path on one card
+  # (the reduced FFN is one TwELL tile, which a rank holds whole: gather
+  # and tile-skip drafts refuse it at tp 2, so this runs dense)
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --tp 2 --backend dense --spec-k 2 --draft-backend dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-0.5b --mesh
   # the MoE configs: a sliding window (mixtral) or local chunks (llama4)
   # route to the static loop, as in the JAX package
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
@@ -168,7 +178,9 @@ def first_near_ties(logits: List[torch.Tensor], tol: float = LOGIT_TOL
             for row in tie]
 
 
-def main(argv=None):
+def main(argv=None, rank: Optional[int] = None):
+    """The CLI. ``rank``: this process is that rank of a ``--tp`` world
+    (``_serve_rank``, in a process ``ranks.spawn`` started)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-0.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -205,6 +217,14 @@ def main(argv=None):
     ap.add_argument("--draft-threshold", type=float, default=0.0,
                     help="tile-skip gate threshold for the draft pass "
                          "(higher = sparser/cheaper draft, lower acceptance)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: shard params + paged KV "
+                         "pools over a 1-D mesh of --tp ranks, one process "
+                         "a rank (1 = unsharded; NCCL, one card a rank; "
+                         "gloo ranks with --device cpu)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the mesh-sharded engine path even at --tp 1 "
+                         "(exercises the sharded code path on one device)")
     ap.add_argument("--disagg", action="store_true",
                     help="disaggregated serving: a prefill engine and a "
                          "decode engine with separate KV pools in one "
@@ -280,6 +300,16 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    sharded = args.tp > 1 or args.mesh
+    if sharded:
+        _check_tp(args, cfg, dev)
+        from repro_torch.distributed import ranks
+        if rank is None:
+            if args.tp > 1:
+                return ranks.spawn(_serve_rank, args.tp, (argv,),
+                                   device=dev.type)[0]
+            return ranks.in_one_rank(_serve_rank, dev.type, (argv,))
+        dev = ranks.rank_device(dev.type, rank)
     if dev.type == "cuda":
         cfg = dataclasses.replace(cfg, dtype="bfloat16",
                                   param_dtype="bfloat16")
@@ -346,6 +376,13 @@ def main(argv=None):
                              "withdraw cannot race a launched step); drop "
                              "--pipeline")
         use_pipeline = False
+    mesh = None
+    if sharded:
+        from repro_torch.distributed.sharding import make_serving_mesh
+        mesh = make_serving_mesh(args.tp, dev)
+        print(f"[serve/engine] tensor-parallel mesh: tp={args.tp} "
+              f"({'nccl' if dev.type == 'cuda' else 'gloo'}, one process "
+              f"a rank)")
     espec = EngineSpec(
         backend=args.backend, block_size=args.block_size,
         max_batch=args.max_batch or args.batch,
@@ -353,7 +390,7 @@ def main(argv=None):
         prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, scheduler=args.scheduler,
         telemetry=telemetry if telemetry is not None else False,
-        pipeline=use_pipeline, device=dev)
+        pipeline=use_pipeline, device=dev, mesh=mesh)
     if args.disagg:
         engine = DisaggCoordinator(params, cfg, spec=espec,
                                    transfer_ttl_steps=args.transfer_ttl)
@@ -419,7 +456,8 @@ def main(argv=None):
         print(f"[serve/torch] chrome trace -> {args.trace_out}")
     print(np.asarray([o.token_ids for o in outs]))
 
-    if args.temperature <= 0 and (args.check_static or args.reduced):
+    if args.temperature <= 0 and (args.check_static or args.reduced) and \
+            not rank:
         got = torch.tensor([o.token_ids for o in outs], dtype=torch.int64)
         logits: List[torch.Tensor] = []
         ref = generate(params, cfg, prompt, args.gen, cache_len,
@@ -439,6 +477,49 @@ def main(argv=None):
             assert agree == 1.0, \
                 "continuous-batching engine diverged from the static loop"
     return outs
+
+
+def _check_tp(args, cfg, dev) -> None:
+    """``--tp``/``--mesh``'s refusals, before any rank starts: JAX's (the
+    engine only, no --disagg), --http over more than one rank (not in the
+    port yet), the card count, and the backends' (``validate_mesh``)."""
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if not uses_engine(cfg, args.static):
+        raise SystemExit("--tp/--mesh require the continuous-batching "
+                         "engine (dense/moe family, no --static)")
+    if args.disagg:
+        raise SystemExit("--disagg requires unsharded KV pools; drop "
+                         "--tp/--mesh")
+    if args.http and args.tp > 1:
+        raise SystemExit("--http under --tp > 1 is not in the port yet "
+                         "(rank 0 would broadcast each step's submissions; "
+                         "queued in ROADMAP.md); drop --http or --tp")
+    if dev.type == "cuda" and args.tp > torch.cuda.device_count():
+        raise SystemExit(f"--tp {args.tp} needs {args.tp} cards (one rank "
+                         f"a card); {torch.cuda.device_count()} visible")
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.serving.backends import get_backend, make_draft_pair
+    draft = make_draft_pair(args.backend, args.draft_backend,
+                            args.draft_threshold).draft \
+        if args.spec_k else None
+    try:
+        get_backend(args.backend).validate_mesh(
+            cfg, AbstractMesh((args.tp,), ("model",)), draft)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _serve_rank(rank: int, dev, argv):
+    """One rank of ``--tp``: the CLI on this rank's device and shard; only
+    rank 0 prints."""
+    import contextlib
+    import os
+    if rank == 0:
+        return main(argv, rank=rank)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        main(argv, rank=rank)
+    return None
 
 
 def _programs(engine, total: bool = False):

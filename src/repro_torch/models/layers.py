@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_decode_attention import masked_sdpa
 
@@ -298,7 +299,7 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor, kind: str = "causal",
               kv_x: Optional[torch.Tensor] = None,
               cache: Optional[Dict] = None, q_chunk: int = 1024,
-              kv_chunk: int = 1024) -> torch.Tensor:
+              kv_chunk: int = 1024, group=None) -> torch.Tensor:
     """Attention of ``kind`` (``ATTN_KINDS``). Self-attention kinds:
     paged (the serving engine, causal only) when ``cache`` holds pools;
     one decode token against the monolithic cache (the static reference
@@ -308,12 +309,18 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
     causal, as JAX's ``attention`` routes it); ``_banded`` otherwise;
     ``bidir`` unmasked, ``_chunked_bidir`` past S 2048. ``cross``: Q from
     x, K and V from ``kv_x``, or from the cache's ``xk``/``xv`` (B, Sk,
-    Hkv, hd) when it holds them; no rope, unmasked."""
+    Hkv, hd) when it holds them; no rope, unmasked.
+
+    Under tensor parallelism (``group``, a ``sharding.ModelGroup``) the
+    weights are this rank's heads: ``wq``/``wk``/``wv`` its columns,
+    ``wo`` its rows. The head counts come from their shapes, and the
+    output projection's partial sums are reduced over the ranks."""
     b, s, _ = x.shape
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported (one of {ATTN_KINDS})")
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    h, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / hd ** 0.5
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     if kind == "cross":
@@ -323,7 +330,8 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
             k = (kv_x @ params["wk"]).reshape(b, kv_x.shape[1], hkv, hd)
             v = (kv_x @ params["wv"]).reshape(b, kv_x.shape[1], hkv, hd)
         out = masked_sdpa(q, repeat_kv(k, h), repeat_kv(v, h), None, scale)
-        return out.reshape(b, s, h * hd) @ params["wo"]
+        return collectives.all_reduce(out.reshape(b, s, h * hd)
+                                      @ params["wo"], group)
     k = (x @ params["wk"]).reshape(b, s, hkv, hd)
     v = (x @ params["wv"]).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
@@ -351,7 +359,8 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
         out = _paged_attention(q, k, v, cache)
     else:
         out = _cache_attention(q, k, v, cache, h, kind, cfg)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    return collectives.all_reduce(out.reshape(b, s, h * hd) @ params["wo"],
+                                  group)
 
 
 def embed_init(vocab: int, d_model: int, dtype: torch.dtype,
@@ -361,9 +370,25 @@ def embed_init(vocab: int, d_model: int, dtype: torch.dtype,
                                    device=device)).to(dtype)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, group=None
+                 ) -> torch.Tensor:
+    """The tokens' rows of ``table``. Under tensor parallelism the table is
+    this rank's block of vocab rows: each rank looks up the tokens it
+    holds, zeroes the others, and the sum over the ranks is the lookup."""
+    if group is None:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    local = tokens.long() - group.rank * rows
+    hit = (local >= 0) & (local < rows)
+    out = torch.where(hit[..., None], table[local.clamp(0, rows - 1)],
+                      torch.zeros((), dtype=table.dtype, device=table.device))
+    return collectives.all_reduce(out, group)
 
 
-def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,vd->bsv", x, table)
+def lm_logits(x: torch.Tensor, table: torch.Tensor, group=None
+              ) -> torch.Tensor:
+    """x @ table^T. Under tensor parallelism the table is this rank's block
+    of vocab rows: its logits columns are gathered over the ranks in rank
+    order, so every rank holds the whole row (JAX's replicated logits)."""
+    return collectives.all_gather_last(torch.einsum("bsd,vd->bsv", x, table),
+                                       group)

@@ -9,7 +9,8 @@ Public API:
   trainable(params)                          -> params (- derived weights)
   forward(params, batch, cfg, collect_aux=True) -> (logits, aux) [training]
   loss_fn(params, batch, cfg, l1_coeff=None) -> (loss, (metrics, aux))
-  init_paged_cache(cfg, num_blocks, block_size, device=None) -> pools
+  init_paged_cache(cfg, num_blocks, block_size, device=None, kv_heads=None)
+                                             -> pools
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
   paged_decode_step(params, pools, block_tables, seq_lens, tokens, cfg, ...)
   paged_verify(params, pools, block_tables, start_lens, num_new, tokens, cfg)
@@ -244,10 +245,13 @@ def _layer(tree, l: int):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device=None) -> Dict[str, torch.Tensor]:
+                     device=None, kv_heads: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Block-paged KV pools, (L, num_blocks, block_size, Hkv, hd) each;
-    block 0 is the null block (see serving/kv_cache.py). The dense and MoE
-    families only, as the JAX package's engine."""
+    block 0 is the null block (see serving/kv_cache.py). ``kv_heads``:
+    the heads a pool holds (a rank's share under tensor parallelism;
+    default all). The dense and MoE families only, as the JAX package's
+    engine."""
     _check_family(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
@@ -257,7 +261,8 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "paged KV serving does not support windowed/chunked attention yet")
     dev = device_mod.resolve(device)
     dtype = device_mod.torch_dtype(cfg.param_dtype)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+    shape = (cfg.num_layers, num_blocks, block_size,
+             cfg.num_kv_heads if kv_heads is None else kv_heads,
              cfg.resolved_head_dim)
     return {"kpool": torch.zeros(shape, dtype=dtype, device=dev),
             "vpool": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -270,9 +275,10 @@ def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
-                 kv_x=None):
+                 kv_x=None, group=None):
     a = attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
-                  positions=positions, kind=kind, kv_x=kv_x, cache=cache)
+                  positions=positions, kind=kind, kv_x=kv_x, cache=cache,
+                  group=group)
     if "gate_attn" in p:
         a = _gated(p["gate_attn"], a)
     x = x + a
@@ -284,7 +290,7 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
             aux.pop("moe_drop_frac", None)
     else:
         y, aux = sparse_ffn.apply(p["ffn"], h, cfg.sparsity, cfg.gated,
-                                  collect_aux=collect_aux)
+                                  collect_aux=collect_aux, group=group)
     if "gate_ffn" in p:
         y = _gated(p["gate_ffn"], y)
     return x + y, aux
@@ -292,7 +298,7 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
 
 def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
                 num_new=None, write_valid=None, last_rows=None,
-                collect_aux=False):
+                collect_aux=False, group=None):
     probes = []
     for l in range(cfg.num_layers):
         cache = {"kpool": pools["kpool"][l], "vpool": pools["vpool"][l],
@@ -303,7 +309,8 @@ def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
             cache["write_valid"] = write_valid
         x, aux = _block_apply(_layer(params["blocks"], l), x, cfg, positions,
                               cache,
-                              sparse_ffn.PROBE if collect_aux else False)
+                              sparse_ffn.PROBE if collect_aux else False,
+                              group=group)
         if collect_aux:
             probes.append(aux)
     if last_rows is not None:
@@ -312,7 +319,7 @@ def _paged_scan(params, x, pools, cfg, positions, block_tables, seq_lens,
               ][:, None]
     x = norm_apply(cfg.norm, params["final_ln"], x)
     head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
-    logits = lm_logits(x, head)
+    logits = lm_logits(x, head, group)
     if collect_aux:
         aux_stack = {k: torch.stack([a[k] for a in probes])
                      for k in ("nnz_mean", "tile_frac")}
@@ -620,7 +627,8 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig, l1_coeff=None,
 def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,
                   tokens: torch.Tensor, num_new: torch.Tensor,
                   cfg: ModelConfig, start_lens: Optional[torch.Tensor] = None,
-                  last_only: bool = False, collect_aux: bool = False):
+                  last_only: bool = False, collect_aux: bool = False,
+                  group=None):
     """Prefill a prompt chunk into the paged pools, appending to any cached
     history. tokens: (B, C) right-padded chunk; num_new: (B,) valid chunk
     lengths; start_lens: (B,) tokens already cached (None = 0); all int32.
@@ -628,8 +636,13 @@ def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,
     Returns (logits, pools): (B, C, V) logits (rows past num_new are
     garbage), or with ``last_only`` each row's last valid position only,
     (B, 1, V). ``collect_aux`` adds a per-layer sparsity probe
-    ``{"nnz_mean", "tile_frac", "ffn_present"}`` (L,) in the middle."""
-    x = embed_lookup(params["embed"], tokens)
+    ``{"nnz_mean", "tile_frac", "ffn_present"}`` (L,) in the middle.
+
+    ``group`` (a ``sharding.ModelGroup``, this rank's place on the model
+    axis; every paged entry point takes it): the params and pools are this
+    rank's shards, the layers run the model axis's collectives, and every
+    rank returns the whole logits."""
+    x = embed_lookup(params["embed"], tokens, group)
     if start_lens is None:
         start_lens = torch.zeros_like(num_new)
     positions = start_lens[:, None] + \
@@ -638,30 +651,30 @@ def paged_prefill(params: Dict, pools: Dict, block_tables: torch.Tensor,
         if last_only else None
     return _paged_scan(params, x, pools, cfg, positions, block_tables,
                        start_lens, num_new=num_new, last_rows=last_rows,
-                       collect_aux=collect_aux)
+                       collect_aux=collect_aux, group=group)
 
 
 def paged_decode_step(params: Dict, pools: Dict, block_tables: torch.Tensor,
                       seq_lens: torch.Tensor, tokens: torch.Tensor,
                       cfg: ModelConfig,
                       write_valid: Optional[torch.Tensor] = None,
-                      collect_aux: bool = False):
+                      collect_aux: bool = False, group=None):
     """Continuous-batching decode: one token per request. tokens: (B, 1);
     seq_lens: (B,) cached lengths (the new token is written there);
     ``write_valid`` (B,) bool sends a row's KV write to the null block when
     False (speculative draft steps past a request's budget). Returns
     (logits (B, 1, V), pools). Padded rows (all-null table, seq_len 0)
     produce garbage logits."""
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, group)
     positions = seq_lens[:, None]
     return _paged_scan(params, x, pools, cfg, positions, block_tables,
                        seq_lens, write_valid=write_valid,
-                       collect_aux=collect_aux)
+                       collect_aux=collect_aux, group=group)
 
 
 def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
                  start_lens: torch.Tensor, num_new: torch.Tensor,
-                 tokens: torch.Tensor, cfg: ModelConfig):
+                 tokens: torch.Tensor, cfg: ModelConfig, group=None):
     """Speculative verify: score a drafted chunk in one batched pass.
 
     tokens (B, S): per request the last committed token followed by its
@@ -671,7 +684,7 @@ def paged_verify(params: Dict, pools: Dict, block_tables: torch.Tensor,
     position start + j. This is the chunk-append regime, so it delegates to
     ``paged_prefill`` and the two cannot drift apart."""
     return paged_prefill(params, pools, block_tables, tokens, num_new, cfg,
-                         start_lens=start_lens)
+                         start_lens=start_lens, group=group)
 
 
 def encode_frames(params: Dict, frames: torch.Tensor, cfg: ModelConfig

@@ -9,7 +9,8 @@ Eq. 3). A ``ServingBackend`` selects the FFN implementation per step kind:
 path and the trusted verify path of self-speculative decoding over one set
 of weights. Ports ``DenseBackend``, ``TwellGatherBackend``,
 ``TileSkipBackend``, ``DraftPair`` and ``make_draft_pair`` of
-``repro/serving/backends.py``.
+``repro/serving/backends.py``, with ``validate_mesh`` (tensor-parallel
+serving's refusals) and the FFN's split over the ranks (``ffn_sizes``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from abc import ABC, abstractmethod
 from typing import Dict, Type
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 
 PREFILL = "prefill"
 DECODE = "decode"
@@ -45,6 +47,57 @@ class ServingBackend(ABC):
     def describe(self) -> str:
         return (f"{self.name}: prefill={self.ffn_impl(PREFILL)} "
                 f"decode={self.ffn_impl(DECODE)}")
+
+    def validate_mesh(self, cfg: ModelConfig, mesh, draft=None) -> None:
+        """Reject model/mesh combinations tensor-parallel serving cannot
+        shard, as the JAX backend does: the paged pool splits only its
+        kv-head axis, wq/wo split by heads, the FFN by its hidden dim and
+        the logits by vocab, so a count the model axis does not divide
+        would replicate what TP exists to split. One refusal more than
+        JAX's: when this backend or the ``draft`` backend packs or skips
+        TwELL tiles (``gather``, ``tile_skip``), each rank holds whole
+        tiles (``ffn_sizes``), so a d_ff of fewer tiles than ranks is
+        refused."""
+        tp = sharding.tp_size(mesh)
+        if tp <= 1:
+            return
+        problems = []
+        if cfg.num_kv_heads % tp:
+            problems.append(f"num_kv_heads={cfg.num_kv_heads} (paged KV "
+                            f"pool head axis)")
+        if cfg.num_heads % tp:
+            problems.append(f"num_heads={cfg.num_heads} (attention TP)")
+        if cfg.d_ff % tp:
+            problems.append(f"d_ff={cfg.d_ff} (FFN TP)")
+        if cfg.padded_vocab % tp:
+            problems.append(f"padded_vocab={cfg.padded_vocab} "
+                            f"(vocab-sharded logits)")
+        if problems:
+            raise ValueError(
+                f"backend {self.name!r} cannot serve under tp={tp}: "
+                + "; ".join(problems) + " not divisible by the model axis")
+        tile = cfg.sparsity.twell_tile
+        if _tiles(self, draft) and cfg.d_ff // tile < tp:
+            raise ValueError(
+                f"backend {self.name!r} cannot serve under tp={tp}: d_ff="
+                f"{cfg.d_ff} holds {cfg.d_ff // tile} TwELL tile(s) of "
+                f"{tile} and a rank holds whole tiles (a tile split between "
+                f"ranks would change which columns an overflowing tile "
+                f"keeps)")
+
+    def ffn_sizes(self, cfg: ModelConfig, tp: int, draft=None):
+        """Each rank's share of d_ff: whole TwELL tiles when this backend
+        or ``draft`` packs or skips tiles, else an even split (JAX's)."""
+        tile = cfg.sparsity.twell_tile if _tiles(self, draft) else 0
+        return sharding.ffn_split(cfg.d_ff, tp, tile)
+
+
+def _tiles(*backends) -> bool:
+    """Whether any of ``backends`` (None skipped) runs a per-tile FFN path
+    in any phase."""
+    return any(b.ffn_impl(mode) in ("gather", "tile_skip")
+               for b in backends if b is not None
+               for mode in (PREFILL, DECODE))
 
 
 class DenseBackend(ServingBackend):

@@ -66,8 +66,16 @@ resumes a request with committed tokens under the coordinator's key,
 ``on_prefill_done`` fires after a prefill's first token commits and
 before anything is freed, ``admit_migrated`` takes a request whose KV
 another engine's pool holds straight into the decode batch, and
-``withdraw`` hands a running request back to the coordinator. Not in the
-port yet: tensor parallelism.
+``withdraw`` hands a running request back to the coordinator.
+
+Tensor parallelism: ``ServingEngine(..., mesh=make_serving_mesh(tp))``
+(``distributed/sharding.py``) serves the dense family with the weights and
+the KV pools split over a 1-D ``model`` mesh, one process a rank. Every
+rank builds the engine on the whole weights (``bridge.shard_params`` keeps
+its slice), runs the same host scheduler on the same submissions and makes
+the same calls (SPMD); the step entries pass the model axis
+(``sharding.ModelGroup``) down to the layers, whose collectives give every
+rank the whole logits, so every rank samples the same tokens.
 """
 from __future__ import annotations
 
@@ -79,8 +87,10 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import bridge
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.observability import accounting
 from repro_torch.serving import sampling as sampling_mod
@@ -182,7 +192,7 @@ class ServingEngine:
                  max_stats: Optional[int] = 4096,
                  telemetry: Union[bool, Telemetry, None] = False,
                  pipeline: bool = False, warmup: bool = False,
-                 role: str = "unified", device=None):
+                 role: str = "unified", device=None, mesh=None):
         self.role = role
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -196,15 +206,33 @@ class ServingEngine:
         self.cfg = cfg
         self.cfg_prefill = self.backend.configure(cfg, PREFILL)
         self.cfg_decode = self.backend.configure(cfg, DECODE)
-        self.params = lm.prepare_params(lm.params_to(params, self.device))
         self.spec = spec
         if spec is not None:
             spec.validate()
             self.draft_pair = make_draft_pair(self.backend, spec.draft_backend,
                                               spec.draft_threshold)
+        n_params = accounting.param_count(lm.trainable(params))
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else sharding.tp_size(mesh)
+        self.group: Optional[sharding.ModelGroup] = None
+        if mesh is not None:
+            if self.tp > 1 and cfg.family != "dense":
+                raise NotImplementedError(
+                    f"tensor-parallel serving takes the dense family; "
+                    f"{cfg.family!r} under tp={self.tp} is queued in "
+                    f"ROADMAP.md (the MoE engine under TP)")
+            draft = self.draft_pair.draft if spec is not None else None
+            self.backend.validate_mesh(cfg, mesh, draft)
+            params = bridge.shard_params(lm.params_to(params, self.device),
+                                         cfg, mesh, self.backend, draft)
+            self.group = sharding.ModelGroup.of(
+                mesh, cfg.d_ff, self.backend.ffn_sizes(cfg, self.tp, draft))
+        self.params = lm.prepare_params(lm.params_to(params, self.device))
+        if spec is not None:
             self.drafter = Drafter(
-                self.draft_pair.draft.configure(cfg, DECODE), spec.k)
-            self.verifier = Verifier(self.cfg_decode)
+                self.draft_pair.draft.configure(cfg, DECODE), spec.k,
+                group=self.group)
+            self.verifier = Verifier(self.cfg_decode, group=self.group)
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.min_prefill_bucket = min_prefill_bucket
@@ -215,7 +243,7 @@ class ServingEngine:
             # enough for a full batch of worst-case requests, + null block
             num_blocks = 1 + max_batch * (-(-max_seq_len // block_size))
         self.kv = PagedKVCache(cfg, num_blocks, block_size,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
         self.table_width = -(-max_seq_len // block_size)
         self.scheduler: Scheduler = get_scheduler(scheduler)
         # observability: metrics registry + span tracing (telemetry=True
@@ -233,13 +261,13 @@ class ServingEngine:
                 attn_backend="cuda" if self.device.type == "cuda"
                 else "plain",
                 scheduler=self.scheduler.name,
-                spec_k=str(0 if spec is None else spec.k), tp="1")
+                spec_k=str(0 if spec is None else spec.k), tp=str(self.tp))
             # arm the sparsity/compute cost model: the decode/prefill
             # programs compute a per-layer (nnz, tile_frac) probe as extra
             # outputs (tokens are bit-identical with or without it); the
-            # count is the trainable tree's, as JAX's (no derived wu_t)
-            telemetry.attach_compute(
-                cfg, accounting.param_count(lm.trainable(self.params)))
+            # count is the whole trainable tree's, as JAX's (no derived
+            # wu_t, every rank's shard)
+            telemetry.attach_compute(cfg, n_params, chips=self.tp)
         self._probe = telemetry is not None
         self.prefilling: List[Request] = []
         self.running: List[Request] = []
@@ -900,11 +928,11 @@ class ServingEngine:
         temps, topks, topps]); outputs (tok, last-position logits[, the
         (3, L) sparsity probe when the engine has telemetry])."""
         params, pools, cfg = self.params, self.kv.pools, self.cfg_decode
-        probe = self._probe
+        probe, group = self._probe, self.group
 
         def fn(bt, sl, toks, *samp):
             out = lm.paged_decode_step(params, pools, bt, sl, toks, cfg,
-                                       collect_aux=probe)
+                                       collect_aux=probe, group=group)
             last = out[0][:, -1]
             tok = _pick(last, greedy, samp)
             return (tok, last, _probe_stack(out[1])) if probe else \
@@ -924,14 +952,14 @@ class ServingEngine:
         Inputs (bt, toks, start, num_new[, keys, temps, topks, topps]);
         outputs (tok, last valid position's logits[, the probe])."""
         params, pools, cfg = self.params, self.kv.pools, self.cfg_prefill
-        probe = self._probe
+        probe, group = self._probe, self.group
 
         def fn(bt, toks, start, num_new, *samp):
             # last_only: the head runs on each row's final valid hidden
             # state only -- never (B, C, V) over the whole chunk
             out = lm.paged_prefill(params, pools, bt, toks, num_new, cfg,
                                    start_lens=start, last_only=True,
-                                   collect_aux=probe)
+                                   collect_aux=probe, group=group)
             last = out[0][:, 0]
             tok = _pick(last, greedy, samp)
             return (tok, last, _probe_stack(out[1])) if probe else \

@@ -9,9 +9,10 @@ with ``spec.build(params, cfg)``, derive a variant with
 
 The field set mirrors the port's ``ServingEngine.__init__`` keyword for
 keyword (a test asserts they cannot drift): the JAX spec's fields without
-``attn_backend`` and ``mesh`` (the port reads the paged KV through one
-path a device, and has no tensor parallelism yet), with ``device``. The
-device defaults to the card, as the engine's does. ``build`` forwards the
+``attn_backend`` (the port reads the paged KV through one path a device),
+with ``device``. The device defaults to the card, as the engine's does;
+``mesh`` (JAX ``engine_spec.py:45``) is a ``DeviceMesh`` from
+``sharding.make_serving_mesh``, None unsharded. ``build`` forwards the
 fields verbatim, so an ``EngineSpec`` never reinterprets a knob.
 """
 from __future__ import annotations
@@ -48,6 +49,7 @@ class EngineSpec:
     warmup: bool = False
     role: str = "unified"
     device: Any = None               # None = the card
+    mesh: Any = None                 # a 1-D "model" DeviceMesh; None = tp 1
 
     def replace(self, **changes) -> "EngineSpec":
         return dataclasses.replace(self, **changes)

@@ -37,6 +37,14 @@ On a CPU engine a program is the eager entry itself, kept under the same
 key in the same cache, so the CPU tests count programs as JAX counts its
 compiles. There is no switch and no fallback: a capture or a replay that
 fails raises.
+
+Under tensor parallelism the entries run NCCL collectives, which the graph
+captures too. NCCL cannot set up a communicator inside a capture; the
+eager run that precedes each capture makes the entry's collectives first
+(and ``ranks.join`` binds the group to its card, which sets the
+communicator up at the join). The collectives a capture makes are counted
+as its kernel launches are (``collectives.CALLS``, taken out at capture,
+added per replay).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import build
 
 ENTRIES = ("decode", "prefill", "draft", "verify")
@@ -109,7 +118,9 @@ class Program:
             fn(*self.inputs)
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with build.captured_launches() as self.launches:
+        with build.captured_launches() as self.launches, \
+                build.captured_launches(collectives.CALLS) as \
+                self.collectives:
             with torch.cuda.graph(graph, pool=pool, stream=side,
                                   capture_error_mode="relaxed"):
                 self.outputs = fn(*self.inputs)
@@ -147,6 +158,7 @@ class Program:
             self.inputs[i].copy_(t)
         self.graph.replay()
         build.add_launches(self.launches)
+        build.add_launches(self.collectives, collectives.CALLS)
         return self.outputs
 
 

@@ -23,6 +23,12 @@ Bookkeeping is host-side Python; only the pool tensors live on the device.
 The model updates the pools in place, so the cache keeps one set of pool
 tensors for its whole life; the copy-on-write block copy is an in-place
 torch index copy.
+
+Under tensor parallelism (``mesh=``, a 1-D ``model`` mesh) each rank's
+pools hold its share of the kv heads (``sharding.cache_spec``'s ``kpool``
+rule); the block axis stays whole. Every rank runs the same allocator on
+the same calls, so the tables and the prefix-cache hashes are the same on
+every rank, and a copy-on-write copies the block in each rank's own pool.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 
 NULL_BLOCK = 0
@@ -56,7 +63,7 @@ class PagedKVCache:
     + content-hash prefix cache."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 device=None):
+                 device=None, mesh=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         if block_size < 1:
@@ -64,8 +71,12 @@ class PagedKVCache:
         self.cfg = cfg
         self.num_blocks = num_blocks
         self.block_size = block_size
+        kv_heads = cfg.num_kv_heads
+        if mesh is not None and sharding.make_paged_pool_shardings(
+                cfg, mesh, num_blocks, block_size)["kpool"][3] == "model":
+            kv_heads //= sharding.tp_size(mesh)
         self.pools = lm.init_paged_cache(cfg, num_blocks, block_size,
-                                         device=device)
+                                         device=device, kv_heads=kv_heads)
         # LIFO free list: recently-freed blocks are reused first (locality)
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self._tables: Dict[int, List[int]] = {}

@@ -27,9 +27,10 @@ from repro_torch.serving import sampling as sampling_mod
 class Drafter:
     """Runs the k-token draft loop under the draft backend's config."""
 
-    def __init__(self, cfg_draft: ModelConfig, k: int):
+    def __init__(self, cfg_draft: ModelConfig, k: int, group=None):
         self.cfg = cfg_draft
         self.k = k
+        self.group = group           # the model axis under TP, else None
 
     def draft(self, params, pools: Dict, bt: torch.Tensor, sl0: torch.Tensor,
               tok0: torch.Tensor, draft_len: torch.Tensor, keys: torch.Tensor,
@@ -47,7 +48,7 @@ class Drafter:
         for j in range(self.k):
             out, pools = lm.paged_decode_step(
                 params, pools, bt, sl0 + j, tok, self.cfg,
-                write_valid=j < draft_len)
+                write_valid=j < draft_len, group=self.group)
             last = out[:, -1]
             nxt = torch.argmax(last, dim=-1) if greedy else \
                 sampling_mod.sample_tokens(last, keys[j], temps, topks, topps)

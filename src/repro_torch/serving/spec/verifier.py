@@ -39,8 +39,9 @@ from repro_torch.serving.request import Request
 class Verifier:
     """One batched trusted-path forward over drafted chunks + acceptance."""
 
-    def __init__(self, cfg_verify: ModelConfig):
+    def __init__(self, cfg_verify: ModelConfig, group=None):
         self.cfg = cfg_verify
+        self.group = group           # the model axis under TP, else None
 
     def verify(self, params, pools: Dict, bt: torch.Tensor,
                start: torch.Tensor, num_new: torch.Tensor, toks: torch.Tensor
@@ -50,7 +51,7 @@ class Verifier:
         1; 0 for padded rows). Returns (float32 logits (B, k+1, V), pools);
         row j scores the token after position start + j."""
         logits, pools = lm.paged_verify(params, pools, bt, start, num_new,
-                                        toks, self.cfg)
+                                        toks, self.cfg, group=self.group)
         return logits.float(), pools
 
     @staticmethod

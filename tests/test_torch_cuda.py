@@ -1261,3 +1261,14 @@ def test_remat_full_equals_none_with_a_lower_peak(card):
     for a, b in zip(g0, g1):
         assert torch.equal(a, b)
     assert p1 < p0, (p1, p0)
+
+
+def test_serve_tp_beyond_the_cards_refuses(card):
+    """--tp past the visible cards exits non-zero and names the count: no
+    rank falls back to gloo, to the CPU or to fewer ranks."""
+    from repro_torch.launch import serve
+    n = torch.cuda.device_count()
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--reduced", "--backend", "dense", "--tp", str(n + 1)])
+    assert f"needs {n + 1} cards" in str(e.value.code) and \
+        f"{n} visible" in str(e.value.code)

@@ -699,17 +699,13 @@ def test_coordinator_rejects_pipeline_mesh_and_scheduler_instance():
             Coord(params, cfg, spec=Spec(**_kw(pipeline=True), **extra))
         with pytest.raises(ValueError, match="policy name"):
             Coord(params, cfg, spec=Spec(**_kw(scheduler=Prio()), **extra))
-    # the port's EngineSpec has no mesh field (no tensor parallelism yet);
-    # a spec that carries one is refused with JAX's error
-    with pytest.raises(TypeError):
-        EngineSpec(mesh=object())
-
-    @dataclasses.dataclass(frozen=True)
-    class MeshSpec(EngineSpec):
-        mesh: object = None
-    with pytest.raises(NotImplementedError, match="unsharded"):
-        DisaggCoordinator(tp, tcfg, spec=MeshSpec(**_kw(), device="cpu",
-                                                  mesh=object()))
+    # a spec that carries a mesh (EngineSpec.mesh, tensor-parallel
+    # serving) is refused with JAX's error, on both sides
+    for Coord, Spec, params, cfg, extra in (
+            (JaxCoordinator, JaxSpec, jp, jcfg, {}),
+            (DisaggCoordinator, EngineSpec, tp, tcfg, {"device": "cpu"})):
+        with pytest.raises(NotImplementedError, match="unsharded"):
+            Coord(params, cfg, spec=Spec(**_kw(), mesh=object(), **extra))
 
 
 def test_engine_resume_interface():

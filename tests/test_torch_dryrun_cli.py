@@ -43,8 +43,8 @@ def test_multi_pod_waits_for_the_mesh():
     r = _cli("repro_torch.launch.dryrun", "--arch", "paper-0.5b", "--shape",
              "train_4k", "--multi-pod", timeout=120)
     assert r.returncode != 0
-    assert "ROADMAP.md queue 1 item 5" in r.stderr
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert "ROADMAP.md queue 1 item 6.2" in r.stderr
+    with pytest.raises(NotImplementedError, match="item 6.2"):
         dryrun.run_cell("paper-0.5b", "train_4k", multi_pod=True)
 
 

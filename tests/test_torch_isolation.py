@@ -53,12 +53,21 @@ def test_walk_covers_the_package():
             "llama4_scout_17b_a16e.py", "mamba2.py", "rwkv6.py",
             "zamba2_1p2b.py", "rwkv6_7b.py", "whisper_large_v3.py",
             "llama_3p2_vision_11b.py", "dryrun.py", "dryrun_all.py",
-            "specs.py", "op_analysis.py"} <= names
+            "specs.py", "op_analysis.py", "sharding.py", "collectives.py",
+            "ranks.py", "mesh.py"} <= names
+    walked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/launch/mesh.py"} <= walked
 
 
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _never_called(rank, device):
+    raise AssertionError("a rank ran without a card")
 
 
 def test_entry_points_need_a_card_unless_cpu(no_card):
@@ -100,6 +109,14 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
         EngineSpec(block_size=4, max_seq_len=16).build(params, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--http", "--port", "0"])
+    from repro_torch.distributed import ranks
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.spawn(_never_called, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.in_one_rank(_never_called)
+    from repro_torch.distributed.sharding import make_serving_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_serving_mesh(1)
     engine = ServingEngine(params, cfg, block_size=4, max_seq_len=16,
                            device="cpu")
     assert engine.generate([[1, 2, 3]], max_tokens=2)[0].token_ids
