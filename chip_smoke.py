@@ -233,6 +233,19 @@ JAX package) and runs these phases, each printing one JSON line:
                  busy share of a profiled step, beside the same steps with
                  the dense FFN; then a float32 gradient check of one hybrid
                  FFN layer against autograd of the dense formula
+  7m. train_mesh -- the train phase's hybrid run again (its weights,
+                 batches, steps and TrainConfig) through the mesh train
+                 step (``make_train_step(..., mesh=)``) on a one-rank NCCL
+                 mesh (pod 1, data 1, model 1; ``launch/mesh.py``): K7, K8
+                 and K9 launched, losses and grad norms within BF16_TOL of
+                 the train phase's (expected bitwise; the largest
+                 difference printed); then train_moe's full-width mixtral
+                 layer (hybrid, TRAIN_ALIVE gate columns an expert) on
+                 MESH_MOE_ROWS tokens through ``moe_apply_sorted`` at data
+                 1: with a capacity at which nothing can drop against the
+                 one-hot dispatch within BF16_TOL, and at the config's
+                 capacity 1.25 with its ``moe_drop_frac``; the card, its
+                 power limit and the phase's seconds
   7a. dryrun  -- the port's dry run (``launch/dryrun.py``, meta tensors,
                  each kernel its shape function, no card) of the train
                  phase's hybrid and dense steps: each predicted peak beside
@@ -316,7 +329,8 @@ JAX package) and runs these phases, each printing one JSON line:
      spec, pipelined, sharded (serve_tp), HTTP, disaggregated, olmo
      serve, MoE serve, dense
      configs' serve (gather), zamba2/rwkv6 serve (gather), whisper/vision
-     serve (gather), hybrid train, remat, paper-1.5b, olmo train, MoE
+     serve (gather), hybrid train, mesh train (its steps and sorted
+     dispatches), remat, paper-1.5b, olmo train, MoE
      train, dense configs' train, zamba2/rwkv6 train and whisper/vision
      train runs; a
      recomputed layer's kernels count again), then the
@@ -333,7 +347,8 @@ twell_down_proj, paged_decode_attention, paged_chunk_attention,
 flash_attention, hybrid_to_dense, dense_to_hybrid, comma-separated)
 runs only phases 1-3 for those kernels on the port under DIR (e.g. an
 earlier version unpacked under ``build/``) and prints their table, without
-the last line. ``--train-phases train`` (or any of train, dryrun, remat,
+the last line. ``--train-phases train`` (or any of train, train_mesh,
+dryrun, remat,
 train_1p5b, train_olmo, train_moe, train_dense, train_ssm, train_xattn
 and check_train,
 comma-separated) runs
@@ -413,7 +428,7 @@ def parse_args(argv):
                          "print their table (no last line); for A/B timing")
     ap.add_argument("--train-phases", default=None,
                     help="comma-separated training phases (train, "
-                         "dryrun, remat, "
+                         "train_mesh (runs train first), dryrun, remat, "
                          "train_1p5b, train_olmo, train_moe, train_dense, "
                          "train_ssm, train_xattn, check_train): "
                          "run only the device and build phases and those, "
@@ -459,6 +474,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False         # run in full f32
 
     smi = phase_device(torch)
+    CARD["smi"] = smi
     phase_build()
     if args.k1_plans:
         phase_k1_plans(torch)
@@ -522,6 +538,7 @@ def main(argv=None) -> int:
     serve_ssm = timed("serve_ssm", phase_serve_ssm)
     serve_xattn = timed("serve_xattn", phase_serve_xattn)
     train = timed("train", phase_train)
+    train_mesh = timed("train_mesh", phase_train_mesh)
     timed("dryrun", phase_dryrun)
     remat = timed("remat", phase_remat)
     p15 = timed("train_1p5b", phase_train_1p5b)
@@ -540,7 +557,8 @@ def main(argv=None) -> int:
                             (serve, spec, pipe, serve_tp, http, disagg,
                              olmo,
                              serve_moe, serve_dense, serve_ssm,
-                             serve_xattn, train, remat, p15, olmo_train,
+                             serve_xattn, train, train_mesh, remat, p15,
+                             olmo_train,
                              train_moe, train_dense, train_ssm,
                              train_xattn))
     print(smi, flush=True)
@@ -4442,6 +4460,138 @@ def phase_train(torch):
     return hybrid
 
 
+MESH_MOE_ROWS = (2, 1024)          # tokens through the sorted dispatch
+CARD = {}                          # the nvidia-smi line, for the phases
+
+
+def mesh_train_run(torch, rank, dev):
+    """The train phase's hybrid run through the mesh step on a one-rank
+    NCCL mesh (pod 1, data 1, model 1): the same weights, TrainConfig and
+    batches, the launch counts over exactly the steps."""
+    from repro_torch import training
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
+    import torch.distributed as dist
+    mesh = mesh_mod.make_train_mesh((1, 1, 1), ("pod", "data", "model"),
+                                    dev)
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    cfg = train_config("hybrid")
+    params = train_setup(torch, cfg)
+    opt = adamw.init(params)
+    step = training.make_train_step(cfg, TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS + 1),
+        mesh=mesh)
+    batches = train_batches(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_STEPS + 1)
+    ops.HybridOverflowLog.reset()
+    ops.reset_launch_counts()
+    losses, gnorms, step_ms = [], [], []
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(metrics["grad_norm"]))
+    res = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": dist.get_backend(), "losses": losses,
+           "grad_norms": gnorms, "step_ms": step_ms,
+           "launches": ops.launch_counts(),
+           "hybrid_overflow": ops.HybridOverflowLog.seen()}
+    del params, opt, step
+    return res
+
+
+def mesh_moe_run(torch, rank, dev):
+    """train_moe's full-width mixtral layer (hybrid FFN, TRAIN_ALIVE gate
+    columns an expert, bf16) on MESH_MOE_ROWS tokens: moe_apply_sorted at
+    data 1 with a capacity at which nothing can drop (C = T) against the
+    one-hot dispatch, then at the config's capacity. Launches count the
+    sorted dispatches only."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm, moe
+    mesh = mesh_mod.make_train_mesh((1, 1, 1), ("pod", "data", "model"),
+                                    dev)
+    cfg, params = moe_model(torch, "mixtral-8x22b", 1, "hybrid",
+                            alive=TRAIN_ALIVE)
+    layer = lm._layer(params["blocks"]["moe"], 0)
+    layer = {"router": layer["router"], "experts": {
+        k: v for k, v in layer["experts"].items() if k != "wu_t"}}
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn((*MESH_MOE_ROWS, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    launches = {}
+    out = {}
+    no_drop = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    with torch.no_grad():
+        for name, c in (("no_drop", no_drop), ("config", cfg)):
+            ops.reset_launch_counts()
+            y, aux = moe.moe_apply_sorted(layer, x, c, c.sparsity, True,
+                                          mesh, ("pod", "data"))
+            torch.cuda.synchronize()
+            for k, n in ops.launch_counts().items():
+                launches[k] = launches.get(k, 0) + n
+            out[name] = (y, float(aux["moe_drop_frac"]))
+        ref, _ = moe.moe_apply_onehot(layer, x, cfg, cfg.sparsity, True)
+    y, no_drop_frac = out.pop("no_drop")
+    err, ok = close_err(torch, y, ref)
+    del layer, x, y, ref
+    return {"tokens": list(MESH_MOE_ROWS), "experts": cfg.num_experts,
+            "top_k": cfg.top_k,
+            "no_drop_capacity_factor": no_drop.capacity_factor,
+            "no_drop_frac": no_drop_frac, "max_abs_err_vs_onehot": err,
+            "within_tol": ok, "capacity_factor": cfg.capacity_factor,
+            "moe_drop_frac": out["config"][1], "launches": launches}
+
+
+def phase_train_mesh(torch):
+    """7m: the train phase's hybrid run through the mesh step on a
+    one-rank NCCL mesh, held against the train phase's losses and grad
+    norms, and the sorted MoE dispatch at full width (see the module
+    docstring). Runs the train phase first if it has not run."""
+    from repro_torch.distributed import ranks
+    t0 = time.perf_counter()
+    if "hybrid" not in TRAIN_PEAKS:
+        TRAIN_PEAKS["hybrid"] = train_run(torch, "hybrid")
+    ref = TRAIN_PEAKS["hybrid"]
+    run = ranks.in_one_rank(lambda r, d: mesh_train_run(torch, r, d), "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = {key: max(abs(a - b) for a, b in zip(run[key], ref[key]))
+             for key in ("losses", "grad_norms")}
+    bitwise = all(run[k] == ref[k] for k in ("losses", "grad_norms"))
+    moe_res = ranks.in_one_rank(lambda r, d: mesh_moe_run(torch, r, d),
+                                "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"phase": "train_mesh", "card": CARD.get("smi"),
+           "arch": "paper-0.5b", "impl": "hybrid", **run,
+           "train_losses": ref["losses"], "train_grad_norms":
+           ref["grad_norms"], "train_step_ms": ref["step_ms"],
+           "max_abs_diff": diffs, "bitwise": bitwise,
+           "tolerance": BF16_TOL, "moe": moe_res,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit(res)
+    missing = [k for k in TRAIN_KERNELS if run["launches"].get(k, 0) == 0]
+    assert not missing, f"the mesh step never launched {missing}"
+    assert not run["hybrid_overflow"], "the mesh step's backup overflowed"
+    for key, d in diffs.items():
+        worst = max(abs(v) for v in ref[key])
+        assert d <= BF16_TOL * max(1.0, worst), \
+            f"mesh step {key} off the train phase's by {d}"
+    assert moe_res["within_tol"], \
+        f"sorted MoE off the one-hot by {moe_res['max_abs_err_vs_onehot']}"
+    assert moe_res["no_drop_frac"] == 0.0
+    launches = dict(run["launches"])
+    for k, n in moe_res["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    return {"launches": launches}
+
+
 def grad_check(torch, m=4096, k=2048, n=5632, seed=SEED + 3, gated=True,
                act="relu"):
     """One full-width FFN layer in float32 (M rows, paper-0.5b's K 2048 and
@@ -5330,7 +5480,8 @@ SERVE_PHASES = {"disagg": phase_disagg, "serve_tp": serve_tp_alone,
                 "serve_dense": lambda torch, *_: phase_serve_dense(torch),
                 "serve_ssm": lambda torch, *_: phase_serve_ssm(torch),
                 "serve_xattn": lambda torch, *_: phase_serve_xattn(torch)}
-TRAIN_PHASES = {"train": phase_train, "dryrun": phase_dryrun,
+TRAIN_PHASES = {"train": phase_train, "train_mesh": phase_train_mesh,
+                "dryrun": phase_dryrun,
                 "remat": phase_remat,
                 "train_1p5b": phase_train_1p5b,
                 "train_olmo": phase_train_olmo,

@@ -14,7 +14,10 @@ experts, zamba2's ``shared_attn.ffn``, vision's self and cross blocks) is
 added by ``from_numpy`` and dropped by ``to_numpy`` and ``lm.trainable``.
 The AdamW state (``step``, ``m``, ``v``) crosses the same way
 (``opt_state_from_numpy`` / ``opt_state_to_numpy``). ``shard_params``
-cuts the whole tree into one rank's shards for tensor-parallel serving.
+cuts the whole tree into one rank's shards for tensor-parallel serving;
+``shard_train_state`` cuts the trainable tree and its AdamW state onto a
+training mesh (``lm.train_specs``, FSDP included), and ``gather_tree``
+puts a sharded tree back together on every rank.
 """
 from __future__ import annotations
 
@@ -100,3 +103,35 @@ def opt_state_to_numpy(state: adamw.AdamWState):
     """The port's AdamW state -> (step, m, v) as numpy, the JAX layout."""
     return (np.asarray(int(state.step), np.int32),
             _tree_to_numpy(state.m), _tree_to_numpy(state.v))
+
+
+def shard_train_state(params: Dict[str, Any], state, cfg, mesh,
+                      device="cpu"):
+    """A JAX parameter tree and ``AdamWState`` (numpy leaves, the
+    trainable tree) -> this rank's shards on the training ``mesh``: every
+    leaf, and ``m`` and ``v`` alike, cut by ``lm.train_specs`` (JAX's
+    ``AdamWState(P(), pspecs, pspecs)``)."""
+    from repro_torch.distributed import sharding
+    specs = lm.train_specs(cfg, mesh)
+    full = lm.trainable(from_numpy(params, device))
+    opt = opt_state_from_numpy(state, device)
+    return (sharding.shard_tree(full, specs, mesh),
+            adamw.AdamWState(opt.step, sharding.shard_tree(opt.m, specs, mesh),
+                             sharding.shard_tree(opt.v, specs, mesh)))
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """A tree of this rank's shards (nested dicts, tuples, NamedTuples)
+    -> the whole leaves on every rank: each sharded dim all-gathered over
+    its axes (``specs`` one spec a leaf, as ``make_param_specs`` gives)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.tree import leaves, leaves_like, unflatten
+
+    def whole(t, spec):
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                t = collectives.all_gather_dim(t, mesh.axis(*axes), dim)
+        return t
+    return unflatten(tree, [whole(t, sp) for t, sp in
+                            zip(leaves(tree), leaves_like(specs, tree))])

@@ -16,6 +16,14 @@ the port and the other way round.
 A bfloat16 leaf is stored as the JAX package stores it: its 2-byte bit
 pattern, which numpy saves as the opaque dtype ``V2``; reading one back
 reinterprets the bits.
+
+On a training mesh (``mesh``, a ``sharding.Mesh``, with ``specs``, one
+spec a leaf) every rank calls ``save``: the leaves are gathered whole
+(``bridge.gather_tree``) and rank 0 writes them in the same layout, so the
+JAX package's manager reads the checkpoint. ``restore`` and
+``restore_latest`` slice each whole leaf onto the current mesh by
+``specs`` (JAX's elastic restore, ``repro/checkpoint/ckpt.py:104-126``):
+another mesh shape, or none.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, unflatten
+from repro_torch.tree import leaves_like, leaves_with_path, unflatten
 
 
 def _to_host(t) -> np.ndarray:
@@ -59,10 +67,18 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             mesh=None, specs: Any = None):
         """tree: nested dicts/tuples/NamedTuples of tensors or arrays;
-        extra: JSON-serializable."""
+        extra: JSON-serializable. With ``mesh``: this rank's shards, cut
+        by ``specs``; every rank calls it, rank 0 writes."""
         self.wait()                       # one in-flight save at a time
+        if mesh is not None:
+            from repro_torch import bridge
+            import torch.distributed as dist
+            tree = bridge.gather_tree(tree, specs, mesh)
+            if dist.get_rank() != 0:
+                return
         flat = list(leaves_with_path(tree))
         host = [_to_host(x) for _, x in flat]
         manifest = {"step": int(step), "n_leaves": len(host),
@@ -115,9 +131,11 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Tuple[Any, Dict]:
+    def restore(self, step: int, like: Any, mesh=None, specs: Any = None
+                ) -> Tuple[Any, Dict]:
         """like: a tree of tensors giving the structure, each leaf's dtype
-        and device. Returns (tree, extra)."""
+        and device (and, with ``mesh``, this rank's shape of it under
+        ``specs``). Returns (tree, extra)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -127,18 +145,21 @@ class CheckpointManager:
                              f"{manifest['n_leaves']} vs {len(flat)}")
         with np.load(os.path.join(d, "arrays.npz")) as z:
             host = [z[str(i)] for i in range(len(flat))]
-        for name, a, leaf in zip(manifest["names"], host, flat):
-            if a.shape != tuple(leaf.shape):
-                raise ValueError(f"{name}: checkpoint shape {a.shape} vs "
-                                 f"{tuple(leaf.shape)}")
-        return (unflatten(like, [_from_host(a, leaf)
-                                 for a, leaf in zip(host, flat)]),
-                manifest["extra"])
+        out = [_from_host(a, leaf) for a, leaf in zip(host, flat)]
+        if mesh is not None:
+            from repro_torch.distributed import sharding
+            out = [sharding.shard_tensor(t, sp, mesh) for t, sp in
+                   zip(out, leaves_like(specs, like))]
+        for name, t, leaf in zip(manifest["names"], out, flat):
+            if t.shape != leaf.shape:
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
+        return unflatten(like, out), manifest["extra"]
 
-    def restore_latest(self, like: Any
+    def restore_latest(self, like: Any, mesh=None, specs: Any = None
                        ) -> Optional[Tuple[int, Any, Dict]]:
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like)
+        tree, extra = self.restore(step, like, mesh, specs)
         return step, tree, extra

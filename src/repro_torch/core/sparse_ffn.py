@@ -21,6 +21,18 @@ Ports ``repro/core/sparse_ffn.py`` for serving (``SparsityConfig.ffn_impl``):
               products run through kernels K8 and K9 on the card. This is
               the peak-memory reduction of Table 1.
 
+Training on a mesh (``apply``'s ``group`` a training ``ModelGroup``,
+``dp`` the data-parallel axes; ``dense`` and ``hybrid``): ``W_g`` and
+``W_u`` split by columns, ``W_d`` by rows, evenly, as JAX's
+``param_spec`` splits them (``put(-1, "model")``). Each rank runs its
+share (K8 and K9 on its d_ff shard for ``hybrid``), packing its own
+columns; y's partial sums are reduced over the ranks
+(``collectives.reduce_out``, after ``copy_in`` on x). The aux is JAX's
+global statistics: the L1 term summed over the ranks by ``reduce_out``
+and meaned over dp, ``nnz`` per row summed over the ranks (the serving
+probe's (row, tile) cells for ``dense``), ``neuron_active`` concatenated
+over the ranks and ORed over dp, ``tile_frac`` over the global tiles.
+
 ``apply`` returns ``(y, aux)``. JAX always builds the aux statistics and
 lets XLA drop what ``jit`` does not use; eager PyTorch would compute them
 all, and the gated ``gather`` aux gathers an (M, N/C, K) slice of ``W_u``
@@ -115,13 +127,16 @@ def _aux_from_h(h: torch.Tensor, tile: int, collect_aux, group=None
     }
 
 
-def _dense_apply(params, x, scfg: SparsityConfig, gated: bool,
-                 collect_aux: bool, group=None):
+def _dense_h(params, x, scfg: SparsityConfig, gated: bool) -> torch.Tensor:
     act = activation(scfg.activation if scfg.enabled else "silu")
     if gated:
-        h = (x @ params["wu"]) * act(x @ params["wg"])
-    else:
-        h = act(x @ params["wu"])
+        return (x @ params["wu"]) * act(x @ params["wg"])
+    return act(x @ params["wu"])
+
+
+def _dense_apply(params, x, scfg: SparsityConfig, gated: bool,
+                 collect_aux: bool, group=None):
+    h = _dense_h(params, x, scfg, gated)
     y = h @ params["wd"]
     return y, _aux_from_h(h, scfg.twell_tile, collect_aux, group)
 
@@ -371,8 +386,23 @@ class _HybridNongated(torch.autograd.Function):
                 gwd.to(wd.dtype), None, None, None)
 
 
-def _hybrid_apply(params, x, scfg: SparsityConfig, gated: bool,
-                  collect_aux: bool):
+# --------------------------------------------------------------------------- #
+# training: a rank's share of the FFN (all of it off a mesh) and the aux
+# --------------------------------------------------------------------------- #
+
+def train_shard(params, x, scfg: SparsityConfig, gated: bool, impl: str):
+    """The training FFN over this rank's columns of d_ff (all of them off
+    the model axis), with no collective: (y's partial sum, statistics:
+    ``l1`` mean |h| over these columns, ``n`` their count, and ``mask``
+    (rows, n) for ``dense`` or ``row_nnz``/``active`` for ``hybrid``).
+    ``train_aux`` makes the aux of them."""
+    if impl == "dense":
+        h = _dense_h(params, x, scfg, gated)
+        return h @ params["wd"], {"l1": l1_loss(h), "mask": h != 0,
+                                  "n": h.shape[-1]}
+    if impl != "hybrid":
+        raise NotImplementedError(
+            f"training on a mesh runs ffn_impl dense or hybrid, not {impl!r}")
     md = max(1, int(x.shape[0] * scfg.dense_backup_frac))
     if gated:
         y, l1, row_nnz, active = _HybridGated.apply(
@@ -382,18 +412,62 @@ def _hybrid_apply(params, x, scfg: SparsityConfig, gated: bool,
         y, l1, row_nnz, active = _HybridNongated.apply(
             x, params["wu"], params["wd"], scfg.ell_width, md,
             scfg.activation)
-    if not collect_aux:
-        return y, None
-    aux = {
-        "l1": l1,
-        "nnz_mean": row_nnz.mean(),
-        "nnz_max": row_nnz.max().to(torch.int32),
-        "neuron_active": active > 0,
-        # the packed stats are per neuron, not per (row x tile): the batch-
-        # level tile occupancy, as the JAX package reports it
-        "tile_frac": _tile_frac((active > 0)[None, :], scfg.twell_tile),
-    }
-    return y, aux
+    return y, {"l1": l1, "row_nnz": row_nnz, "active": active > 0,
+               "n": params["wd"].shape[-2]}
+
+
+def train_aux(st: Dict, scfg: SparsityConfig, group, dp
+              ) -> Dict[str, torch.Tensor]:
+    """``train_shard``'s statistics as JAX's aux over the whole FFN (its
+    columns on every rank of ``group``, the model axis, or None) and the
+    whole batch (its rows on every rank of ``dp``, or None)."""
+    d_ff = st["n"] if group is None else group.d_ff
+    l1 = collectives.pmean(collectives.reduce_out(
+        st["l1"] * (st["n"] / d_ff), group), dp)
+    if "mask" in st:
+        cells = collectives.psum(
+            _mask_cells(st["mask"], scfg.twell_tile, group), group)
+        nnz, active = cells.sum(dim=-1), st["mask"].any(dim=0)
+    else:
+        nnz, active = collectives.psum(st["row_nnz"], group), st["active"]
+    if group is not None:
+        active = collectives.all_gather_last(active.to(torch.int32),
+                                             group) > 0
+    active = collectives.pany(active, dp)
+    # the packed stats are per neuron, not per (row x tile): the hybrid
+    # FFN reports the batch-level tile occupancy, as the JAX package does
+    tile_frac = collectives.pmean((cells > 0).float().mean(), dp) \
+        if "mask" in st else _tile_frac(active[None, :], scfg.twell_tile)
+    return {"l1": l1,
+            "nnz_mean": collectives.pmean(nnz.float().mean(), dp),
+            "nnz_max": collectives.pmax(nnz.max().to(torch.int32), dp),
+            "neuron_active": active, "tile_frac": tile_frac}
+
+
+def _own_columns(params, group):
+    """``param_spec`` splits ``W_g`` only where the heads divide the model
+    axis (its ``w[rg]`` rule), ``W_u`` and ``W_d`` wherever d_ff does: a
+    whole ``W_g`` beside split ones gives this rank its columns, entering
+    through ``copy_in`` so that its gradient sums the ranks' columns."""
+    n = params["wd"].shape[-2]
+    return {k: collectives.copy_in(w, group).narrow(-1, group.ffn_start, n)
+            if k in ("wu", "wg") and w.shape[-1] != n else w
+            for k, w in params.items()}
+
+
+def _train_apply(params, x, scfg, gated, impl, collect_aux, group=None,
+                 dp=None):
+    if group is not None:
+        params = _own_columns(params, group)
+    y, st = train_shard(params, collectives.copy_in(x, group), scfg, gated,
+                        impl)
+    y = collectives.reduce_out(y, group)
+    return y, (train_aux(st, scfg, group, dp) if collect_aux else None)
+
+
+def _hybrid_apply(params, x, scfg: SparsityConfig, gated: bool,
+                  collect_aux: bool):
+    return _train_apply(params, x, scfg, gated, "hybrid", collect_aux)
 
 
 _IMPLS = {
@@ -406,7 +480,7 @@ _IMPLS = {
 
 def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
           scfg: SparsityConfig, gated: bool,
-          collect_aux: Union[bool, str] = False, group=None
+          collect_aux: Union[bool, str] = False, group=None, dp=None
           ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (..., d_model) -> (..., d_model), plus sparsity aux: the whole
     dict (``collect_aux=True``), ``nnz_mean`` and ``tile_frac`` only
@@ -416,20 +490,26 @@ def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     serving only) the weights are this rank's share of the hidden dim, in
     Megatron's layout: ``wu``/``wg`` its columns, ``wd`` its rows. The
     kernels run on the shard and the partial y is summed over the ranks;
-    the probe counts every rank's columns."""
+    the probe counts every rank's columns. A training group
+    (``ModelGroup.train``) or ``dp`` (the data-parallel axes, an
+    ``AxisGroup``) takes training's path on a mesh (``train_shard``,
+    ``train_aux``): collectives with a backward and global statistics."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     impl = scfg.ffn_impl if scfg.enabled else "dense"
     if impl not in _IMPLS:
         raise NotImplementedError(
             f"ffn_impl {impl!r} is not ported yet (port has {sorted(_IMPLS)})")
-    if group is None:
+    if group is not None and group.train or dp is not None:
+        y, aux = _train_apply(params, x2, scfg, gated, impl,
+                              bool(collect_aux), group, dp)
+    elif group is None:
         y, aux = _IMPLS[impl](params, x2, scfg, gated, collect_aux)
     else:
         if impl == "hybrid" or collect_aux not in (False, PROBE):
             raise NotImplementedError(
-                "the FFN under tensor parallelism serves only (training on "
-                "a mesh is queued in ROADMAP.md)")
+                "a serving group runs the inference FFN with the probe; "
+                "training takes a training group (sharding.Mesh.model)")
         y, aux = _IMPLS[impl](params, x2, scfg, gated, collect_aux, group)
         collectives.all_reduce(y, group)
     return y.reshape(*lead, -1), aux

@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 from typing import Any, Callable, List, Sequence
 
@@ -46,10 +47,12 @@ def join(rank: int, world: int, device, store_path: str) -> None:
 
 
 def _rank_main(rank: int, fn: Callable, world: int, device: str,
-               workdir: str, args: Sequence[Any]) -> None:
+               workdir: str) -> None:
     dev = rank_device(device, rank)
     if dev.type == "cpu":
         torch.set_num_threads(1)     # the ranks share the host's cores
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     join(rank, world, dev, os.path.join(workdir, "store"))
     try:
         out = fn(rank, dev, *args)
@@ -57,6 +60,12 @@ def _rank_main(rank: int, fn: Callable, world: int, device: str,
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+    # a finished rank leaves without the interpreter's teardown: torch's
+    # registries still hold gloo devices whose threads raced the static
+    # destructors there and aborted a rank now and then under load
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def in_one_rank(fn: Callable, device: device_mod.DeviceLike = None,
@@ -82,8 +91,8 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
     joined to one process group; returns the ranks' results in rank order.
     ``device`` None means the cards (rank ``r`` on card ``r``); the CPU
     only when asked for. ``fn`` and ``args`` are pickled (``fn`` by its
-    import path); a rank that raises fails the whole call with its
-    traceback."""
+    import path, ``args`` to a file each rank reads); a rank that raises
+    fails the whole call with its traceback."""
     device = device_mod.resolve(device).type
     if device == "cuda" and world > torch.cuda.device_count():
         raise ValueError(f"{world} ranks need {world} cards; "
@@ -91,8 +100,12 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
     import torch.multiprocessing as mp
     workdir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     try:
-        mp.start_processes(_rank_main, args=(fn, world, device, workdir,
-                                             tuple(args)),
+        # the arguments go through a file: a start argument larger than a
+        # pipe's buffer would hold each process's start until the one
+        # before it has imported its modules
+        with open(os.path.join(workdir, "args.pkl"), "wb") as f:
+            pickle.dump(tuple(args), f)
+        mp.start_processes(_rank_main, args=(fn, world, device, workdir),
                            nprocs=world, join=True, start_method="spawn")
         outs = []
         for r in range(world):

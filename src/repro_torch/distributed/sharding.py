@@ -17,22 +17,27 @@ holds them against it on all 12 configs):
   its kv-head axis.
 
 A spec is a plain tuple, one entry a dim: an axis name, a tuple of names
-or None (``tuple(PartitionSpec)`` on the JAX side). A mesh is a
-``torch.distributed.device_mesh.DeviceMesh`` (``mesh_dim_names``,
-``shape``, ``get_group``); ``AbstractMesh`` gives the same two attributes
-without processes, for the rules alone. The FSDP, ``data`` and ``pod``
-rules are pure functions here; only tensor-parallel serving applies specs
-to tensors yet (``shard_tensor``, ``bridge.shard_params``).
+or None (``tuple(PartitionSpec)`` on the JAX side). A mesh is what the
+rules read of it (``mesh_dim_names``, ``shape``): a
+``torch.distributed.device_mesh.DeviceMesh`` (serving's 1-D model mesh),
+a ``Mesh`` (training's, up to three axes, with a process group for every
+set of its axes), or ``AbstractMesh`` without processes, for the rules
+alone. Tensor-parallel serving applies the specs with ``fsdp=False``
+(``bridge.shard_params``); training applies them whole, FSDP included, to
+the parameters and to AdamW's ``m`` and ``v`` (``shard_tree``,
+``bridge.shard_train_state``).
 
 The port's collectives are explicit (``collectives.py``), so the JAX
 package's GSPMD helpers have no counterpart: ``current_mesh``,
 ``shard_act``, ``named``, ``replicated`` and ``serving_jit_shardings``.
 Where JAX constrains an activation, the port's layer runs the collective
-itself, on the ``ModelGroup`` its caller passes.
+itself, on the ``ModelGroup`` its caller passes (serving), or on the
+``Mesh`` the train step passes down (training).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -271,6 +276,14 @@ def ffn_split(d_ff: int, tp: int, tile: int = 0) -> Tuple[int, ...]:
     return tuple((q + (i < r)) * tile for i in range(tp))
 
 
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Each leaf of a nested dict cut by its spec (``make_param_specs``'s
+    tree) to this rank's slice."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_tensor(tree, specs, mesh)
+
+
 def _coord(mesh, axes: Sequence[str], coords: Optional[Dict[str, int]]
            ) -> Tuple[int, int]:
     """(this rank's index, the count) over ``axes``, the first axis
@@ -313,18 +326,122 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh,
 
 
 @dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One or more mesh axes as a collective sees them: their process
+    group, this rank's index over them (the first axis major) and the
+    count."""
+
+    group: Any
+    rank: int
+    size: int
+
+
+class Mesh:
+    """A training mesh of up to three axes (``pod``, ``data``, ``model``
+    in any subset, that order) over the ranks of the default process
+    group, rank-major as ``jax.make_mesh`` lays out its devices: rank r
+    sits at the coordinates of r in the row-major grid of ``shape``.
+
+    Every rank makes a process group for every nonempty set of the axes
+    (``dist.new_group``, in the same order on every rank), so a
+    collective over any of them (``axis``) needs no private
+    ``DeviceMesh`` API. ``mesh_dim_names``, ``shape``,
+    ``get_local_rank`` and ``get_group`` are ``DeviceMesh``'s, so the
+    rules and ``shard_tensor`` take it as they take one. Build it with
+    ``launch/mesh.py:make_train_mesh``."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "a mesh needs its ranks: one process a rank, joined to one "
+                "process group (repro_torch.distributed.ranks)")
+        if len(shape) != len(axes) or len(set(axes)) != len(axes) or \
+                [a for a in ("pod", "data", "model") if a in axes] != \
+                list(axes):
+            raise ValueError(f"axes {tuple(axes)} of shape {tuple(shape)}: "
+                             f"a subset of ('pod', 'data', 'model') in "
+                             f"that order, one size each")
+        n = 1
+        for sz in shape:
+            n *= sz
+        if dist.get_world_size() != n:
+            raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; the "
+                             f"process group has {dist.get_world_size()}")
+        self.shape = tuple(int(sz) for sz in shape)
+        self.mesh_dim_names = tuple(axes)
+        self.device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        rank, self.coords = dist.get_rank(), {}
+        for a, sz in reversed(list(zip(axes, self.shape))):
+            rank, self.coords[a] = divmod(rank, sz)
+        grid = list(itertools.product(*(range(sz) for sz in self.shape)))
+        self._axes: Dict[Tuple[str, ...], AxisGroup] = {}
+        for k in range(1, len(axes) + 1):
+            for sub in itertools.combinations(axes, k):
+                own = None
+                rest = [a for a in axes if a not in sub]
+                for fixed in itertools.product(*(
+                        range(self.size(a)) for a in rest)):
+                    at = dict(zip(rest, fixed))
+                    members = [r for r, c in enumerate(grid)
+                               if all(c[axes.index(a)] == v
+                                      for a, v in at.items())]
+                    pg = dist.new_group(members)
+                    if all(self.coords[a] == v for a, v in at.items()):
+                        own = pg
+                idx, cnt = 0, 1
+                for a in sub:
+                    idx, cnt = idx * self.size(a) + self.coords[a], \
+                        cnt * self.size(a)
+                self._axes[sub] = AxisGroup(own, idx, cnt)
+
+    def size(self, axis: str) -> int:
+        return mesh_axes(self).get(axis, 1)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def get_group(self, axis: str):
+        return self._axes[(axis,)].group
+
+    def axis(self, *axes: str) -> Optional[AxisGroup]:
+        """The group over ``axes`` (those of the mesh among them, in mesh
+        order); None when none is on the mesh."""
+        sub = tuple(a for a in self.mesh_dim_names if a in axes)
+        return self._axes[sub] if sub else None
+
+    @property
+    def dp(self) -> Optional[AxisGroup]:
+        """The data-parallel axes, ``pod`` and ``data``."""
+        return self.axis("pod", "data")
+
+    def model(self, d_ff: int) -> Optional["ModelGroup"]:
+        """The ``model`` axis as training's layers take it (an even split
+        of ``d_ff``, collectives with a backward); None off the mesh."""
+        ax = self.axis("model")
+        if ax is None:
+            return None
+        return ModelGroup(group=ax.group, rank=ax.rank, size=ax.size,
+                          d_ff=d_ff, ffn_sizes=ffn_split(d_ff, ax.size),
+                          train=True)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelGroup:
     """The ``model`` axis as a layer sees it: its process group, this
     rank's index and the count, and the FFN's split (``ffn_sizes``, one a
     rank, over ``d_ff`` columns). Passed explicitly down the serving entry
     points (``lm.paged_*``, ``_paged_scan``, ``_block_apply``) to the
-    layers that run the collectives."""
+    layers that run the collectives. With ``train`` (``Mesh.model``) the
+    layers run training's collectives, which have a backward
+    (``collectives.copy_in``, ``reduce_out``, ``gather_last``), in place
+    of serving's in-place ones."""
 
     group: Any
     rank: int
     size: int
     d_ff: int
     ffn_sizes: Tuple[int, ...]
+    train: bool = False        # training's collectives, with a backward
 
     @property
     def ffn_start(self) -> int:

@@ -314,13 +314,35 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
     Under tensor parallelism (``group``, a ``sharding.ModelGroup``) the
     weights are this rank's heads: ``wq``/``wk``/``wv`` its columns,
     ``wo`` its rows. The head counts come from their shapes, and the
-    output projection's partial sums are reduced over the ranks."""
+    output projection's partial sums are reduced over the ranks.
+
+    A training group (``ModelGroup.train``, the training forward on a
+    mesh) splits as ``param_spec`` does: ``wq`` and ``wo`` by heads where
+    the heads divide the model axis (else the whole attention runs on
+    every rank, without a collective), ``wk``/``wv`` by KV heads where
+    those divide too; KV heads kept whole are computed on every rank and
+    each takes its query heads' share. x enters through ``copy_in``, as
+    do whole ``wk``/``wv`` (their gradient is each rank's share), and the
+    output leaves through ``reduce_out``."""
     b, s, _ = x.shape
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported (one of {ATTN_KINDS})")
     hd = cfg.resolved_head_dim
     h, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    wk, wv = params["wk"], params["wv"]
+    train = group is not None and group.train
+    if train:
+        if cache is not None or kind in ("cross", "bidir"):
+            raise NotImplementedError(
+                "the training forward on a mesh runs self-attention only")
+        if h == cfg.num_heads:          # heads whole on every rank
+            group = None
+        else:
+            x = collectives.copy_in(x, group)
+            if hkv == cfg.num_kv_heads:
+                wk = collectives.copy_in(wk, group)
+                wv = collectives.copy_in(wv, group)
     scale = 1.0 / hd ** 0.5
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     if kind == "cross":
@@ -332,15 +354,20 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
         out = masked_sdpa(q, repeat_kv(k, h), repeat_kv(v, h), None, scale)
         return collectives.all_reduce(out.reshape(b, s, h * hd)
                                       @ params["wo"], group)
-    k = (x @ params["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ params["wv"]).reshape(b, s, hkv, hd)
+    k = (x @ wk).reshape(b, s, hkv, hd)
+    v = (x @ wv).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
         if kind == "swa" and cfg.window >= s or \
                 kind == "local_chunk" and cfg.attn_chunk >= s:
             kind = "causal"
-        kf, vf = repeat_kv(k, h), repeat_kv(v, h)
+        if train and group is not None and hkv == cfg.num_kv_heads:
+            # whole KV heads: this rank's query heads' share of them
+            kf = repeat_kv(k, cfg.num_heads).narrow(2, group.rank * h, h)
+            vf = repeat_kv(v, cfg.num_heads).narrow(2, group.rank * h, h)
+        else:
+            kf, vf = repeat_kv(k, h), repeat_kv(v, h)
         if kind == "causal":
             out = ops.flash_attention(q, kf, vf)
         elif kind == "bidir":
@@ -359,8 +386,10 @@ def attention(params: Dict, x: torch.Tensor, cfg, *,
         out = _paged_attention(q, k, v, cache)
     else:
         out = _cache_attention(q, k, v, cache, h, kind, cfg)
-    return collectives.all_reduce(out.reshape(b, s, h * hd) @ params["wo"],
-                                  group)
+    out = out.reshape(b, s, h * hd) @ params["wo"]
+    if train:
+        return collectives.reduce_out(out, group)
+    return collectives.all_reduce(out, group)
 
 
 def embed_init(vocab: int, d_model: int, dtype: torch.dtype,
@@ -374,7 +403,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, group=None
                  ) -> torch.Tensor:
     """The tokens' rows of ``table``. Under tensor parallelism the table is
     this rank's block of vocab rows: each rank looks up the tokens it
-    holds, zeroes the others, and the sum over the ranks is the lookup."""
+    holds, zeroes the others, and the sum over the ranks is the lookup
+    (``reduce_out`` under a training group)."""
     if group is None:
         return table[tokens.long()]
     rows = table.shape[0]
@@ -382,6 +412,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, group=None
     hit = (local >= 0) & (local < rows)
     out = torch.where(hit[..., None], table[local.clamp(0, rows - 1)],
                       torch.zeros((), dtype=table.dtype, device=table.device))
+    if group.train:
+        return collectives.reduce_out(out, group)
     return collectives.all_reduce(out, group)
 
 
@@ -389,6 +421,11 @@ def lm_logits(x: torch.Tensor, table: torch.Tensor, group=None
               ) -> torch.Tensor:
     """x @ table^T. Under tensor parallelism the table is this rank's block
     of vocab rows: its logits columns are gathered over the ranks in rank
-    order, so every rank holds the whole row (JAX's replicated logits)."""
+    order, so every rank holds the whole row (JAX's replicated logits).
+    Under a training group x enters through ``copy_in`` and the gather's
+    backward keeps this rank's columns (``gather_last``)."""
+    if group is not None and group.train:
+        return collectives.gather_last(torch.einsum(
+            "bsd,vd->bsv", collectives.copy_in(x, group), table), group)
     return collectives.all_gather_last(torch.einsum("bsd,vd->bsv", x, table),
                                        group)

@@ -7,8 +7,11 @@ Public API:
   init(cfg, device=None, seed=0)             -> params
   prepare_params(params)                     -> params (+ derived weights)
   trainable(params)                          -> params (- derived weights)
-  forward(params, batch, cfg, collect_aux=True) -> (logits, aux) [training]
-  loss_fn(params, batch, cfg, l1_coeff=None) -> (loss, (metrics, aux))
+  forward(params, batch, cfg, collect_aux=True, mesh=None)
+                                             -> (logits, aux) [training]
+  loss_fn(params, batch, cfg, l1_coeff=None, mesh=None)
+                                             -> (loss, (metrics, aux))
+  train_specs(cfg, mesh)                     -> the trainable tree's specs
   init_paged_cache(cfg, num_blocks, block_size, device=None, kv_heads=None)
                                              -> pools
   paged_prefill(params, pools, block_tables, tokens, num_new, cfg, ...)
@@ -56,6 +59,22 @@ audio families' cross-attention K/V (``xk``, ``xv``) are computed once by
 (``encode_frames``). The paged entry points take the dense and MoE
 families without a window or chunk, as the JAX package's engine does.
 
+On a training mesh (``mesh``, a ``sharding.Mesh``; the dense and moe
+families) ``forward`` and ``loss_fn`` take this rank's shards of the
+trainable tree, cut by ``train_specs`` (``make_param_specs(...,
+fsdp=True)``), and the whole batch, of which each cuts its rows by
+``sharding.batch_spec``. Each layer's ``data``-sharded leaves are
+gathered inside the layer loop (``collectives.fsdp_gather``), so the
+step holds one gathered layer at a time, under remat too (the gather is
+recomputed); a leaf whose layer dim FSDP chose comes from the rank that
+holds the layer (``collectives.from_owner``). The model axis is passed
+down as a training ``ModelGroup`` (``Mesh.model``); the aux and the
+metrics are the global ones (``ce`` and ``nnz_mean`` meaned over dp,
+``nnz_max`` maxed), while the loss each rank differentiates is its rows'
+cross-entropy plus the global L1 and balance terms (whose dp means have
+the identity backward): its gradient meaned over the dp ranks is the
+gradient of JAX's loss.
+
 Recomputation runs a layer's forward again in the backward, kernels
 included, so they count again in ``ops.launch_counts()`` and every hybrid
 pack again in ``ops.HybridOverflowLog.rows()``: once more a layer under
@@ -74,6 +93,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import sparse_ffn
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import (attention, attn_init, embed_init,
                                        embed_lookup, lm_logits, norm_apply,
@@ -275,7 +295,7 @@ def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
-                 kv_x=None, group=None):
+                 kv_x=None, group=None, mesh=None, batch_rows=0):
     a = attention(p["attn"], norm_apply(cfg.norm, p["ln1"], x), cfg,
                   positions=positions, kind=kind, kv_x=kv_x, cache=cache,
                   group=group)
@@ -285,9 +305,16 @@ def _block_apply(p, x, cfg, positions, cache, collect_aux, kind="causal",
     h = norm_apply(cfg.norm, p["ln2"], x)
     if "moe" in p:
         y, aux = moe.moe_apply(p["moe"], h, cfg, cfg.sparsity, cfg.gated,
-                               collect_aux=collect_aux)
+                               collect_aux=collect_aux, mesh=mesh,
+                               batch_rows=batch_rows)
         if aux is not None:
             aux.pop("moe_drop_frac", None)
+    elif mesh is not None:
+        # FFN columns split only where d_ff divides the model axis
+        split = group if p["ffn"]["wd"].shape[-2] != cfg.d_ff else None
+        y, aux = sparse_ffn.apply(p["ffn"], h, cfg.sparsity, cfg.gated,
+                                  collect_aux=collect_aux, group=split,
+                                  dp=mesh.dp)
     else:
         y, aux = sparse_ffn.apply(p["ffn"], h, cfg.sparsity, cfg.gated,
                                   collect_aux=collect_aux, group=group)
@@ -451,8 +478,117 @@ def _has_shared_attn(cfg: ModelConfig, layer: int) -> bool:
     return layer % every == every - 1
 
 
+MESH_FAMILIES = ("dense", "moe")
+
+
+@functools.lru_cache(maxsize=None)
+def train_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The trainable tree's specs on ``mesh``: JAX's
+    ``make_param_specs(..., fsdp=True)`` over the shapes of ``init``
+    (AdamW's ``m`` and ``v`` take the same)."""
+    return sharding.make_param_specs(
+        trainable(init(cfg, device=device_mod.SHAPE_ONLY)), cfg, mesh)
+
+
+def _check_mesh_family(cfg: ModelConfig) -> None:
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"training on a mesh runs the families {MESH_FAMILIES}; the "
+            f"{cfg.family!r} family on a mesh is queued in ROADMAP.md "
+            f"(queue 1, item 6.5)")
+
+
+def _gather_leaf(w, spec, data, l=None, per=0):
+    """A leaf's ``data``-sharded dim gathered (``spec`` of the stacked
+    leaf when ``l`` is its layer: dim 0 means the owner sends it)."""
+    if data is None or "data" not in spec:
+        return w
+    dim = spec.index("data")
+    if l is None:
+        return collectives.fsdp_gather(w, data, dim)
+    if dim == 0:
+        return collectives.from_owner(w, data, l // per)
+    return collectives.fsdp_gather(w, data, dim - 1)
+
+
+def _mesh_layers(blocks, specs, n: int, data):
+    """Per-layer (index, tree) of this rank's views of the stacked leaves,
+    each unbound once (as ``_unstack``): layer l's slice, or, where FSDP
+    split the layer dim, the slice at l's place in each rank's block of
+    layers (the owner's is layer l)."""
+    def views(tree, spec):
+        if isinstance(tree, dict):
+            return {k: views(v, spec[k]) for k, v in tree.items()}
+        return torch.unbind(tree), spec[0] == "data" and data is not None
+
+    def pick(vs, l):
+        if isinstance(vs, dict):
+            return {k: pick(v, l) for k, v in vs.items()}
+        per_rank, split = vs
+        return per_rank[l % len(per_rank)] if split else per_rank[l]
+    vs = views(blocks, specs)
+    return [(l, pick(vs, l)) for l in range(n)]
+
+
+def _gather_layer(tree, specs, data, l: int, n: int, cfg, mesh,
+                  path: str = ""):
+    """Layer ``l``'s leaves gathered over ``data`` (``n`` layers). Under
+    ``moe.manual_gather`` the experts stay ``data``-sharded by their
+    per-layer spec, for the dispatch to gather."""
+    if isinstance(tree, dict):
+        return {k: _gather_layer(v, specs[k], data, l, n, cfg, mesh,
+                                 f"{path}/{k}") for k, v in tree.items()}
+    per = n // data.size if data is not None else n
+    if "/experts/" in path + "/" and data is not None and \
+            moe.manual_gather(sharding.dp_axes_of(mesh)):
+        dim = moe.expert_gather_dims(cfg, mesh)[path.rsplit("/", 1)[1]]
+        if "data" not in specs:
+            return tree
+        if specs.index("data") > 0:
+            assert specs.index("data") - 1 == dim, (path, specs, dim)
+            return tree
+        w = collectives.from_owner(tree, data, l // per)
+        if dim < 0:
+            return w
+        m = w.shape[dim] // data.size
+        return w.narrow(dim, data.rank * m, m)
+    return _gather_leaf(tree, specs, data, l, per)
+
+
+def _mesh_forward(params, batch, cfg, mesh, collect_aux: bool = True):
+    """``forward`` on a training mesh (see the module docstring): logits
+    of this rank's rows (B_local, S, V) and the global aux."""
+    _check_mesh_family(cfg)
+    specs = train_specs(cfg, mesh)
+    rows = batch["tokens"].shape[0]
+    tokens = sharding.shard_tensor(
+        batch["tokens"], sharding.batch_spec(2, mesh, rows), mesh)
+    data, mg = mesh.axis("data"), mesh.model(cfg.d_ff)
+    embed = _gather_leaf(params["embed"], specs["embed"], data)
+    vocab = mg if embed.shape[0] != cfg.padded_vocab else None
+    x = embed_lookup(embed, tokens, vocab)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    kind = _attn_kind(cfg)
+
+    def body(xc, lp):
+        l, p = lp
+        p = _gather_layer(p, specs["blocks"], data, l, cfg.num_layers, cfg,
+                          mesh, "blocks")
+        xc, aux = _block_apply(p, xc, cfg, positions, None, collect_aux,
+                               kind=kind, group=mg, mesh=mesh,
+                               batch_rows=rows)
+        return xc, _mark(aux, xc.device)
+    x, aux = stacked_layers(body, x, _mesh_layers(
+        params["blocks"], specs["blocks"], cfg.num_layers, data), cfg)
+    x = norm_apply(cfg.norm, {k: _gather_leaf(v, specs["final_ln"][k], data)
+                              for k, v in params["final_ln"].items()}, x)
+    head = embed if cfg.tied_embeddings else \
+        _gather_leaf(params["lm_head"], specs["lm_head"], data)
+    return lm_logits(x, head, vocab), aux
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig,
-            collect_aux: bool = True):
+            collect_aux: bool = True, mesh=None):
     """Training forward: tokens (B, S) -> (logits (B, S, V), aux), aux
     stacked per layer as the JAX package stacks it (``l1``, ``nnz_mean``,
     ``nnz_max``, ``neuron_active``, ``tile_frac``, ``ffn_present``,
@@ -471,8 +607,13 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig,
     family's self blocks one by one under ``_maybe_remat``, its cross
     blocks never recomputed, as JAX's scan of super-blocks). With
     ``collect_aux`` False no FFN builds its statistics and aux is None:
-    the prefill step's forward, whose aux XLA drops in the JAX package."""
+    the prefill step's forward, whose aux XLA drops in the JAX package.
+    With ``mesh`` (a training ``sharding.Mesh``): this rank's shards and
+    the whole batch, the logits of this rank's rows (the module
+    docstring)."""
     _check_family(cfg)
+    if mesh is not None:
+        return _mesh_forward(params, batch, cfg, mesh, collect_aux)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
@@ -603,13 +744,20 @@ def _audio_forward(params, x, frames, cfg, positions, collect_aux=True):
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig, l1_coeff=None,
-            moe_balance_coeff: float = 0.01):
+            moe_balance_coeff: float = 0.01, mesh=None):
     """Cross-entropy (f32 logsumexp) + Eq. 2 L1 regularization (the mean
-    over FFN-bearing layers) -> (loss, (metrics, aux))."""
-    logits, aux = forward(params, batch, cfg)
+    over FFN-bearing layers) -> (loss, (metrics, aux)). On a training
+    ``mesh`` the loss is this rank's (its rows' cross-entropy, the global
+    L1 and balance terms) and the metrics are global (the module
+    docstring)."""
+    logits, aux = forward(params, batch, cfg, mesh=mesh)
+    labels = batch["labels"]
+    if mesh is not None:
+        labels = sharding.shard_tensor(labels, sharding.batch_spec(
+            2, mesh, labels.shape[0]), mesh)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     ce = (lse - gold).mean()
     mask = aux["ffn_present"]
     denom = torch.clamp(mask.sum(), min=1)
@@ -621,6 +769,10 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig, l1_coeff=None,
                "nnz_mean": (aux["nnz_mean"] * mask).sum() / denom,
                "nnz_max": aux["nnz_max"].max(), "moe_balance": bal,
                "loss": loss}
+    if mesh is not None:
+        dp = mesh.dp
+        metrics["ce"] = collectives.pmean(ce.detach(), dp)
+        metrics["loss"] = collectives.pmean(loss.detach(), dp)
     return loss, (metrics, aux)
 
 

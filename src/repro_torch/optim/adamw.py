@@ -5,6 +5,11 @@ dtype, and the result is functional (new tensors, nothing updated in
 place). ``torch.optim.AdamW`` is not used: its step differs from the JAX
 package's (bias correction and decay order), and the tests compare the
 parameters after training steps.
+
+On a training mesh the tree holds this rank's shards: ``update`` stays
+elementwise on them, and ``global_norm`` (and so the clip) takes the
+mesh and the leaves' specs, summing each leaf's squares over the axes
+its spec shards it on, so that every element counts once.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_like, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -41,14 +46,34 @@ def cosine_schedule(step, peak_lr: float, warmup: int, total: int,
     return torch.where(step < warmup, warm, cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+def _axes_of(spec) -> Tuple[str, ...]:
+    out = []
+    for entry in spec:
+        out += [entry] if isinstance(entry, str) else list(entry or ())
+    return tuple(out)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
-                        ) -> Tuple[Any, torch.Tensor]:
-    gn = global_norm(grads)
+def global_norm(tree: Any, mesh=None, specs: Any = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32. With ``mesh``
+    (a ``sharding.Mesh``) and ``specs`` (one spec a leaf) each leaf's sum
+    over its shards is all-reduced over the axes its spec names (one
+    collective for each set of axes), then summed in leaf order."""
+    sums = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    if mesh is not None:
+        from repro_torch.distributed import collectives
+        axes = [_axes_of(sp) for sp in leaves_like(specs, tree)]
+        for key in dict.fromkeys(a for a in axes if a):
+            at = [i for i, a in enumerate(axes) if a == key]
+            got = collectives.psum(torch.stack([sums[i] for i in at]),
+                                     mesh.axis(*key))
+            for j, i in enumerate(at):
+                sums[i] = got[j]
+    return torch.sqrt(sum(sums))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float, mesh=None,
+                        specs: Any = None) -> Tuple[Any, torch.Tensor]:
+    gn = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 

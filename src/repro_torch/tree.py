@@ -47,6 +47,16 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in leaves_with_path(tree)]
 
 
+def leaves_like(tree: Any, like: Any) -> List[Any]:
+    """The nodes of ``tree`` at the places of ``like``'s leaves, in
+    ``leaves`` order: a tree of specs (tuples) read as ``like``'s leaves."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in leaves_like(tree[k], like[k])]
+    if isinstance(like, (tuple, list)):
+        return [x for t, lk in zip(tree, like) for x in leaves_like(t, lk)]
+    return [tree]
+
+
 def unflatten(like: Any, new_leaves: List[Any]) -> Any:
     """A tree shaped like ``like`` holding ``new_leaves`` in ``leaves``
     order."""

@@ -22,7 +22,9 @@ block with no ELL row, each as one launch; K8 with f32 values on a bf16 W
 and, on an f32 W, in the per-row kernel's f32 FMA order; past N 16384 on
 the wide union maps, at deepseek-67b's and llama3-405b's d_ff), and one
 training step of a 4-layer paper-0.5b under ``remat="full"`` against
-``"none"``: the same gradients bit for bit, a lower peak. Marked ``cuda``: each
+``"none"``: the same gradients bit for bit, a lower peak; the mesh train
+step and ``moe_apply_sorted`` on a one-rank NCCL mesh against their CPU
+plain paths. Marked ``cuda``: each
 test skips without an NVIDIA card (the fixture decides at run time). On the
 machine with the card, from the repo root:
 
@@ -1272,3 +1274,72 @@ def test_serve_tp_beyond_the_cards_refuses(card):
         serve.main(["--reduced", "--backend", "dense", "--tp", str(n + 1)])
     assert f"needs {n + 1} cards" in str(e.value.code) and \
         f"{n} visible" in str(e.value.code)
+
+
+def _mesh_on_card(rank, dev, cfg, moe_cfg, params, batch, moe_params, x):
+    """The train step and the sorted MoE on a one-rank NCCL mesh."""
+    from repro_torch import training
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    mesh = mesh_mod.make_train_mesh((1, 1, 1), ("pod", "data", "model"),
+                                    dev)
+    on = lambda t: t.to(dev)  # noqa: E731
+    p = tree_map(on, params)
+    step = training.make_train_step(cfg, TrainConfig(
+        learning_rate=1e-3, warmup_steps=0, total_steps=4), mesh=mesh)
+    ops.reset_launch_counts()
+    p1, _, m = step(p, adamw.init(p), tree_map(on, batch))
+    launches = ops.launch_counts()
+    y, aux = moe.moe_apply_sorted(tree_map(on, moe_params), on(x), moe_cfg,
+                                  moe_cfg.sparsity, True, mesh,
+                                  ("pod", "data"))
+    return ({k: float(v) for k, v in m.items()}, tree_map(
+        lambda t: t.cpu(), p1), launches, y.cpu(), float(aux["moe_drop_frac"]))
+
+
+def test_mesh_train_step_and_sorted_moe_on_one_nccl_rank(card):
+    """The mesh train step (reduced paper-0.5b, float32, hybrid FFN with
+    48 of 128 gate columns alive: K7, K8 and K9) on a (1, 1, 1) NCCL
+    mesh against the CPU's unsharded step, and ``moe_apply_sorted`` at
+    capacity 8 (nothing drops) against the CPU's one-hot dispatch."""
+    import dataclasses
+    from repro_torch import training
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ranks
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    cfg = get_config("paper-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, ffn_impl="hybrid"))
+    params = lm.trainable(lm.init(cfg, device="cpu", seed=0))
+    params["blocks"]["ffn"]["wg"][..., 48:] = 0
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    moe_cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                                  capacity_factor=8.0)
+    mp = moe.moe_init(moe_cfg.d_model, moe_cfg.d_ff, moe_cfg.num_experts,
+                      True, torch.float32, gen, torch.device("cpu"))
+    x = torch.randn((2, 32, moe_cfg.d_model), generator=gen)
+    m, p1, launches, y, drop = ranks.in_one_rank(
+        _mesh_on_card, card, (cfg, moe_cfg, params, batch, mp, x))
+    assert all(launches[k] > 0 for k in ("flash_attention",
+                                         "hybrid_to_dense",
+                                         "dense_to_hybrid")), launches
+    step = training.make_train_step(cfg, TrainConfig(
+        learning_rate=1e-3, warmup_steps=0, total_steps=4))
+    q1, _, want = step(params, adamw.init(params), batch)
+    for k in ("loss", "ce", "grad_norm", "nnz_mean"):
+        np.testing.assert_allclose(m[k], float(want[k]), **TOL)
+    for a, b in zip(leaves(p1), leaves(q1)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+    y_ref, _ = moe.moe_apply_onehot(mp, x, moe_cfg, moe_cfg.sparsity, True)
+    assert drop == 0.0
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), **TOL)

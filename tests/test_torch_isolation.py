@@ -54,11 +54,20 @@ def test_walk_covers_the_package():
             "zamba2_1p2b.py", "rwkv6_7b.py", "whisper_large_v3.py",
             "llama_3p2_vision_11b.py", "dryrun.py", "dryrun_all.py",
             "specs.py", "op_analysis.py", "sharding.py", "collectives.py",
-            "ranks.py", "mesh.py"} <= names
+            "ranks.py", "mesh.py", "compress.py"} <= names
     walked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"src/repro_torch/distributed/sharding.py",
             "src/repro_torch/distributed/collectives.py",
-            "src/repro_torch/launch/mesh.py"} <= walked
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/optim/compress.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/training.py",
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/core/sparse_ffn.py",
+            "src/repro_torch/bridge.py", "src/repro_torch/tree.py"} <= walked
 
 
 @pytest.fixture
@@ -117,6 +126,9 @@ def test_entry_points_need_a_card_unless_cpu(no_card):
     from repro_torch.distributed.sharding import make_serving_mesh
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_serving_mesh(1)
+    from repro_torch.launch.mesh import make_train_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_mesh((1, 1, 1), ("pod", "data", "model"))
     engine = ServingEngine(params, cfg, block_size=4, max_seq_len=16,
                            device="cpu")
     assert engine.generate([[1, 2, 3]], max_tokens=2)[0].token_ids
